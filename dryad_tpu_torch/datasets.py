@@ -1,0 +1,29 @@
+"""Synthetic Higgs-shaped data, a copy of ``dryad_tpu.datasets.higgs_like``
+so that both packages make the same rows from the same seed."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _rng(seed: int) -> np.random.Generator:
+    return np.random.Generator(np.random.Philox(seed))
+
+
+def higgs_like(n: int = 100_000, num_features: int = 28, seed: int = 7):
+    """Binary physics-ish task: nonlinear signal over dense float features
+    (HIGGS is 11M x 28 dense, binary)."""
+    rng = _rng(seed)
+    X = rng.normal(size=(n, num_features)).astype(np.float32)
+    w1 = rng.normal(size=num_features).astype(np.float32)
+    score = (
+        X @ w1
+        + 0.9 * np.sin(X[:, 0] * X[:, 1])
+        + 0.8 * (X[:, 2] * X[:, 3])
+        + 0.7 * np.square(X[:, 4])
+        - 0.5 * np.abs(X[:, 5])
+    )
+    score = (score - score.mean()) / (score.std() + 1e-9)
+    p = 1.0 / (1.0 + np.exp(-1.5 * score))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    return X, y

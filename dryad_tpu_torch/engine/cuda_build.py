@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``.  The build
+goes to ``dryad_tpu_torch/_build/`` (git-ignored) at first use; a library is
+named after the hash of its source and flags, so an edited source is
+rebuilt and an unchanged one is reused.  All sources are compiled in
+parallel, one ``nvcc`` process each.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine may have no ``nvcc``.
+
+``counts`` holds one launch counter per kernel.  A wrapper adds one where
+it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("hist", "perm")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+counts = {"hist": 0, "perm": 0}
+build_seconds: float | None = None
+build_log: dict[str, str] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every missing library in parallel, then load all of them."""
+    global build_seconds
+    if len(_libs) == len(SOURCES):
+        return _libs
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for name in SOURCES:
+        _libs[name] = ctypes.CDLL(_lib_path(name))
+    _declare(_libs)
+    build_seconds = time.perf_counter() - t0
+    return _libs
+
+
+def _declare(libs: dict[str, ctypes.CDLL]) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = libs["hist"].dryad_hist_tiles
+    # rec, src, tile_leaf, item_first, n_sel, n_items, partials,
+    # F, B, itemsize, f_chunk, n_chunks, leaf_item_start, out, P, stream
+    fn.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, p, p, i, p]
+    fn.restype = i
+    fn = libs["perm"].dryad_permute_records
+    # rec, pos, dstl, dstr, out, n_tiles, cap_rows, stream
+    fn.argtypes = [p, p, p, p, p, i, i, p]
+    fn.restype = i
+
+
+def lib(name: str) -> ctypes.CDLL:
+    return build_all()[name]
+
+
+def check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

@@ -1,0 +1,325 @@
+"""Level-wise (depthwise) tree grower on the wired leaf-ordered layout.
+
+The counterpart of ``dryad_tpu/engine/levelwise.py::grow_tree_levelwise``,
+wired arm only.  The layout is live from the root: the natural-order
+record buffer is a one-segment layout; each level routes every row off a
+packed per-slot table, moves the rows to their child segments (K2), and
+histograms the smaller children as contiguous tile runs (K1); the larger
+children come by subtraction from the parent.
+
+Semantics are the reference's: within a level, splits apply in
+best-gain-first order (stable, lowest slot first) until the ``num_leaves``
+budget runs out; the left child keeps the parent's slot, right children
+take consecutive slot ids in execution order.
+
+The reference runs the levels in two ``fori_loop`` phases at a narrow and
+a full candidate width (``phase_plan``); here the levels are a Python loop
+with the same per-phase widths, which fix each phase's static histogram
+plan size.  Nothing is fetched to the host inside the loop: every
+data-dependent size is a static bound, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from dryad_tpu_torch.engine import hist as _hist
+from dryad_tpu_torch.engine import leafperm
+from dryad_tpu_torch.engine.grower import finalize_leaf_values, root_stats
+from dryad_tpu_torch.engine.histogram import build_hist
+from dryad_tpu_torch.engine.ops import drop_set
+from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
+
+# the wired layout's caps, kept from the reference as constants of the
+# port: bins <= 1024 (K1, hist.MAX_BINS), leaves <= 512, records <= 128 B.
+# They also keep the packed routing word's fields (13-bit threshold,
+# 16-bit slot) from overflowing.
+MAX_LAYOUT_LEAVES = 512
+MAX_RECORD_BYTES = leafperm.REC_WB
+
+
+def deep_layout_supported(p, num_features: int, total_bins: int,
+                          bin_itemsize: int) -> bool:
+    """Static gate for the wired grower: a pure function of params and the
+    feature/bin shape, never of the row count."""
+    return (_hist.supports(total_bins)
+            and p.effective_num_leaves <= MAX_LAYOUT_LEAVES
+            and 9 + num_features * bin_itemsize <= MAX_RECORD_BYTES)
+
+
+def phase_plan(depth_cap: int, num_leaves: int, nat_live: bool):
+    """(d_switch, P_narrow, P_full) for the two-phase level loop, as the
+    reference defines it.  The wired path never runs the natural-order
+    pass, so callers pass ``nat_live=False``."""
+    P_full = min(1 << (depth_cap - 1), num_leaves - 1)
+    d_cut = 5 if nat_live else 4
+    d_switch = d_cut if (depth_cap > d_cut and P_full > (1 << (d_cut - 1))) \
+        else depth_cap
+    P_narrow = min(1 << (d_switch - 1), num_leaves - 1)
+    return d_switch, P_narrow, P_full
+
+
+def _packed_route(rr: torch.Tensor, bins_of, learn_missing: bool):
+    """Per-row split routing off packed per-slot words: (splits?,
+    goes-left?, w0).  ``rr`` int64 holds the reference's routing word w0 in
+    its low 32 bits and the split feature above them.
+
+    The reference packs w0 in a uint32 with bit 31 set, beside the feature
+    in a second uint32 column; torch's uint32 shifts and compares are thin,
+    so the port keeps w0's field layout in the low half of one int64 (one
+    8-byte gather per row instead of a 16-byte row gather)."""
+    w0r = rr & 0xFFFFFFFF
+    bins_rf = bins_of(rr >> 32)
+    thr_r = (w0r >> 16) & 0x1FFF
+    gl = bins_rf <= thr_r
+    if learn_missing:
+        gl &= (((w0r >> 30) & 1) != 0) | (bins_rf > 0)
+    return (w0r >> 31) != 0, gl, w0r
+
+
+def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
+                        g: torch.Tensor, h: torch.Tensor,
+                        bag_mask: torch.Tensor, feat_mask: torch.Tensor, *,
+                        learn_missing: bool = False) -> dict[str, Any]:
+    p = params
+    N, F = Xb.shape
+    B = int(total_bins)
+    L = p.effective_num_leaves
+    M = p.max_nodes
+    depth_cap = p.max_depth
+    dev = Xb.device
+    isz = leafperm.bin_itemsize(Xb)
+    if depth_cap <= 0:
+        raise ValueError("levelwise growth requires max_depth > 0")
+    if not deep_layout_supported(p, F, B, isz):
+        raise NotImplementedError(
+            f"this config (num_leaves={L}, total_bins={B}, "
+            f"{9 + F * isz}-byte records) is outside the wired layout; the "
+            "legacy plan arm that takes it is a later slice of the port")
+    i64, f32 = torch.int64, torch.float32
+
+    def best(hist, G, H, C, allow):
+        return find_best_split(
+            hist, G, H, C, lambda_l2=p.lambda_l2,
+            min_child_weight=p.min_child_weight,
+            min_data_in_leaf=p.min_data_in_leaf,
+            min_split_gain=p.min_split_gain, feat_mask=feat_mask,
+            allow=allow, learn_missing=learn_missing)
+
+    # ---- root: the natural-order records are the one-segment layout ------
+    T = leafperm.TILE_ROWS
+    n_row_tiles = -(-N // T)
+    n_buf_tiles = leafperm.wired_tiles_bound(n_row_tiles, L)
+    rec_nat = leafperm.make_layout_records(Xb, g, h, valid=bag_mask)
+    lay_rec, lay_tr, lay_rs = leafperm.natural_root_layout(
+        rec_nat, L, n_buf_tiles)
+    del rec_nat
+    hist0 = build_hist(Xb, g, h, bag_mask, B, records=lay_rec)
+    G0, H0, C0 = root_stats(hist0)
+    root = best(hist0[None], G0[None], H0[None], C0[None],
+                (C0 >= 2 * p.min_data_in_leaf)[None])
+
+    slot_node = torch.full((L,), -1, dtype=i64, device=dev)
+    slot_node[0] = 0
+    slot_gain = torch.full((L,), NEG_INF, dtype=f32, device=dev)
+    slot_gain[0] = root["gain"][0]
+    slot_G = torch.zeros(L, dtype=f32, device=dev)
+    slot_G[0] = G0
+    slot_H = torch.zeros(L, dtype=f32, device=dev)
+    slot_H[0] = H0
+    slot_C = torch.zeros(L, dtype=f32, device=dev)
+    slot_C[0] = C0
+    slot_depth = torch.zeros(L, dtype=i64, device=dev)
+    sp = {k: torch.zeros(L, dtype=f32, device=dev)
+          for k in ("g_left", "h_left", "c_left")}
+    sp["feature"] = torch.full((L,), -1, dtype=i64, device=dev)
+    sp["threshold"] = torch.zeros(L, dtype=i64, device=dev)
+    sp["default_left"] = torch.ones(L, dtype=torch.bool, device=dev)
+    for k in sp:
+        sp[k][0] = root[k][0]
+    # one sentinel row (index L) takes the dropped histogram writes
+    hists = torch.zeros((L + 1, 3, F, B), dtype=f32, device=dev)
+    hists[0] = hist0
+
+    cover = torch.zeros(M, dtype=f32, device=dev)
+    cover[0] = C0
+    feature = torch.full((M,), -1, dtype=i64, device=dev)
+    threshold = torch.zeros(M, dtype=i64, device=dev)
+    gain_arr = torch.zeros(M, dtype=f32, device=dev)
+    left = torch.zeros(M, dtype=i64, device=dev)
+    right = torch.zeros(M, dtype=i64, device=dev)
+    node_dleft = torch.ones(M, dtype=torch.bool, device=dev)
+    num_nodes = torch.ones((), dtype=i64, device=dev)
+    splits_done = torch.zeros((), dtype=i64, device=dev)
+    max_depth = torch.zeros((), dtype=i64, device=dev)
+    row_slot = torch.zeros(N, dtype=i64, device=dev)
+
+    d_switch, P_narrow, P_full = phase_plan(depth_cap, L, False)
+    # smaller children cover <= half the real rows on one device while the
+    # f32 counts behind the smaller-child choice are exact (< 2^24 rows)
+    half_ok = N < (1 << 24)
+    if p.hist_subtraction:
+        sel_bound = {P: leafperm.wired_sel_tiles_bound(
+            n_row_tiles, n_buf_tiles, P, half=half_ok)
+            for P in (P_narrow, P_full)}
+    else:
+        sel_bound = {P: leafperm.wired_sel_tiles_bound(
+            n_row_tiles, n_buf_tiles, 2 * P, half=False)
+            for P in (P_narrow, P_full)}
+    arange_L = torch.arange(L, dtype=i64, device=dev)
+
+    for d in range(depth_cap):
+        P = P_narrow if d < d_switch else P_full
+        n_sel_tiles = sel_bound[P]
+        at_level = (slot_depth == d) & (slot_gain > NEG_INF) & (slot_node >= 0)
+        # gain-descending, stable: the lowest slot id wins ties
+        order = torch.argsort(
+            torch.where(at_level, -slot_gain, float("inf")), stable=True)
+        sj = order[:P]
+        budget_left = (L - 1) - splits_done
+        do = at_level[sj] & (torch.arange(P, device=dev) < budget_left)
+        doi = do.to(i64)
+        n_do = doi.sum()
+
+        parent_node = slot_node[sj]
+        sf = sp["feature"][sj]
+        thr = sp["threshold"][sj]
+        GL, HL, CL = sp["g_left"][sj], sp["h_left"][sj], sp["c_left"][sj]
+        GR, HR, CR = slot_G[sj] - GL, slot_H[sj] - HL, slot_C[sj] - CL
+
+        # slot/node allocation in execution (gain) order
+        ks = splits_done + torch.cumsum(doi, 0) - doi
+        right_slot = torch.where(do, ks + 1, L)
+        left_id = torch.where(do, num_nodes + 2 * (ks - splits_done), 0)
+        right_id = left_id + 1
+
+        # candidates that do not split write to the dropped index M
+        pidx = torch.where(do, parent_node, M)
+        feature = drop_set(feature, pidx, sf)
+        gain_arr = drop_set(gain_arr, pidx,
+                            torch.where(do, slot_gain[sj], 0.0))
+        threshold = drop_set(threshold, pidx, thr)
+        left = drop_set(left, pidx, left_id)
+        right = drop_set(right, pidx, right_id)
+        node_dleft = drop_set(node_dleft, pidx, sp["default_left"][sj])
+        cover = drop_set(cover, torch.where(do, left_id, M), CL)
+        cover = drop_set(cover, torch.where(do, right_id, M), CR)
+
+        # ---- packed per-slot routing table (L+1,): w0 | feature << 32 -----
+        w0_c = ((1 << 31) | (sp["default_left"][sj].to(i64) << 30)
+                | (torch.clamp(thr, 0, B - 1) << 16) | right_slot)
+        rec_t = drop_set(
+            torch.zeros(L + 1, dtype=i64, device=dev),
+            torch.where(do, sj, L + 1),
+            w0_c | (torch.clamp(sf, min=0) << 32))
+
+        # natural-order routing, kept for each row's final leaf
+        rr = rec_t[torch.clamp(row_slot, max=L - 1)]
+        do_n, left_n, w0r = _packed_route(
+            rr, lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
+            learn_missing)
+        row_do = do_n & (row_slot < L)
+        row_slot = torch.where(row_do & ~left_n, w0r & 0xFFFF, row_slot)
+
+        # ---- wired level: sides off the layout records, one move ---------
+        # every row of a tile shares the tile's run, so the routing word is
+        # gathered per tile and broadcast over its 512 rows
+        rr_lay = rec_t[torch.clamp(lay_rs, max=L)][lay_tr][:, None]
+        rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
+        valid_lay = rec3[:, :, 8] == 1
+        do_lay, left_lay, _ = _packed_route(
+            rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz),
+            learn_missing)
+        side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
+                           2).reshape(-1)
+        del rr_lay, rec3, valid_lay, do_lay, left_lay
+        pos, dstl, dstr, base_l, base_r, _ = leafperm.level_moves(
+            lay_tr, side, L)
+        del side
+        lay_rec = leafperm.permute_records(lay_rec, pos, dstl, dstr,
+                                           n_buf_tiles)
+        del pos, dstl, dstr
+        # slot -> run inverse before advancing; dead runs go to L + 1,
+        # outside the (L+1,) table, so the sentinel cell L stays intact
+        slot_run = drop_set(
+            torch.full((L + 1,), L, dtype=i64, device=dev),
+            torch.where(lay_rs < L, lay_rs, L + 1), arange_L)
+        slot_do_t = ((rec_t >> 31) & 1) != 0
+        slot_right_t = rec_t & 0xFFFF
+        lrs_c = torch.clamp(lay_rs, max=L)
+        run_do = slot_do_t[lrs_c] & (lay_rs < L)
+        lay_tr, lay_rs = leafperm.advance_runs(
+            lay_rs, run_do, slot_right_t[lrs_c], base_l, base_r, n_buf_tiles)
+
+        # children are contiguous segments of the new layout
+        rj = slot_run[torch.clamp(sj, max=L)]
+        rjc = torch.clamp(rj, max=L - 1)
+        lt_l = base_l[1:] - base_l[:-1]
+        lt_r = base_r[1:] - base_r[:-1]
+        sel_ok = do & (rj < L)
+        if p.hist_subtraction:
+            ls = CL <= CR
+            seg_first = torch.where(
+                sel_ok, torch.where(ls, base_l[rjc], base_r[rjc]), 0)
+            seg_nt = torch.where(
+                sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
+            hist_small = leafperm.hist_from_layout(
+                lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles)
+            hist_large = torch.index_select(hists, 0, sj) - hist_small
+            ls4 = ls[:, None, None, None]
+            hist_l = torch.where(ls4, hist_small, hist_large)
+            hist_r = torch.where(ls4, hist_large, hist_small)
+        else:
+            # both children in one 2P-column pass over the new layout
+            segf2 = torch.cat([torch.where(sel_ok, base_l[rjc], 0),
+                               torch.where(sel_ok, base_r[rjc], 0)])
+            segn2 = torch.cat([torch.where(sel_ok, lt_l[rjc], 0),
+                               torch.where(sel_ok, lt_r[rjc], 0)])
+            h2 = leafperm.hist_from_layout(
+                lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles)
+            hist_l, hist_r = h2[:P], h2[P:]
+        hists[torch.where(do, sj, L)] = hist_l
+        hists[torch.where(do, right_slot, L)] = hist_r
+
+        # ---- children's stats and best splits, batched -------------------
+        ch_slot = torch.cat([sj, right_slot])
+        ch_do = torch.cat([do, do])
+        ch_G = torch.cat([GL, GR])
+        ch_H = torch.cat([HL, HR])
+        ch_C = torch.cat([CL, CR])
+        allow = ch_do & (d + 1 < depth_cap) & (ch_C >= 2 * p.min_data_in_leaf)
+        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow)
+
+        cidx = torch.where(ch_do, ch_slot, L)
+        slot_node = drop_set(slot_node, cidx, torch.cat([left_id, right_id]))
+        slot_gain = drop_set(slot_gain, cidx, res["gain"])
+        slot_G = drop_set(slot_G, cidx, ch_G)
+        slot_H = drop_set(slot_H, cidx, ch_H)
+        slot_C = drop_set(slot_C, cidx, ch_C)
+        slot_depth = drop_set(slot_depth, cidx,
+                              torch.full_like(cidx, d + 1))
+        for k in sp:
+            sp[k] = drop_set(sp[k], cidx, res[k])
+
+        splits_done = splits_done + n_do
+        num_nodes = num_nodes + 2 * n_do
+        max_depth = torch.where(n_do > 0, d + 1, max_depth)
+
+    value = finalize_leaf_values(p, M, slot_node, slot_G, slot_H,
+                                 torch.zeros(M, dtype=f32, device=dev))
+    return {
+        "feature": feature,
+        "threshold": threshold,
+        "left": left,
+        "right": right,
+        "value": value,
+        "gain": gain_arr,
+        "default_left": node_dleft,
+        "cover": cover,
+        "max_depth": max_depth,
+        # each row's leaf node from the partition state (no re-traversal)
+        "row_leaf": torch.clamp(slot_node, min=0)[
+            torch.clamp(row_slot, max=L - 1)],
+    }

@@ -1,0 +1,81 @@
+"""Split-gain scan for numerical features, batched over candidates.
+
+The counterpart of ``dryad_tpu/engine/split.py::find_best_split`` without
+its categorical and monotone arms.  The reference vmaps the scan over a
+level's candidates; here the candidate axis is a leading batch dimension.
+Per-feature prefix sums, the Newton gain on both sides, a validity mask,
+and one flat argmax with first-index tie-breaking (``torch.argmax``
+returns the first maximum, as ``jnp.argmax`` does).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+
+
+def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
+                    C: torch.Tensor, *, lambda_l2: float,
+                    min_child_weight: float, min_data_in_leaf: int,
+                    min_split_gain: float, feat_mask: torch.Tensor,
+                    allow: torch.Tensor,
+                    learn_missing: bool = False) -> dict[str, torch.Tensor]:
+    """hist (K, 3, F, B) f32; G/H/C/allow (K,).  Returns a dict of (K,)
+    tensors: gain (-inf where no valid split), feature (-1 then),
+    threshold, g_left, h_left, c_left, default_left."""
+    hg, hh, hc = hist[:, 0], hist[:, 1], hist[:, 2]
+    K, F, B = hg.shape
+    G3, H3, C3 = G[:, None, None], H[:, None, None], C[:, None, None]
+    GL = torch.cumsum(hg, dim=2)
+    HL = torch.cumsum(hh, dim=2)
+    CL = torch.cumsum(hc, dim=2)
+    fmask = feat_mask[None, :, None]
+
+    def gain_of(GLx, HLx, CLx):
+        GRx, HRx, CRx = G3 - GLx, H3 - HLx, C3 - CLx
+        valid = ((CLx >= min_data_in_leaf) & (CRx >= min_data_in_leaf)
+                 & (HLx >= min_child_weight) & (HRx >= min_child_weight)
+                 & fmask)
+        parent = G3 * G3 / (H3 + lambda_l2)
+        gain = 0.5 * (GLx * GLx / (HLx + lambda_l2)
+                      + GRx * GRx / (HRx + lambda_l2) - parent)
+        return torch.where(valid, gain, NEG_INF)
+
+    gain = gain_of(GL, HL, CL).reshape(K, F * B)
+    rows = torch.arange(K, device=hist.device)
+    if learn_missing:
+        # second plane: the missing bin (0) goes right, left = bins 1..t.
+        # The missing-left plane comes first in the flat argmax, so on data
+        # without missing values the tie-break keeps missing-left.
+        g0, h0, c0 = hg[:, :, :1], hh[:, :, :1], hc[:, :, :1]
+        CL_r = CL - c0
+        gain_r = gain_of(GL - g0, HL - h0, CL_r)
+        # a right child of only missing rows mirrors plane 0 at t=0
+        gain_r = torch.where((C3 - CL_r) > c0, gain_r, NEG_INF)
+        both = torch.cat([gain, gain_r.reshape(K, F * B)], dim=1)
+        flat2 = torch.argmax(both, dim=1)
+        dleft = flat2 < F * B
+        flat = flat2 % (F * B)
+        best_gain = both[rows, flat2]
+    else:
+        flat = torch.argmax(gain, dim=1)
+        dleft = torch.ones(K, dtype=torch.bool, device=hist.device)
+        best_gain = gain[rows, flat]
+    f = flat // B
+    t = flat % B
+    ok = allow & torch.isfinite(best_gain) & (best_gain > min_split_gain)
+    g_left, h_left, c_left = GL[rows, f, t], HL[rows, f, t], CL[rows, f, t]
+    if learn_missing:
+        g_left = torch.where(dleft, g_left, g_left - hg[rows, f, 0])
+        h_left = torch.where(dleft, h_left, h_left - hh[rows, f, 0])
+        c_left = torch.where(dleft, c_left, c_left - hc[rows, f, 0])
+    return {
+        "gain": torch.where(ok, best_gain, NEG_INF),
+        "feature": torch.where(ok, f, -1),
+        "threshold": t,
+        "g_left": g_left,
+        "h_left": h_left,
+        "c_left": c_left,
+        "default_left": dleft | ~ok,
+    }

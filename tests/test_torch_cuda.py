@@ -1,0 +1,121 @@
+"""The port's CUDA kernels on the card against their plain versions.
+
+Marked ``cuda``: each test needs an NVIDIA GPU and skips without one (a
+CUDA kernel has no CPU mode).  This file imports neither jax nor
+dryad_tpu, so it also runs on a machine that has only the port installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: K1 counts exact and g/h at rtol 1e-5 / atol 1e-4 (the
+histogram contract); K1 twice and K2 against the numpy oracle bitwise;
+a tree grown on the card vs on the CPU: integer arrays equal and leaf
+values within 1e-4 (the split scan's fp32 prefix sums may round
+differently on the two devices).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dryad_tpu_torch.config import Params
+from dryad_tpu_torch.engine import leafperm
+from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
+
+T = leafperm.TILE_ROWS
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _grouped_layout(rng, N, F, B, S):
+    Xb = rng.integers(0, B, (N, F)).astype(np.uint8)
+    g = rng.normal(size=N).astype(np.float32)
+    h = rng.uniform(0.1, 1, N).astype(np.float32)
+    rec_nat = leafperm.make_layout_records(
+        torch.from_numpy(Xb), torch.from_numpy(g), torch.from_numpy(h)).numpy()
+    seg_of = rng.integers(0, S, N)
+    lt = np.maximum(-(-np.bincount(seg_of, minlength=S) // T), 1)
+    base = np.concatenate([[0], np.cumsum(lt)])
+    rec = np.zeros((base[-1] * T, leafperm.REC_WB), np.uint8)
+    for s in range(S):
+        rows = rec_nat[seg_of == s]
+        rec[base[s] * T: base[s] * T + len(rows)] = rows
+    return rec, lt, base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(28, 256), (5, 1024)])
+def test_hist_kernel_matches_plain(cuda_device, F, B):
+    rng = np.random.default_rng(F)
+    rec, lt, base = _grouped_layout(rng, 20000, F, B, 6)
+    seg_first = torch.tensor([int(base[5]), 0, int(base[2])])
+    seg_nt = torch.tensor([int(lt[5]), 0, int(lt[2])])
+    n_sel = int(lt[5] + lt[2]) + 1
+    rec_t = torch.from_numpy(rec)
+    args = (3, B, F, 1, n_sel)
+    a = leafperm.hist_from_layout(rec_t.to(cuda_device),
+                                  seg_first.to(cuda_device),
+                                  seg_nt.to(cuda_device), *args)
+    b = leafperm.hist_from_layout(rec_t.to(cuda_device),
+                                  seg_first.to(cuda_device),
+                                  seg_nt.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = leafperm.hist_from_layout(rec_t, seg_first, seg_nt, *args)
+    got = a.cpu()
+    assert torch.equal(got[:, 2], plain[:, 2])
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert not got[1].any()                     # empty selection zeroed
+
+
+@pytest.mark.cuda
+def test_perm_kernel_matches_oracle(cuda_device):
+    rng = np.random.default_rng(5)
+    counts = [3000, 17, 2500, 0]
+    lt = np.maximum(-(-np.asarray(counts) // T), 1)
+    tile_slot = np.repeat(np.arange(len(counts)), lt).astype(np.int64)
+    rec = np.zeros((lt.sum() * T, leafperm.REC_WB), np.uint8)
+    side = np.full(lt.sum() * T, 2, np.int64)
+    base = np.concatenate([[0], np.cumsum(lt)])
+    for s, c in enumerate(counts):
+        rec[base[s] * T: base[s] * T + c] = rng.integers(1, 255, (c, 128))
+        side[base[s] * T: base[s] * T + c] = rng.random(c) < 0.45
+    pos, dstl, dstr, _, _, _ = leafperm.level_moves(
+        torch.from_numpy(tile_slot).to(cuda_device),
+        torch.from_numpy(side).to(cuda_device), len(counts))
+    bound = leafperm.tiles_bound(rec.shape[0], len(counts))
+    got = leafperm.permute_records(torch.from_numpy(rec).to(cuda_device),
+                                   pos, dstl, dstr, bound)
+    oracle, _, _ = leafperm.permute_records_np(rec, tile_slot, side,
+                                               len(counts), bound)
+    np.testing.assert_array_equal(got.cpu().numpy(), oracle)
+
+
+@pytest.mark.cuda
+def test_tree_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(9)
+    N, F, B = 30000, 8, 64
+    Xb = rng.integers(1, B, (N, F)).astype(np.uint8)
+    y = (rng.random(N) < 1 / (1 + np.exp(-(Xb[:, 0] / B - 0.5) * 4)))
+    g = (0.5 - y).astype(np.float32) + rng.normal(0, 0.01, N).astype(np.float32)
+    h = np.full(N, 0.25, np.float32)
+    p = Params(growth="depthwise", max_depth=6, num_leaves=40, max_bins=B)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        out[str(dev)] = grow_tree_levelwise(
+            p, B, torch.from_numpy(Xb).to(dev), torch.from_numpy(g).to(dev),
+            torch.from_numpy(h).to(dev), torch.ones(N, dtype=torch.bool,
+                                                    device=dev),
+            torch.ones(F, dtype=torch.bool, device=dev))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "row_leaf", "cover"):
+        np.testing.assert_array_equal(card[k].cpu().numpy(), cpu[k].numpy(),
+                                      err_msg=k)
+    np.testing.assert_allclose(card["value"].cpu().numpy(),
+                               cpu["value"].numpy(), atol=1e-4)
