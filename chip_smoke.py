@@ -1,27 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--rows N] [--trees T] [--seed S]
+    python3 chip_smoke.py [--rows N] [--trees T] [--seed S] [--reps R]
+                          [--eps-rows N] [--eps-trees T]
 
 Phases (any failed check exits non-zero):
 
 1. the card's name and power limit; build the CUDA kernels from
    ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. Higgs-shaped data, ``rows`` training rows + 1M held-out rows, from the
-   seed; one capture tree records each kernel's inputs at main-path shapes;
-3. K1 (histograms) on the card vs its plain version at the root and at the
-   widest level (P=128): counts exact, g/h within rtol 1e-5 / atol 1e-4,
-   two launches bitwise equal; K2 (row move) at a depth-4 level, bitwise;
-   each with its time, the plain version's, one library call's and the
-   bound;
-4. training on the headline config (28 features, 256 bins, depthwise,
+   seed; one capture tree of the wired path records its kernels' inputs;
+3. K1 layout mode (histograms) on the card vs its plain version at the
+   root and at the widest level (P=128): counts exact, g/h within rtol
+   1e-5 / atol 1e-4, two launches bitwise equal; K2 (row move) at a
+   depth-4 level, bitwise; each with its time, the plain version's, one
+   library call's and the bound;
+4. the wired path: the headline config (28 features, 256 bins, depthwise,
    max_depth 8, 255 leaves, learning rate 0.1) with the launch counts set
    to 0 just before: 9 K1 and 8 K2 launches per tree; a second run gives
    bitwise-equal trees;
 5. predict of the held-out rows on the card, bitwise equal to the port's
    own CPU predict; AUC above 0.70 and rising from tree 1 to the last;
-6. one tree under torch.profiler: device time by kernel and the device's
-   busy share of the tree's wall time.
+6. one wired tree under torch.profiler: device time by kernel and the
+   device's busy share of the tree's wall time;
+7. wired against legacy on a tie-free fixture (50k rows, 64 bins, 4
+   trees, 128 leaves, depth 8): equal trees;
+8. the legacy plan arm at the headline config (``deep_layout="legacy"``):
+   one capture tree; K3 (natural-order pass) at level 4 (P=16) and K1 row
+   mode at level 7 (P=128) vs their plain versions, as in phase 3;
+9. the legacy path: 5 K3, 4 K1 row-mode and no other launches per tree; a
+   second run bitwise equal; card predict bitwise equal to CPU predict; AUC
+   above 0.70 and rising; the tree-1 nodes that differ from the wired
+   run's tree 1 (reported, not gated); one tree profiled;
+10. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
+   out, 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
+   freed: K1 row mode vs its plain version at the root and the widest
+   level (P=32); 7 K1 row-mode launches per tree and no other; a second
+   run bitwise equal; held-out RMSE falls from tree 1 to the last and ends
+   below the label's standard deviation; time per tree, peak memory, one
+   tree profiled.
 
 It prints, on lines of their own, a ``kernels`` JSON object, the card's
 ``name, power limit`` as nvidia-smi gives them and, last,
@@ -33,6 +50,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -43,6 +61,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 HEADLINE_ROWS = 10_000_000
 HOLDOUT_ROWS = 1_000_000
+EPS_ROWS = 400_000
+EPS_HOLDOUT = 100_000
+EPS_FEATURES = 2000
+OUT = "chiprun_out"
 
 
 def fail(msg: str) -> None:
@@ -60,6 +82,12 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -85,83 +113,149 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def capture_inputs(dt, params, ds, dev):
-    """Train one tree with the kernel wrappers wrapped, keeping the inputs
-    of the root histogram, the last (widest) level's histogram and the
-    depth-4 row move."""
-    from dryad_tpu_torch.engine import hist, leafperm
+def capture(dt, params, ds, dev, names):
+    """Train one tree with the named kernel wrappers wrapped; returns each
+    wrapper's calls as (args, kwargs).  ``names`` maps a label to
+    (module, attribute)."""
+    calls = {k: [] for k in names}
+    real = {k: getattr(m, a) for k, (m, a) in names.items()}
 
-    calls = {"hist": [], "perm": []}
-    real_hist, real_perm = hist.hist_tiles, leafperm.permute_records
+    def spy(k):
+        def f(*a, **kw):
+            calls[k].append((a, kw))
+            return real[k](*a, **kw)
+        return f
 
-    def hist_rec(*a, **k):
-        calls["hist"].append(a)
-        return real_hist(*a, **k)
-
-    def perm_rec(*a, **k):
-        calls["perm"].append(a)
-        return real_perm(*a, **k)
-
-    hist.hist_tiles, leafperm.permute_records = hist_rec, perm_rec
+    for k, (m, a) in names.items():
+        setattr(m, a, spy(k))
     try:
         dt.train(dict(params, num_trees=1), ds, device=dev)
     finally:
-        hist.hist_tiles, leafperm.permute_records = real_hist, real_perm
-    check(len(calls["hist"]) == params["max_depth"] + 1,
-          f"capture tree made {len(calls['hist'])} histogram calls")
-    check(len(calls["perm"]) == params["max_depth"],
-          f"capture tree made {len(calls['perm'])} row moves")
-    return calls["hist"][0], calls["hist"][-1], calls["perm"][4]
+        for k, (m, a) in names.items():
+            setattr(m, a, real[k])
+    return calls
+
+
+def compare(name: str, run, plain) -> tuple[object, float]:
+    """Kernel twice (bitwise equal) vs its plain version: counts exact,
+    g/h within rtol 1e-5 / atol 1e-4.  Returns (result, max abs error)."""
+    k1 = run()
+    k2 = run()
+    sync()
+    check(bool((k1 == k2).all()), f"{name}: two launches differ")
+    ref = plain()
+    sync()
+    check(bool((k1[:, 2] == ref[:, 2]).all()), f"{name}: counts differ")
+    err = (k1 - ref).abs()
+    tol = 1e-4 + 1e-5 * ref.abs()
+    check(bool((err <= tol).all()),
+          f"{name}: g/h beyond rtol 1e-5 atol 1e-4 "
+          f"(max abs err {float(err.max())})")
+    return k1, float(err.max())
+
+
+def library_ms(leaf, valid, g, h, bins, P, F, B) -> float:
+    """The library yardstick: one ``index_add_`` of the (g, h, 1) rows into
+    flat (leaf, feature, bin) cells, on precomputed cells (the port never
+    calls it).  ``bins`` (n, F) int64 is overwritten with the cells."""
+    import torch
+
+    dev = bins.device
+    cell = bins
+    cell += (leaf.long()[:, None] * F + torch.arange(F, device=dev)) * B
+    cell.masked_fill_(~valid[:, None], P * F * B)
+    w = valid.float()
+    vals = torch.stack([g * w, h * w, w], -1)[:, None, :].expand(
+        -1, F, -1).reshape(-1, 3)
+    acc = torch.zeros((P * F * B + 1, 3), device=dev)
+    cell = cell.reshape(-1)
+    ms = time_ms(lambda: acc.index_add_(0, cell, vals), 3)
+    del cell, vals, acc
+    return ms
 
 
 def check_hist(args, name: str, reps: int) -> dict:
-    """K1 on the card vs its plain version on the captured inputs."""
+    """K1 layout mode on the card vs its plain version on captured inputs."""
+    from dryad_tpu_torch.engine import hist
+
+    rec, src, tile_leaf, P, B, F, isz = args
+    _, err = compare(name, lambda: hist.hist_tiles(*args),
+                     lambda: hist.hist_tiles_plain(*args))
+    ms = time_ms(lambda: hist.hist_tiles(*args), reps)
+    plain_ms = time_ms(lambda: hist.hist_tiles_plain(*args), 2)
+    T, WB = hist.TILE_ROWS, hist.REC_WB
+    n_in = rec.shape[0] // T
+    live = src >= 0
+    rows = rec.view(n_in, T, WB)[src.clamp(0, n_in - 1)].view(-1, WB)
+    g, h, valid, bins = hist.unpack_rows(rows, F, isz)
+    valid = valid & live.repeat_interleave(T)
+    lib = library_ms(tile_leaf.repeat_interleave(T), valid, g, h, bins,
+                     P, F, B)
+    live_tiles = int(live.sum())
+    nbytes = (live_tiles * T * (9 + F * isz) + src.numel() * 8
+              + P * 3 * F * B * 4)
+    b_ms, b_by = bound_ms(nbytes, 3.0 * int(valid.sum()) * F)
+    del rows, g, h, valid, bins
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
+            "live_tiles": live_tiles, "bytes": nbytes}
+
+
+def check_rows(args, name: str, reps: int) -> dict:
+    """K1 row mode on the card vs its plain version on captured inputs."""
     import torch
 
     from dryad_tpu_torch.engine import hist
 
-    rec, src, tile_leaf, P, B, F, isz = args
-    k1 = hist.hist_tiles(*args)
-    k2 = hist.hist_tiles(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(k1, k2), f"{name}: two launches differ")
-    plain = hist.hist_tiles_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(k1[:, 2], plain[:, 2]), f"{name}: counts differ")
-    err = (k1 - plain).abs()
-    tol = 1e-4 + 1e-5 * plain.abs()
-    check(bool((err <= tol).all()),
-          f"{name}: g/h beyond rtol 1e-5 atol 1e-4 "
-          f"(max abs err {float(err.max())})")
-    ms = time_ms(lambda: hist.hist_tiles(*args), reps)
-    plain_ms = time_ms(lambda: hist.hist_tiles_plain(*args), 2)
-    # library yardstick: one index_add_ of the (g, h, 1) rows into flat
-    # (leaf, feature, bin) cells, on precomputed cells (not used by the port)
-    T, WB = hist.TILE_ROWS, hist.REC_WB
-    n_in = rec.shape[0] // T
-    live = src >= 0
-    tiles = rec.view(n_in, T, WB)[src.clamp(0, n_in - 1)]
-    g, h, valid, bins = hist.unpack_rows(tiles, F, isz)
-    valid = valid & live[:, None]
-    w = valid.float()
-    vals = torch.stack([g * w, h * w, w], -1)[:, :, None, :].expand(
-        -1, -1, F, -1).reshape(-1, 3).contiguous()
-    cell = ((tile_leaf.long()[:, None, None] * F
-             + torch.arange(F, device=rec.device)) * B + bins)
-    cell = torch.where(valid[..., None], cell, P * F * B).reshape(-1)
-    acc = torch.zeros((P * F * B + 1, 3), device=rec.device)
-    library_ms = time_ms(lambda: acc.index_add_(0, cell, vals), 3)
-    live_tiles = int(live.sum())
-    used = 9 + F * isz
-    nbytes = (live_tiles * T * used + src.numel() * 8
+    recs, buf, tile_leaf, P, B, F, isz = args
+    _, err = compare(name, lambda: hist.hist_rows(*args),
+                     lambda: hist.hist_rows_plain(*args))
+    ms = time_ms(lambda: hist.hist_rows(*args), reps)
+    plain_ms = time_ms(lambda: hist.hist_rows_plain(*args), 2)
+    N = recs.shape[0]
+    valid = buf < N
+    n_live = int(valid.sum())
+    rows = recs[buf.clamp(max=N - 1)]
+    bins = hist.bin_bytes(rows.view(torch.uint8), 8, 0, F, isz)
+    lib = library_ms(tile_leaf.repeat_interleave(hist.TILE_ROWS), valid,
+                     rows[:, 0].view(torch.float32),
+                     rows[:, 1].view(torch.float32), bins, P, F, B)
+    del rows, bins
+    nbytes = (n_live * (8 + F * isz) + buf.numel() * buf.element_size()
               + P * 3 * F * B * 4)
-    ops = 3.0 * int(valid.sum()) * F
-    b_ms, b_by = bound_ms(nbytes, ops)
-    del tiles, vals, cell, acc
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": float(err.max()), "P": P,
-            "live_tiles": live_tiles, "bytes": nbytes}
+    b_ms, b_by = bound_ms(nbytes, 3.0 * n_live * F)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
+            "live_rows": n_live, "plan_tiles": int(tile_leaf.numel()),
+            "bytes": nbytes}
+
+
+def check_nat(call, name: str, reps: int) -> dict:
+    """K3 on the card vs its plain version on captured inputs."""
+    import torch
+
+    from dryad_tpu_torch.engine import hist_nat
+
+    (xt, g, h, sel), kw = call
+    P, B, F = kw["num_cols"], kw["total_bins"], kw["num_features"]
+    _, err = compare(name, lambda: hist_nat.build_hist_nat(xt, g, h, sel, **kw),
+                     lambda: hist_nat.build_hist_nat_plain(xt, g, h, sel,
+                                                           P, B, F))
+    ms = time_ms(lambda: hist_nat.build_hist_nat(xt, g, h, sel, **kw), reps)
+    plain_ms = time_ms(lambda: hist_nat.build_hist_nat_plain(
+        xt, g, h, sel, P, B, F), 2)
+    N = g.shape[0]
+    keep = (sel >= 0) & (sel < P)
+    n_keep = int(keep.sum())
+    bins = xt[:, :N].t().contiguous().to(torch.int64) & 0xFFFF
+    lib = library_ms(torch.where(keep, sel, 0), keep, g, h, bins, P, F, B)
+    del bins
+    isz = xt.element_size()
+    nbytes = N * 4 + n_keep * (F * isz + 8) + P * 3 * F * B * 4
+    b_ms, b_by = bound_ms(nbytes, 3.0 * n_keep * F)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
+            "kept_rows": n_keep, "bytes": nbytes}
 
 
 def check_perm(args, reps: int) -> dict:
@@ -176,7 +270,7 @@ def check_perm(args, reps: int) -> dict:
     plain = leafperm.permute_records_plain(
         rec, pos, dstl.clamp(max=(n_out - 1) * 512),
         dstr.clamp(max=(n_out - 1) * 512), n_out)
-    torch.cuda.synchronize()
+    sync()
     check(torch.equal(k1, k2), "perm: two launches differ")
     check(torch.equal(k1, plain), "perm: kernel differs from plain version")
     ms = time_ms(lambda: leafperm.permute_records(*args), reps)
@@ -191,36 +285,37 @@ def check_perm(args, reps: int) -> dict:
                                    n_out * T)).reshape(-1)
     out = torch.zeros((n_out * T + 1, leafperm.REC_WB), dtype=torch.uint8,
                       device=rec.device)
-    library_ms = time_ms(lambda: out.index_copy_(0, dest, rec), 3)
+    library = time_ms(lambda: out.index_copy_(0, dest, rec), 3)
     real_rows = int((dest < n_out * T).sum())
     nbytes = (real_rows * leafperm.REC_WB + pos.numel() * 4
               + dstl.numel() * 8 + n_out * T * leafperm.REC_WB)
     b_ms, b_by = bound_ms(nbytes, 0.0)
     del out, dest
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
             "real_rows": real_rows, "bytes": nbytes}
 
 
-def profile_tree(params, ds, dev) -> dict:
+def profile_tree(params, ds, dev, fname: str) -> dict:
     """One tree of the grower under torch.profiler: device time by kernel,
     and the device's busy share of the tree's wall time (measured again
-    without the profiler).  The table goes to chiprun_out/profile.txt."""
+    without the profiler).  The table goes to chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import dryad_tpu_torch as dt
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.train import binned_to_device
-    from dryad_tpu_torch.objectives import Binary
+    from dryad_tpu_torch.objectives import get_objective
 
     p = dt.Params.from_dict(params)
+    obj = get_objective(p)
     B = ds.mapper.total_bins
     Xb = binned_to_device(ds.X_binned, dev)
     y = torch.from_numpy(ds.y).to(dev)
-    score = torch.full((ds.num_rows,), Binary.init_score(ds.y),
+    score = torch.full((ds.num_rows,), obj.init_score(ds.y),
                        dtype=torch.float32, device=dev)
-    g, h = Binary.grad_hess(score, y)
+    g, h = obj.grad_hess(score, y)
     bag = torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
     fmask = torch.ones(ds.num_features, dtype=torch.bool, device=dev)
 
@@ -247,9 +342,10 @@ def profile_tree(params, ds, dev) -> dict:
     total_us = sum(dev_us(e) for e in kernels)
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == torch.autograd.DeviceType.CPU and dev_us(e) > 0]
-    with open(os.path.join("chiprun_out", "profile.txt"), "w") as f:
+    with open(os.path.join(OUT, fname), "w") as f:
         f.write(prof.key_averages(group_by_input_shape=True).table(
             sort_by="self_cuda_time_total", row_limit=80))
+    del Xb, y, score, g, h
     if total_us <= 0:
         return {"tree_wall_ms": wall_ms, "device_ms": "not measured"}
     top_k = sorted(kernels, key=dev_us, reverse=True)[:10]
@@ -262,15 +358,285 @@ def profile_tree(params, ds, dev) -> dict:
                      e.count] for e in top_o]}
 
 
+def train_counted(dt, params, ds, dev):
+    """One main-path training run with every launch count set to 0 just
+    before it; returns (booster, counts read just after, peak bytes)."""
+    import torch
+
+    from dryad_tpu_torch.engine import cuda_build
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_counts()
+    booster = dt.train(params, ds, device=dev)
+    launches = dict(cuda_build.counts)
+    return booster, launches, torch.cuda.max_memory_allocated()
+
+
+def legacy_calls(n_rows: int, n_features: int, depth: int,
+                 leaves: int) -> tuple[int, int]:
+    """(K3, K1 row-mode) launches of one legacy tree of u8 bins: K3 for the
+    narrow phase when the natural-order gate admits the matrix, K1 row mode
+    for the root and every other level."""
+    from dryad_tpu_torch.engine import hist_nat
+    from dryad_tpu_torch.engine.levelwise import phase_plan
+
+    nat_live = hist_nat.nat_gate_admits(n_rows, n_features, 1)
+    d_switch, p_narrow, _ = phase_plan(depth, min(leaves, 2 ** depth),
+                                       nat_live)
+    n_nat = d_switch if nat_live and p_narrow <= hist_nat.NAT_SLOTS else 0
+    return n_nat, 1 + depth - n_nat
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    for k, n in launches.items():
+        check(n == want.get(k, 0),
+              f"{what}: {k} launched {n} times, want {want.get(k, 0)}")
+
+
+def same_trees(a, b, what: str) -> None:
+    import numpy as np
+
+    ra, rb = a.tree_arrays(), b.tree_arrays()
+    for k in ra:
+        check(np.array_equal(ra[k], rb[k]),
+              f"{what}: second run differs in {k!r}")
+
+
+def tree_summary(booster) -> dict:
+    """Time of the first tree, and the mean of the others."""
+    ts = booster.tree_seconds
+    rest = ts[1:] or ts
+    mean = sum(rest) / len(rest)
+    return {"first_tree_s": ts[0], "mean_tree_s": mean,
+            "trees_per_s": 1.0 / mean}
+
+
+def phase_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phases 3-6: the wired path at the headline config."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import hist, leafperm
+    from dryad_tpu_torch.metrics import auc
+
+    params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+              "num_trees": a.trees}
+    calls = capture(dt, params, ds, dev,
+                    {"hist": (hist, "hist_tiles"),
+                     "perm": (leafperm, "permute_records")})
+    check(len(calls["hist"]) == 9 and len(calls["perm"]) == 8,
+          f"wired capture tree made {len(calls['hist'])} histogram calls "
+          f"and {len(calls['perm'])} row moves")
+    root = check_hist(calls["hist"][0][0], "hist root", a.reps)
+    print("K1 root: " + json.dumps(root), flush=True)
+    level = check_hist(calls["hist"][-1][0], "hist level", a.reps)
+    print("K1 level: " + json.dumps(level), flush=True)
+    perm = check_perm(calls["perm"][4][0], a.reps)
+    print("K2 depth-4 move: " + json.dumps(perm), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    report.update(hist_root=root, hist_level=level, perm=perm)
+
+    booster, launches, peak = train_counted(dt, params, ds, dev)
+    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
+    check_launches(launches, {"hist": 9 * a.trees, "perm": 8 * a.trees},
+                   "wired")
+    train_rep = dict(tree_summary(booster), peak_bytes=peak,
+                     launches=launches)
+    print("wired train: " + json.dumps(train_rep), flush=True)
+    report["train"] = train_rep
+    same_trees(booster, dt.train(params, ds, device=dev), "wired")
+    print("wired determinism: second run bitwise equal", flush=True)
+
+    raw_cpu = dt.predict(booster, Xv, raw_score=True, device="cpu")
+    check(raw_gpu.shape == (len(yv),) and bool(np.isfinite(raw_gpu).all()),
+          "predict shape or finiteness")
+    check(np.array_equal(raw_gpu, raw_cpu), "card predict != CPU predict")
+    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
+    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
+    print(f"wired predict: bitwise equal to CPU; AUC tree 1 {auc1:.6f}, "
+          f"tree {a.trees} {auc_last:.6f}", flush=True)
+    check(auc_last > auc1, "AUC did not rise")
+    check(auc_last > 0.70, f"AUC {auc_last} <= 0.70")
+    report["auc"] = {"tree_1": auc1, "last": auc_last}
+
+    prof = profile_tree(params, ds, dev, "profile.txt")
+    print("wired profile: " + json.dumps(prof), flush=True)
+    report["profile"] = prof
+    return params, booster, launches, level
+
+
+def phase_fixture(dt, dev, report) -> None:
+    """Phase 7: wired against legacy on the card, tie-free fixture."""
+    import numpy as np
+
+    from dryad_tpu_torch import datasets
+
+    X, y = datasets.higgs_like(50_000, seed=43)
+    ds = dt.Dataset(X, y, max_bins=64)
+    base = {"objective": "binary", "num_trees": 4, "num_leaves": 128,
+            "max_bins": 64, "growth": "depthwise", "max_depth": 8}
+    b_w = dt.train(base, ds, device=dev)
+    b_l = dt.train(dict(base, deep_layout="legacy"), ds, device=dev)
+    for k in ("feature", "threshold", "left", "right"):
+        check(np.array_equal(b_w.tree_arrays()[k], b_l.tree_arrays()[k]),
+              f"wired vs legacy fixture: {k!r} differs")
+    dv = float(np.abs(b_w.arrays["value"] - b_l.arrays["value"]).max())
+    check(dv <= 1e-5, f"wired vs legacy fixture: values differ by {dv}")
+    print(f"wired vs legacy fixture: equal trees (max value diff {dv})",
+          flush=True)
+    report["fixture"] = {"max_value_diff": dv}
+
+
+def phase_legacy(dt, a, ds, Xv, yv, dev, wired_params, wired_booster,
+                 report) -> tuple:
+    """Phases 8-9: the legacy plan arm at the headline config."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import hist, hist_nat
+    from dryad_tpu_torch.metrics import auc
+
+    params = dict(wired_params, deep_layout="legacy")
+    n_nat, n_rows = legacy_calls(ds.num_rows, ds.num_features, 8, 255)
+    check((n_nat, n_rows) == (5, 4), "the Higgs matrix left the K3 gate")
+    calls = capture(dt, params, ds, dev,
+                    {"rows": (hist, "hist_rows"),
+                     "nat": (hist_nat, "build_hist_nat")})
+    check(len(calls["rows"]) == n_rows and len(calls["nat"]) == n_nat,
+          f"legacy capture tree made {len(calls['rows'])} row-mode and "
+          f"{len(calls['nat'])} natural-order calls")
+    nat = check_nat(calls["nat"][4], "nat level 4", a.reps)
+    print("K3 level 4: " + json.dumps(nat), flush=True)
+    rows = check_rows(calls["rows"][-1][0], "hist rows level 7", a.reps)
+    print("K1 rows level 7: " + json.dumps(rows), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    report.update(nat_level=nat, rows_level=rows)
+
+    booster, launches, peak = train_counted(dt, params, ds, dev)
+    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
+    check_launches(launches, {"nat": n_nat * a.trees,
+                              "hist_rows": n_rows * a.trees}, "legacy")
+    same_trees(booster, dt.train(params, ds, device=dev), "legacy")
+    check(np.array_equal(raw_gpu,
+                         dt.predict(booster, Xv, raw_score=True,
+                                    device="cpu")),
+          "legacy: card predict != CPU predict")
+    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
+    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
+    check(auc_last > auc1, "legacy: AUC did not rise")
+    check(auc_last > 0.70, f"legacy: AUC {auc_last} <= 0.70")
+    w0, l0 = wired_booster.tree_arrays(), booster.tree_arrays()
+    differ = int(((w0["feature"][0] != l0["feature"][0])
+                  | (w0["threshold"][0] != l0["threshold"][0])).sum())
+    rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
+               auc={"tree_1": auc1, "last": auc_last},
+               tree1_nodes_differing_from_wired=differ)
+    print("legacy train: " + json.dumps(rep), flush=True)
+    print("legacy: second run bitwise equal; card predict bitwise equal to "
+          "CPU", flush=True)
+    prof = profile_tree(params, ds, dev, "profile_legacy.txt")
+    print("legacy profile: " + json.dumps(prof), flush=True)
+    rep["profile"] = prof
+    report["legacy"] = rep
+    return launches, nat, rows
+
+
+def phase_epsilon(dt, a, dev, report) -> tuple:
+    """Phase 10: Epsilon-shaped regression through the legacy arm."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.engine import hist
+    from dryad_tpu_torch.engine.predict import predict_binned
+    from dryad_tpu_torch.metrics import rmse
+
+    t0 = time.perf_counter()
+    X, y = datasets.epsilon_like(a.eps_rows + a.eps_holdout,
+                                 num_features=EPS_FEATURES, seed=13)
+    t_gen = time.perf_counter() - t0
+    ds = dt.Dataset(X[:a.eps_rows], y[:a.eps_rows], max_bins=256)
+    Xv_b = ds.mapper.transform(X[a.eps_rows:])
+    yv = y[a.eps_rows:]
+    del X, y
+    t_data = time.perf_counter() - t0
+    check(ds.num_features == EPS_FEATURES and ds.mapper.total_bins == 256,
+          f"epsilon shape {ds.num_features} x {ds.mapper.total_bins} bins")
+    print(f"epsilon data: {a.eps_rows} + {a.eps_holdout} x {EPS_FEATURES}, "
+          f"generated in {t_gen:.1f} s, binned by {t_data:.1f} s", flush=True)
+    params = {"objective": "regression", "growth": "depthwise",
+              "max_depth": 6, "num_leaves": 63, "max_bins": 256,
+              "num_trees": a.eps_trees}
+    # 400k x 2000 u8 is 800 MB, past the natural-order gate: no K3
+    n_nat, n_rows = legacy_calls(ds.num_rows, ds.num_features, 6, 63)
+    calls = capture(dt, params, ds, dev, {"rows": (hist, "hist_rows")})
+    check(len(calls["rows"]) == n_rows,
+          f"epsilon capture tree made {len(calls['rows'])} row-mode calls")
+    root = check_rows(calls["rows"][0][0], "eps rows root", a.reps)
+    print("K1 rows epsilon root: " + json.dumps(root), flush=True)
+    level = check_rows(calls["rows"][-1][0], "eps rows level 5", a.reps)
+    print("K1 rows epsilon level 5: " + json.dumps(level), flush=True)
+    if a.eps_rows == EPS_ROWS:
+        check((n_nat, n_rows) == (0, 7), "the Epsilon matrix passed the K3 "
+              "gate")
+    del calls
+    torch.cuda.empty_cache()
+
+    booster, launches, peak = train_counted(dt, params, ds, dev)
+    check_launches(launches, {"hist_rows": n_rows * a.eps_trees,
+                              "nat": n_nat * a.eps_trees}, "epsilon")
+    same_trees(booster, dt.train(params, ds, device=dev), "epsilon")
+    r1 = rmse(yv, predict_binned(booster, Xv_b, device=dev,
+                                 num_iteration=1)[:, 0])
+    r_last = rmse(yv, predict_binned(booster, Xv_b, device=dev)[:, 0])
+    std = float(np.std(yv))
+    check(r_last < r1, f"epsilon: RMSE did not fall ({r1} -> {r_last})")
+    check(r_last < std, f"epsilon: RMSE {r_last} >= label std {std}")
+    rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
+               rmse={"tree_1": r1, "last": r_last, "label_std": std},
+               data_seconds=t_data, gen_seconds=t_gen,
+               rows_root=root, rows_level=level)
+    print("epsilon train: " + json.dumps(
+        {k: v for k, v in rep.items() if not k.startswith("rows_")}),
+        flush=True)
+    print("epsilon: second run bitwise equal", flush=True)
+    prof = profile_tree(params, ds, dev, "profile_epsilon.txt")
+    print("epsilon profile: " + json.dumps(prof), flush=True)
+    rep["profile"] = prof
+    report["epsilon"] = rep
+    return launches, root, level
+
+
+def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
+    e = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches,
+         "launches_by_path": by_path, "max_abs_err": m["max_abs_err"],
+         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+         "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+    if extra:
+        e.update(extra)
+    return e
+
+
+def brief(m: dict) -> dict:
+    return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err", "P")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=HEADLINE_ROWS)
     ap.add_argument("--trees", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--eps-rows", type=int, default=EPS_ROWS)
+    ap.add_argument("--eps-holdout", type=int, default=EPS_HOLDOUT)
+    ap.add_argument("--eps-trees", type=int, default=20)
     a = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -279,27 +645,29 @@ def main() -> int:
     import dryad_tpu_torch as dt
     from dryad_tpu_torch import datasets
     from dryad_tpu_torch.engine import cuda_build
-    from dryad_tpu_torch.metrics import auc
 
-    check(a.trees >= 2, "--trees must be >= 2 (AUC must rise)")
+    check(a.trees >= 2 and a.eps_trees >= 2,
+          "--trees and --eps-trees must be >= 2 (metrics must move)")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"card: {smi}", flush=True)
     report: dict = {"card": smi, "kind": kind, "rows": a.rows,
-                    "trees": a.trees, "seed": a.seed}
+                    "trees": a.trees, "seed": a.seed, "eps_rows": a.eps_rows,
+                    "eps_trees": a.eps_trees}
 
     # ---- 1. build ---------------------------------------------------------
     cuda_build.build_all()
     print(f"kernels built in {cuda_build.build_seconds:.2f} s", flush=True)
     report["build_seconds"] = cuda_build.build_seconds
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "ptxas.txt"), "w") as f:
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         for name, log in cuda_build.build_log.items():
             f.write(f"== {name}.cu\n{log}\n")
 
-    # ---- 2. data + capture ------------------------------------------------
+    # ---- 2. Higgs data ----------------------------------------------------
     if a.rows < HEADLINE_ROWS:
         print(f"rows cut to {a.rows} from the headline {HEADLINE_ROWS}",
               flush=True)
@@ -314,86 +682,55 @@ def main() -> int:
     print(f"data: {a.rows} x {ds.num_features}, "
           f"{ds.mapper.total_bins} bins, {report['data_seconds']:.1f} s",
           flush=True)
-    params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
-              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
-              "num_trees": a.trees}
-    root_args, level_args, perm_args = capture_inputs(dt, params, ds, dev)
 
-    # ---- 3. kernels vs plain ----------------------------------------------
-    root = check_hist(root_args, "hist root", a.reps)
-    print("K1 root: " + json.dumps(root), flush=True)
-    level = check_hist(level_args, "hist level", a.reps)
-    print("K1 level: " + json.dumps(level), flush=True)
-    perm = check_perm(perm_args, a.reps)
-    print("K2 depth-4 move: " + json.dumps(perm), flush=True)
-    del root_args, level_args, perm_args
+    # ---- 3-6. the wired path ----------------------------------------------
+    w_params, w_booster, w_launches, w_level = phase_wired(
+        dt, a, ds, Xv, yv, dev, report)
+    # ---- 7. wired vs legacy, tie-free fixture -----------------------------
+    phase_fixture(dt, dev, report)
+    # ---- 8-9. the legacy plan arm at the headline config ------------------
+    l_launches, nat, rows = phase_legacy(dt, a, ds, Xv, yv, dev, w_params,
+                                         w_booster, report)
+    # ---- 10. Epsilon-shaped regression, the Higgs tensors freed -----------
+    del ds, Xv, yv, w_booster
+    gc.collect()
     torch.cuda.empty_cache()
-    report.update(hist_root=root, hist_level=level, perm=perm)
+    e_launches, e_root, e_level = phase_epsilon(dt, a, dev, report)
 
-    # ---- 4. the main path: train + predict --------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    cuda_build.reset_counts()
-    booster = dt.train(params, ds, device=dev)
-    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
-    launches = dict(cuda_build.counts)
-    peak = torch.cuda.max_memory_allocated()
-    check(launches["hist"] == 9 * a.trees,
-          f"K1 launched {launches['hist']} times, want {9 * a.trees}")
-    check(launches["perm"] == 8 * a.trees,
-          f"K2 launched {launches['perm']} times, want {8 * a.trees}")
-    ts = booster.tree_seconds
-    rest = sum(ts[1:]) / len(ts[1:])
-    train_rep = {"first_tree_s": ts[0], "mean_tree_s": rest,
-                 "trees_per_s": 1.0 / rest, "peak_bytes": peak,
-                 "launches": launches}
-    print("train: " + json.dumps(train_rep), flush=True)
-    report["train"] = train_rep
+    by_path = {"wired": w_launches, "legacy_higgs": l_launches,
+               "epsilon": e_launches}
 
-    again = dt.train(params, ds, device=dev)
-    ra, rb = booster.tree_arrays(), again.tree_arrays()
-    for k in ra:
-        check(np.array_equal(ra[k], rb[k]), f"second run differs in {k!r}")
-    print("determinism: second run bitwise equal", flush=True)
+    def launches(k):
+        return sum(p[k] for p in by_path.values())
 
-    # ---- 5. predict checks ------------------------------------------------
-    raw_cpu = dt.predict(booster, Xv, raw_score=True, device="cpu")
-    check(raw_gpu.shape == (HOLDOUT_ROWS,) and bool(np.isfinite(raw_gpu).all()),
-          "predict shape or finiteness")
-    check(np.array_equal(raw_gpu, raw_cpu), "card predict != CPU predict")
-    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
-    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
-    print(f"predict: bitwise equal to CPU; AUC tree 1 {auc1:.6f}, "
-          f"tree {a.trees} {auc_last:.6f}", flush=True)
-    check(auc_last > auc1, "AUC did not rise")
-    check(auc_last > 0.70, f"AUC {auc_last} <= 0.70")
-    report["auc"] = {"tree_1": auc1, "last": auc_last}
+    def paths(k):
+        return {n: p[k] for n, p in by_path.items()}
 
-    # ---- 6. where one tree's time goes ------------------------------------
-    prof = profile_tree(params, ds, dev)
-    print("profile: " + json.dumps(prof), flush=True)
-    report["profile"] = prof
-
+    root = report["hist_root"]
+    perm = report["perm"]
     kernels = [
-        {"name": "hist", "route": "cuda",
-         "source": "dryad_tpu_torch/csrc/hist.cu",
-         "replaces": "dryad_tpu/engine/pallas_hist.py:140",
-         "launches": launches["hist"], "max_abs_err": level["max_abs_err"],
-         "ms": level["ms"], "plain_ms": level["plain_ms"],
-         "bound_ms": level["bound_ms"], "bound_by": level["bound_by"],
-         "library_ms": level["library_ms"],
-         "root": {k: root[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "library_ms", "max_abs_err")}},
-        {"name": "perm", "route": "cuda",
-         "source": "dryad_tpu_torch/csrc/perm.cu",
-         "replaces": "dryad_tpu/engine/leafperm.py:94",
-         "launches": launches["perm"], "max_abs_err": 0.0,
-         "ms": perm["ms"], "plain_ms": perm["plain_ms"],
-         "bound_ms": perm["bound_ms"], "bound_by": perm["bound_by"],
-         "library_ms": perm["library_ms"]},
+        kernel_entry("hist", "dryad_tpu_torch/csrc/hist.cu",
+                     "dryad_tpu/engine/pallas_hist.py:140", launches("hist"),
+                     paths("hist"), w_level,
+                     {"mode": "layout", "root": brief(root)}),
+        kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
+                     "dryad_tpu/engine/pallas_hist.py:140",
+                     launches("hist_rows"), paths("hist_rows"), rows,
+                     {"mode": "rows", "epsilon_root": brief(e_root),
+                      "epsilon_level": brief(e_level)}),
+        kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
+                     "dryad_tpu/engine/leafperm.py:94", launches("perm"),
+                     paths("perm"), perm),
+        kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
+                     "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
+                     paths("nat"), nat),
     ]
     report["kernels"] = kernels
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+    report["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(f"chip_smoke: all phases passed in {report['seconds']:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,9 +10,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
 
-This slice runs depthwise training of a binary objective on the wired
-leaf-ordered layout, and predict.  It imports nothing of ``jax`` or of
-``dryad_tpu``.
+This slice runs depthwise training of binary and regression objectives,
+on the wired leaf-ordered layout and on the legacy plan arm (taken with
+``deep_layout="legacy"``, leaf budgets above 512 or records above 128 B),
+and predict.  It imports nothing of ``jax`` or of ``dryad_tpu``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
 def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
             num_iteration: Optional[int] = None, device=None) -> np.ndarray:
     """Predict raw features through the booster's frozen mapper; returns
-    probabilities, or raw scores with ``raw_score=True``, shape (N,)."""
+    the objective's transform of the scores (probabilities for binary),
+    or raw scores with ``raw_score=True``, shape (N,)."""
     from dryad_tpu_torch.engine.predict import predict_binned
     from dryad_tpu_torch.objectives import get_objective
 

@@ -1,5 +1,6 @@
 """Training parameters of the port: the subset of ``dryad_tpu.config.Params``
-that the depthwise wired-layout slice runs.
+that the depthwise grower runs (binary and regression objectives, the
+wired leaf-ordered layout and the legacy plan arm).
 
 Defaults and LightGBM-style aliases are the reference's.  A parameter the
 slice does not run raises a ``ValueError`` naming it, unless it is given at
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-OBJECTIVES = ("binary",)
+OBJECTIVES = ("binary", "regression")
 GROWTH_POLICIES = ("depthwise",)
 
 _PARAM_ALIASES = {
@@ -47,6 +48,9 @@ _OBJECTIVE_ALIASES = {
     "binary_logloss": "binary",
     "logistic": "binary",
     "binary:logistic": "binary",
+    "l2": "regression",
+    "mse": "regression",
+    "reg:squarederror": "regression",
 }
 
 _GROWTH_ALIASES = {
@@ -84,7 +88,6 @@ _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "ndcg_at": 10,
     "lambdarank_truncation": 30,
     "hist_backend": "auto",
-    "deep_layout": "auto",
     "predict_layout": "auto",
     "hist_reduce": "auto",
     "ch_max": 0,
@@ -111,6 +114,7 @@ class Params:
     growth: str = "leafwise"
     seed: int = 0
     hist_subtraction: bool = True
+    deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
 
     @property
     def effective_num_leaves(self) -> int:
@@ -153,6 +157,8 @@ class Params:
             raise ValueError("num_trees must be >= 1")
         if not (0.0 < self.learning_rate):
             raise ValueError("learning_rate must be > 0")
+        if self.deep_layout not in ("auto", "legacy"):
+            raise ValueError("deep_layout must be auto|legacy")
         return self
 
     def replace(self, **kw: Any) -> "Params":

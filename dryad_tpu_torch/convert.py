@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 
 from dryad_tpu_torch.booster import Booster
-from dryad_tpu_torch.config import Params
+from dryad_tpu_torch.config import OBJECTIVES, Params
 from dryad_tpu_torch.data.sketch import BinMapper
 
 
@@ -23,9 +23,10 @@ def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
                            params_dict: dict,
                            max_depth_seen: int) -> Booster:
     """The port's Booster for a reference model.  Only what predict reads
-    must be in the slice: a single-output binary gbdt model without
-    categorical splits; training-only parameters are not carried."""
-    if params_dict.get("objective", "binary") != "binary":
+    must be in the slice: a single-output binary or regression gbdt model
+    without categorical splits; training-only parameters are not
+    carried."""
+    if params_dict.get("objective", "binary") not in OBJECTIVES:
         raise ValueError(f"objective {params_dict.get('objective')!r} is "
                          "outside this slice of the port")
     if int(params_dict.get("num_class", 1)) != 1:

@@ -1,5 +1,6 @@
-"""Synthetic Higgs-shaped data, a copy of ``dryad_tpu.datasets.higgs_like``
-so that both packages make the same rows from the same seed."""
+"""Synthetic Higgs- and Epsilon-shaped data, copies of
+``dryad_tpu.datasets.higgs_like`` and ``epsilon_like`` so that both
+packages make the same rows from the same seed."""
 
 from __future__ import annotations
 
@@ -27,3 +28,14 @@ def higgs_like(n: int = 100_000, num_features: int = 28, seed: int = 7):
     p = 1.0 / (1.0 + np.exp(-1.5 * score))
     y = (rng.uniform(size=n) < p).astype(np.float32)
     return X, y
+
+
+def epsilon_like(n: int = 50_000, num_features: int = 2000, seed: int = 13):
+    """Wide dense regression (Epsilon is 400k x 2000)."""
+    rng = _rng(seed)
+    X = rng.normal(size=(n, num_features)).astype(np.float32)
+    w = (rng.normal(size=num_features)
+         * (rng.uniform(size=num_features) < 0.05)).astype(np.float32)
+    y = (X @ w + 0.5 * np.sin(X[:, 0]) * X[:, 1]
+         + rng.normal(size=n).astype(np.float32) * 0.1)
+    return X, y.astype(np.float32)

@@ -4,14 +4,16 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  The build
 goes to ``dryad_tpu_torch/_build/`` (git-ignored) at first use; a library is
 named after the hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  All sources are compiled in
-parallel, one ``nvcc`` process each.
+rebuilt and an unchanged one is reused (the hash covers the shared
+``csrc/*.cuh`` headers too).  All sources are compiled in parallel, one
+``nvcc`` process each.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
 
-``counts`` holds one launch counter per kernel.  A wrapper adds one where
-it launches its kernel and nowhere else.
+``counts`` holds one launch counter per kernel wrapper: ``hist`` (K1,
+layout mode), ``hist_rows`` (K1, row mode), ``perm`` (K2) and ``nat`` (K3).
+A wrapper adds one where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("hist", "perm")
+SOURCES = ("hist", "perm", "hist_nat")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-counts = {"hist": 0, "perm": 0}
+counts = {"hist": 0, "hist_rows": 0, "perm": 0, "nat": 0}
 build_seconds: float | None = None
 build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -51,9 +53,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    digest = digest.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 
@@ -93,11 +98,22 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = libs["hist"].dryad_hist_tiles
     # rec, src, tile_leaf, item_first, n_sel, n_items, partials,
     # F, B, itemsize, f_chunk, n_chunks, leaf_item_start, out, P, stream
     fn.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, p, p, i, p]
+    fn.restype = i
+    fn = libs["hist"].dryad_hist_rows
+    # recs, rec_words, n_rows, buf, src, tile_leaf, item_first, n_sel,
+    # n_items, partials, F, B, itemsize, f_chunk, n_chunks, leaf_item_start,
+    # out, P, stream
+    fn.argtypes = [p, i, i, p, p, p, p, i, i, p, i, i, i, i, i, p, p, i, p]
+    fn.restype = i
+    fn = libs["hist_nat"].dryad_hist_nat
+    # xt, itemsize, n_pad, g, h, sel, n_rows, rows_per_range, n_ranges,
+    # partials, F, B, P, f_chunk, n_fchunks, s_chunk, n_schunks, out, stream
+    fn.argtypes = [p, i, ll, p, p, p, i, i, i, p, i, i, i, i, i, i, i, p, p]
     fn.restype = i
     fn = libs["perm"].dryad_permute_records
     # rec, pos, dstl, dstr, out, n_tiles, cap_rows, stream

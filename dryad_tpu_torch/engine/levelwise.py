@@ -1,11 +1,21 @@
-"""Level-wise (depthwise) tree grower on the wired leaf-ordered layout.
+"""Level-wise (depthwise) tree grower: the wired arm and the legacy plan arm.
 
-The counterpart of ``dryad_tpu/engine/levelwise.py::grow_tree_levelwise``,
-wired arm only.  The layout is live from the root: the natural-order
-record buffer is a one-segment layout; each level routes every row off a
-packed per-slot table, moves the rows to their child segments (K2), and
-histograms the smaller children as contiguous tile runs (K1); the larger
-children come by subtraction from the parent.
+The counterpart of ``dryad_tpu/engine/levelwise.py::grow_tree_levelwise``.
+Every level picks its candidates, routes every row of the natural order off
+a packed per-slot table (each row's final leaf comes from this routing),
+histograms the smaller children and gets the larger ones by subtraction
+from the parent.  The two arms differ in how the smaller children are read:
+
+* wired (``deep_layout_supported``): the tree carries a leaf-ordered
+  layout of 128-byte records from the root; each level moves the rows to
+  their child segments (K2) and histograms the children as contiguous
+  tile runs (K1, layout mode);
+* legacy plan arm (``deep_layout="legacy"``, leaf budgets above 512,
+  records above 128 B): levels with at most 16 candidates read every row
+  once in natural order with its slot id (K3, when the bin matrix passes
+  ``hist_nat.nat_gate_admits``); the other levels sort the selected rows
+  into a tile plan and read them from a per-tree record table of any
+  width (K1, row mode).
 
 Semantics are the reference's: within a level, splits apply in
 best-gain-first order (stable, lowest slot first) until the ``num_leaves``
@@ -26,33 +36,46 @@ from typing import Any
 import torch
 
 from dryad_tpu_torch.engine import hist as _hist
-from dryad_tpu_torch.engine import leafperm
+from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import finalize_leaf_values, root_stats
-from dryad_tpu_torch.engine.histogram import build_hist
+from dryad_tpu_torch.engine.histogram import (
+    build_hist,
+    build_hist_multi,
+    build_hist_segmented,
+    require_kernel_bins,
+)
 from dryad_tpu_torch.engine.ops import drop_set
 from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
 
 # the wired layout's caps, kept from the reference as constants of the
-# port: bins <= 1024 (K1, hist.MAX_BINS), leaves <= 512, records <= 128 B.
-# They also keep the packed routing word's fields (13-bit threshold,
-# 16-bit slot) from overflowing.
+# port: bins <= 1024 (K1, hist.MAX_BINS), leaves <= 512, records <= 128 B
+# (the reference's default policy table).  The packed routing word's
+# fields (13-bit threshold, 16-bit slot) bound both arms.
 MAX_LAYOUT_LEAVES = 512
 MAX_RECORD_BYTES = leafperm.REC_WB
+MAX_PACKED_BINS = 1 << 13
+MAX_PACKED_LEAVES = 1 << 16
 
 
 def deep_layout_supported(p, num_features: int, total_bins: int,
                           bin_itemsize: int) -> bool:
     """Static gate for the wired grower: a pure function of params and the
-    feature/bin shape, never of the row count."""
-    return (_hist.supports(total_bins)
-            and p.effective_num_leaves <= MAX_LAYOUT_LEAVES
+    feature/bin shape, never of the row count.  Its verdicts are the
+    reference's on its Pallas arm; what it refuses, the legacy plan arm
+    takes."""
+    if p.deep_layout == "legacy" or not _hist.supports(total_bins):
+        return False
+    L = p.effective_num_leaves
+    if not (total_bins <= MAX_PACKED_BINS and L < MAX_PACKED_LEAVES):
+        return False
+    return (L <= MAX_LAYOUT_LEAVES
             and 9 + num_features * bin_itemsize <= MAX_RECORD_BYTES)
 
 
 def phase_plan(depth_cap: int, num_leaves: int, nat_live: bool):
     """(d_switch, P_narrow, P_full) for the two-phase level loop, as the
-    reference defines it.  The wired path never runs the natural-order
-    pass, so callers pass ``nat_live=False``."""
+    reference defines it.  ``nat_live``: the natural-order pass (K3) is on,
+    which only the legacy arm runs; the wired arm passes False."""
     P_full = min(1 << (depth_cap - 1), num_leaves - 1)
     d_cut = 5 if nat_live else 4
     d_switch = d_cut if (depth_cap > d_cut and P_full > (1 << (d_cut - 1))) \
@@ -93,11 +116,13 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     isz = leafperm.bin_itemsize(Xb)
     if depth_cap <= 0:
         raise ValueError("levelwise growth requires max_depth > 0")
-    if not deep_layout_supported(p, F, B, isz):
+    require_kernel_bins(B)
+    if L >= MAX_PACKED_LEAVES:
         raise NotImplementedError(
-            f"this config (num_leaves={L}, total_bins={B}, "
-            f"{9 + F * isz}-byte records) is outside the wired layout; the "
-            "legacy plan arm that takes it is a later slice of the port")
+            f"num_leaves={L} overflows the packed routing word's 16-bit slot; "
+            "the reference's unpacked routing for such budgets is a later "
+            "slice of the port")
+    use_layout = deep_layout_supported(p, F, B, isz)
     i64, f32 = torch.int64, torch.float32
 
     def best(hist, G, H, C, allow):
@@ -108,15 +133,27 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
             allow=allow, learn_missing=learn_missing)
 
-    # ---- root: the natural-order records are the one-segment layout ------
     T = leafperm.TILE_ROWS
     n_row_tiles = -(-N // T)
-    n_buf_tiles = leafperm.wired_tiles_bound(n_row_tiles, L)
-    rec_nat = leafperm.make_layout_records(Xb, g, h, valid=bag_mask)
-    lay_rec, lay_tr, lay_rs = leafperm.natural_root_layout(
-        rec_nat, L, n_buf_tiles)
-    del rec_nat
-    hist0 = build_hist(Xb, g, h, bag_mask, B, records=lay_rec)
+    # smaller children cover <= half the real rows on one device while the
+    # f32 counts behind the smaller-child choice are exact (< 2^24 rows);
+    # the wired plan's half bound and the legacy arm's rows_bound share it
+    half_ok = N < (1 << 24)
+    if use_layout:
+        # ---- root: the natural-order records are the one-segment layout --
+        n_buf_tiles = leafperm.wired_tiles_bound(n_row_tiles, L)
+        rec_nat = leafperm.make_layout_records(Xb, g, h, valid=bag_mask)
+        lay_rec, lay_tr, lay_rs = leafperm.natural_root_layout(
+            rec_nat, L, n_buf_tiles)
+        del rec_nat
+        hist0 = build_hist(Xb, g, h, bag_mask, B, layout=lay_rec)
+        nat_tiles = None
+    else:
+        # ---- legacy: one record table per tree (g/h change per tree) and
+        # the natural-order tiles for the shallow levels, where admitted
+        records = tile_plan.make_records(Xb, g, h)
+        nat_tiles = hist_nat.maybe_natural_tiles(Xb)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, records=records)
     G0, H0, C0 = root_stats(hist0)
     root = best(hist0[None], G0[None], H0[None], C0[None],
                 (C0 >= 2 * p.min_data_in_leaf)[None])
@@ -156,23 +193,19 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     max_depth = torch.zeros((), dtype=i64, device=dev)
     row_slot = torch.zeros(N, dtype=i64, device=dev)
 
-    d_switch, P_narrow, P_full = phase_plan(depth_cap, L, False)
-    # smaller children cover <= half the real rows on one device while the
-    # f32 counts behind the smaller-child choice are exact (< 2^24 rows)
-    half_ok = N < (1 << 24)
-    if p.hist_subtraction:
-        sel_bound = {P: leafperm.wired_sel_tiles_bound(
-            n_row_tiles, n_buf_tiles, P, half=half_ok)
-            for P in (P_narrow, P_full)}
-    else:
-        sel_bound = {P: leafperm.wired_sel_tiles_bound(
-            n_row_tiles, n_buf_tiles, 2 * P, half=False)
-            for P in (P_narrow, P_full)}
-    arange_L = torch.arange(L, dtype=i64, device=dev)
-
+    d_switch, P_narrow, P_full = phase_plan(depth_cap, L,
+                                            nat_tiles is not None)
+    if use_layout:
+        if p.hist_subtraction:
+            sel_bound = {P: leafperm.wired_sel_tiles_bound(
+                n_row_tiles, n_buf_tiles, P, half=half_ok)
+                for P in (P_narrow, P_full)}
+        else:
+            sel_bound = {P: leafperm.wired_sel_tiles_bound(
+                n_row_tiles, n_buf_tiles, 2 * P, half=False)
+                for P in (P_narrow, P_full)}
     for d in range(depth_cap):
         P = P_narrow if d < d_switch else P_full
-        n_sel_tiles = sel_bound[P]
         at_level = (slot_depth == d) & (slot_gain > NEG_INF) & (slot_node >= 0)
         # gain-descending, stable: the lowest slot id wins ties
         order = torch.argsort(
@@ -215,7 +248,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             torch.where(do, sj, L + 1),
             w0_c | (torch.clamp(sf, min=0) << 32))
 
-        # natural-order routing, kept for each row's final leaf
+        # natural-order routing of every row (each row's final leaf; the
+        # legacy arm's histogram selection reads it too)
         rr = rec_t[torch.clamp(row_slot, max=L - 1)]
         do_n, left_n, w0r = _packed_route(
             rr, lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
@@ -223,63 +257,15 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         row_do = do_n & (row_slot < L)
         row_slot = torch.where(row_do & ~left_n, w0r & 0xFFFF, row_slot)
 
-        # ---- wired level: sides off the layout records, one move ---------
-        # every row of a tile shares the tile's run, so the routing word is
-        # gathered per tile and broadcast over its 512 rows
-        rr_lay = rec_t[torch.clamp(lay_rs, max=L)][lay_tr][:, None]
-        rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
-        valid_lay = rec3[:, :, 8] == 1
-        do_lay, left_lay, _ = _packed_route(
-            rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz),
-            learn_missing)
-        side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
-                           2).reshape(-1)
-        del rr_lay, rec3, valid_lay, do_lay, left_lay
-        pos, dstl, dstr, base_l, base_r, _ = leafperm.level_moves(
-            lay_tr, side, L)
-        del side
-        lay_rec = leafperm.permute_records(lay_rec, pos, dstl, dstr,
-                                           n_buf_tiles)
-        del pos, dstl, dstr
-        # slot -> run inverse before advancing; dead runs go to L + 1,
-        # outside the (L+1,) table, so the sentinel cell L stays intact
-        slot_run = drop_set(
-            torch.full((L + 1,), L, dtype=i64, device=dev),
-            torch.where(lay_rs < L, lay_rs, L + 1), arange_L)
-        slot_do_t = ((rec_t >> 31) & 1) != 0
-        slot_right_t = rec_t & 0xFFFF
-        lrs_c = torch.clamp(lay_rs, max=L)
-        run_do = slot_do_t[lrs_c] & (lay_rs < L)
-        lay_tr, lay_rs = leafperm.advance_runs(
-            lay_rs, run_do, slot_right_t[lrs_c], base_l, base_r, n_buf_tiles)
-
-        # children are contiguous segments of the new layout
-        rj = slot_run[torch.clamp(sj, max=L)]
-        rjc = torch.clamp(rj, max=L - 1)
-        lt_l = base_l[1:] - base_l[:-1]
-        lt_r = base_r[1:] - base_r[:-1]
-        sel_ok = do & (rj < L)
-        if p.hist_subtraction:
-            ls = CL <= CR
-            seg_first = torch.where(
-                sel_ok, torch.where(ls, base_l[rjc], base_r[rjc]), 0)
-            seg_nt = torch.where(
-                sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
-            hist_small = leafperm.hist_from_layout(
-                lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles)
-            hist_large = torch.index_select(hists, 0, sj) - hist_small
-            ls4 = ls[:, None, None, None]
-            hist_l = torch.where(ls4, hist_small, hist_large)
-            hist_r = torch.where(ls4, hist_large, hist_small)
+        ls = CL <= CR
+        if use_layout:
+            hist_l, hist_r, lay_rec, lay_tr, lay_rs = _wired_level(
+                p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
+                B, F, isz, sel_bound[P], n_buf_tiles, learn_missing)
         else:
-            # both children in one 2P-column pass over the new layout
-            segf2 = torch.cat([torch.where(sel_ok, base_l[rjc], 0),
-                               torch.where(sel_ok, base_r[rjc], 0)])
-            segn2 = torch.cat([torch.where(sel_ok, lt_l[rjc], 0),
-                               torch.where(sel_ok, lt_r[rjc], 0)])
-            h2 = leafperm.hist_from_layout(
-                lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles)
-            hist_l, hist_r = h2[:P], h2[P:]
+            hist_l, hist_r = _legacy_level(
+                p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
+                right_slot, do, ls, CL, CR, hists, P, L, B, half_ok)
         hists[torch.where(do, sj, L)] = hist_l
         hists[torch.where(do, right_slot, L)] = hist_r
 
@@ -323,3 +309,114 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         "row_leaf": torch.clamp(slot_node, min=0)[
             torch.clamp(row_slot, max=L - 1)],
     }
+
+
+def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
+                 B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing):
+    """One wired level: sides off the layout records, one move (K2), the
+    children as contiguous runs of the new layout (K1, layout mode).
+    Returns (hist_l, hist_r) and the advanced layout."""
+    T = leafperm.TILE_ROWS
+    dev = lay_rec.device
+    i64 = torch.int64
+    # every row of a tile shares the tile's run, so the routing word is
+    # gathered per tile and broadcast over its 512 rows
+    rr_lay = rec_t[torch.clamp(lay_rs, max=L)][lay_tr][:, None]
+    rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
+    valid_lay = rec3[:, :, 8] == 1
+    do_lay, left_lay, _ = _packed_route(
+        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing)
+    side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
+                       2).reshape(-1)
+    del rr_lay, rec3, valid_lay, do_lay, left_lay
+    pos, dstl, dstr, base_l, base_r, _ = leafperm.level_moves(
+        lay_tr, side, L)
+    del side
+    lay_rec = leafperm.permute_records(lay_rec, pos, dstl, dstr, n_buf_tiles)
+    del pos, dstl, dstr
+    # slot -> run inverse before advancing; dead runs go to L + 1, outside
+    # the (L+1,) table, so the sentinel cell L stays intact
+    slot_run = drop_set(
+        torch.full((L + 1,), L, dtype=i64, device=dev),
+        torch.where(lay_rs < L, lay_rs, L + 1),
+        torch.arange(L, dtype=i64, device=dev))
+    slot_do_t = ((rec_t >> 31) & 1) != 0
+    slot_right_t = rec_t & 0xFFFF
+    lrs_c = torch.clamp(lay_rs, max=L)
+    run_do = slot_do_t[lrs_c] & (lay_rs < L)
+    lay_tr, lay_rs = leafperm.advance_runs(
+        lay_rs, run_do, slot_right_t[lrs_c], base_l, base_r, n_buf_tiles)
+
+    # children are contiguous segments of the new layout
+    rj = slot_run[torch.clamp(sj, max=L)]
+    rjc = torch.clamp(rj, max=L - 1)
+    lt_l = base_l[1:] - base_l[:-1]
+    lt_r = base_r[1:] - base_r[:-1]
+    sel_ok = do & (rj < L)
+    if p.hist_subtraction:
+        seg_first = torch.where(
+            sel_ok, torch.where(ls, base_l[rjc], base_r[rjc]), 0)
+        seg_nt = torch.where(
+            sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
+        hist_small = leafperm.hist_from_layout(
+            lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles)
+        hist_large = torch.index_select(hists, 0, sj) - hist_small
+        ls4 = ls[:, None, None, None]
+        hist_l = torch.where(ls4, hist_small, hist_large)
+        hist_r = torch.where(ls4, hist_large, hist_small)
+    else:
+        # both children in one 2P-column pass over the new layout
+        segf2 = torch.cat([torch.where(sel_ok, base_l[rjc], 0),
+                           torch.where(sel_ok, base_r[rjc], 0)])
+        segn2 = torch.cat([torch.where(sel_ok, lt_l[rjc], 0),
+                           torch.where(sel_ok, lt_r[rjc], 0)])
+        h2 = leafperm.hist_from_layout(
+            lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles)
+        hist_l, hist_r = h2[:P], h2[P:]
+    return hist_l, hist_r, lay_rec, lay_tr, lay_rs
+
+
+def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
+                  right_slot, do, ls, CL, CR, hists, P, L, B, half_ok):
+    """One legacy level (the reference's plan arm): the smaller children's
+    rows are selected off the natural-order ``row_slot`` (already routed
+    to this level's children) and histogrammed by the natural-order pass
+    (K3) when it is live and holds P slots, else through a sorted tile
+    plan (K1, row mode).  The larger children come by subtraction, or by
+    their own pass when ``hist_subtraction`` is off."""
+    N, F = Xb.shape
+    dev = Xb.device
+    i64 = torch.int64
+    small_slot = torch.where(ls, sj, right_slot)
+    large_slot = torch.where(ls, right_slot, sj)
+    arange_P = torch.arange(P, dtype=i64, device=dev)
+    # non-splitting candidates scatter to L + 1 (dropped); out-of-bag rows
+    # are routed but never accumulated
+    colof = drop_set(torch.full((L + 1,), P, dtype=i64, device=dev),
+                     torch.where(do, small_slot, L + 1), arange_P)
+    smallsel = torch.where(bag_mask, colof[torch.clamp(row_slot, max=L)], P)
+    if nat_tiles is not None and P <= hist_nat.NAT_SLOTS:
+        hist_small = hist_nat.build_hist_small(nat_tiles, g, h, smallsel, P,
+                                               B, F)
+    else:
+        # exact per-slot counts (the smaller child's C off the parent
+        # histogram, integer-exact in f32 below 2^24 rows) admit the
+        # aligned plan
+        small_cnt = (torch.where(do, torch.where(ls, CL, CR), 0.0).to(i64)
+                     if half_ok else None)
+        hist_small = build_hist_segmented(
+            Xb, g, h, smallsel, P, B, records=records,
+            rows_bound=(N // 2 + 1) if half_ok else None,
+            sel_counts=small_cnt)
+    if p.hist_subtraction:
+        hist_large = torch.index_select(hists, 0, sj) - hist_small
+    else:
+        largesel = drop_set(torch.full((L + 1,), P, dtype=i64, device=dev),
+                            torch.where(do, large_slot, L + 1), arange_P)
+        hist_large = build_hist_multi(
+            Xb, g, h,
+            torch.where(bag_mask, largesel[torch.clamp(row_slot, max=L)], P),
+            P, B, records=records)
+    ls4 = ls[:, None, None, None]
+    return (torch.where(ls4, hist_small, hist_large),
+            torch.where(ls4, hist_large, hist_small))

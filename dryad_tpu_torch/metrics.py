@@ -25,3 +25,9 @@ def auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
     ranks[order] = 0.5 * (starts + ends)[run] + 1.0
     sum_pos_ranks = ranks[pos].sum()
     return float((sum_pos_ranks - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def rmse(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """Root mean squared error in float64 (``dryad_tpu.metrics.rmse``)."""
+    d = np.asarray(y_true, np.float64) - np.asarray(y_pred, np.float64)
+    return float(np.sqrt(np.mean(d * d)))

@@ -1,5 +1,6 @@
-"""Binary logloss on logit scores: init score in numpy, grad/hess in torch
-fp32 (the counterpart of ``dryad_tpu.objectives.Binary``).
+"""Objectives: init score in numpy, grad/hess in torch fp32.  Binary
+logloss on logit scores and squared-error regression, the counterparts of
+``dryad_tpu.objectives.Binary`` and ``Regression``.
 
 Sign convention: ``g = dL/ds`` for raw score s; the Newton leaf value is
 ``-G/(H + lambda_l2)``.
@@ -38,8 +39,33 @@ class Binary:
         return _sigmoid_np(score)
 
 
-def get_objective(params) -> Binary:
-    if params.objective != "binary":
+class Regression:
+    """Squared error on raw scores (the Epsilon config)."""
+
+    name = "regression"
+    num_outputs = 1
+
+    @staticmethod
+    def init_score(y: np.ndarray) -> float:
+        y = np.asarray(y)
+        return float(np.average(y, weights=np.ones_like(y)))
+
+    @staticmethod
+    def grad_hess(score: torch.Tensor, y: torch.Tensor):
+        """fp32 ``g = s - y``, ``h = 1``."""
+        g = score - y
+        return g, torch.ones_like(g)
+
+    @staticmethod
+    def transform_np(score: np.ndarray) -> np.ndarray:
+        return score
+
+
+_OBJECTIVES = {"binary": Binary, "regression": Regression}
+
+
+def get_objective(params) -> Binary | Regression:
+    if params.objective not in _OBJECTIVES:
         raise ValueError(f"objective {params.objective!r} is outside this "
                          "slice of the port")
-    return Binary()
+    return _OBJECTIVES[params.objective]()

@@ -6,11 +6,11 @@ dryad_tpu, so it also runs on a machine that has only the port installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: K1 counts exact and g/h at rtol 1e-5 / atol 1e-4 (the
-histogram contract); K1 twice and K2 against the numpy oracle bitwise;
-a tree grown on the card vs on the CPU: integer arrays equal and leaf
-values within 1e-4 (the split scan's fp32 prefix sums may round
-differently on the two devices).
+Tolerances: K1 (both modes) and K3 counts exact and g/h at rtol 1e-5 /
+atol 1e-4 (the histogram contract); each kernel twice and K2 against the
+numpy oracle bitwise; a tree grown on the card vs on the CPU, on either
+arm: integer arrays equal and leaf values within 1e-4 (the split scan's
+fp32 prefix sums may round differently on the two devices).
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from dryad_tpu_torch.config import Params
-from dryad_tpu_torch.engine import leafperm
+from dryad_tpu_torch.engine import hist, hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 
 T = leafperm.TILE_ROWS
@@ -96,15 +96,84 @@ def test_perm_kernel_matches_oracle(cuda_device):
     np.testing.assert_array_equal(got.cpu().numpy(), oracle)
 
 
+def _twice_and_plain(fn, args_card, args_cpu):
+    a = fn(*args_card)
+    b = fn(*args_card)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = fn(*args_cpu)
+    got = a.cpu()
+    assert torch.equal(got[:, 2], plain[:, 2])
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    return got
+
+
 @pytest.mark.cuda
-def test_tree_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("F,B,P,isz", [(28, 256, 16, 1), (28, 256, 5, 1),
+                                       (6, 1024, 16, 2), (300, 64, 3, 1)])
+def test_nat_kernel_matches_plain(cuda_device, F, B, P, isz):
+    rng = np.random.default_rng(F + P)
+    N = 40_000 + 77                                # a padded tail
+    Xb = rng.integers(0, B, (N, F)).astype(np.int32 if isz == 2 else np.uint8)
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.1, 1, N).astype(np.float32))
+    sel = rng.integers(0, P + 1, N).astype(np.int32)
+    sel[sel == 1] = 0                              # slot 1 empty
+    sel[::11] = hist_nat.NAT_DROP
+    nat = hist_nat.natural_tiles(torch.from_numpy(Xb))
+    sel = torch.from_numpy(sel)
+
+    def run(nt, gg, hh, ss):
+        return hist_nat.build_hist_nat(nt, gg, hh, ss, total_bins=B,
+                                       num_features=F, num_cols=P)
+
+    got = _twice_and_plain(
+        run, [t.to(cuda_device) for t in (nat, g, h, sel)], (nat, g, h, sel))
+    if P > 1:
+        assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B,isz,aligned", [(2000, 256, 1, True),
+                                             (28, 256, 1, False),
+                                             (130, 300, 2, True)])
+def test_hist_rows_kernel_matches_plain(cuda_device, F, B, isz, aligned):
+    rng = np.random.default_rng(F)
+    N, P = 20_000, 5
+    Xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(
+        np.int32 if isz == 2 else np.uint8))
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.1, 1, N).astype(np.float32))
+    sel_np = rng.integers(0, P + 1, N)
+    sel_np[sel_np == 2] = 0                        # slot 2 empty
+    sel = torch.from_numpy(sel_np)
+    counts = torch.bincount(sel[sel < P], minlength=P)[:P]
+    if aligned:
+        buf, tl, _ = tile_plan.tile_plan_aligned(sel, counts, N, P)
+    else:
+        buf, tl, _ = tile_plan.tile_plan(sel, N, P)
+    rec = tile_plan.make_records(Xb, g, h)
+
+    def run(r, b, t):
+        return hist.hist_rows(r, b, t, P, B, F, isz)
+
+    got = _twice_and_plain(run, [t.to(cuda_device) for t in (rec, buf, tl)],
+                           (rec, buf, tl))
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["auto", "legacy"])
+def test_tree_on_card_matches_cpu(cuda_device, layout):
     rng = np.random.default_rng(9)
     N, F, B = 30000, 8, 64
     Xb = rng.integers(1, B, (N, F)).astype(np.uint8)
     y = (rng.random(N) < 1 / (1 + np.exp(-(Xb[:, 0] / B - 0.5) * 4)))
     g = (0.5 - y).astype(np.float32) + rng.normal(0, 0.01, N).astype(np.float32)
     h = np.full(N, 0.25, np.float32)
-    p = Params(growth="depthwise", max_depth=6, num_leaves=40, max_bins=B)
+    p = Params(growth="depthwise", max_depth=6, num_leaves=40, max_bins=B,
+               deep_layout=layout)
     out = {}
     for dev in ("cpu", cuda_device):
         out[str(dev)] = grow_tree_levelwise(

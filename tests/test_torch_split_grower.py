@@ -117,21 +117,34 @@ def test_one_tree_matches_reference(depth, leaves, N, B, nan, sub):
                                           (10, 1000)])
 def test_phase_plan_matches_reference(depth, leaves):
     L = min(leaves, 2 ** depth)
-    assert tlw.phase_plan(depth, L, False) == jlw.phase_plan(depth, L, False)
+    for nat in (False, True):
+        assert tlw.phase_plan(depth, L, nat) == jlw.phase_plan(depth, L, nat)
 
 
 def test_gate_refuses_outside_the_wired_layout():
-    """Leaf budgets past 512 are the legacy plan arm, a later slice."""
+    """The wired gate's verdict equals the reference's (Pallas arm) over a
+    grid of leaf budgets, widths, bin item sizes and ``deep_layout``; what
+    it refuses, the legacy plan arm grows."""
+    for leaves, depth in ((15, 4), (512, 9), (513, 10), (1000, 10)):
+        for F, isz in ((4, 1), (119, 1), (120, 1), (59, 2), (60, 2),
+                       (2000, 1)):
+            for B in (64, 1024, 1025):
+                for layout in ("auto", "legacy"):
+                    kw = dict(growth="depthwise", max_depth=depth,
+                              num_leaves=leaves, deep_layout=layout)
+                    jp = JParams(hist_backend="pallas", **kw)
+                    assert tlw.deep_layout_supported(
+                        TParams(**kw), F, B, isz) == \
+                        jlw.deep_layout_supported(jp, F, B, isz,
+                                                  platform="cpu"), \
+                        (leaves, F, isz, B, layout)
     tp = TParams(growth="depthwise", max_depth=10, num_leaves=1000)
-    jp = JParams(growth="depthwise", max_depth=10, num_leaves=1000,
-                 hist_backend="pallas")
     assert not tlw.deep_layout_supported(tp, 4, 64, 1)
-    assert not jlw.deep_layout_supported(jp, 4, 64, 1, platform="cpu")
-    with pytest.raises(NotImplementedError, match="legacy"):
-        tlw.grow_tree_levelwise(
-            tp, 64, torch.zeros((600, 4), dtype=torch.uint8),
-            torch.zeros(600), torch.ones(600),
-            torch.ones(600, dtype=torch.bool), torch.ones(4, dtype=torch.bool))
+    tree = tlw.grow_tree_levelwise(
+        tp, 64, torch.zeros((600, 4), dtype=torch.uint8),
+        torch.zeros(600), torch.ones(600),
+        torch.ones(600, dtype=torch.bool), torch.ones(4, dtype=torch.bool))
+    assert int(tree["max_depth"]) == 0            # constant g: no split
     # records wider than 128 bytes: 9 + 130 features
     ok = TParams(growth="depthwise", max_depth=4, num_leaves=15)
     assert not tlw.deep_layout_supported(ok, 130, 64, 1)
