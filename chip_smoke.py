@@ -7,14 +7,16 @@
 Phases (any failed check exits non-zero):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel); count
+   the atomic instructions in each built library (``cuobjdump -sass``):
+   no shared-memory compare-and-swap in the histogram kernels;
 2. Higgs-shaped data, ``rows`` training rows + 1M held-out rows, from the
    seed; one capture tree of the wired path records its kernels' inputs;
 3. K1 layout mode (histograms) on the card vs its plain version at the
-   root and at the widest level (P=128): counts exact, g/h within rtol
-   1e-5 / atol 1e-4, two launches bitwise equal; K2 (row move) at a
-   depth-4 level, bitwise; each with its time, the plain version's, one
-   library call's and the bound;
+   root and at the widest level (P=128): bitwise equal (counts and g/h:
+   both sum in the tree's fixed point), two launches bitwise equal; K2
+   (row move) at a depth-4 level, bitwise; each with its time, the plain
+   version's, one library call's and the bound;
 4. the wired path: the headline config (28 features, 256 bins, depthwise,
    max_depth 8, 255 leaves, learning rate 0.1) with the launch counts set
    to 0 just before: 9 K1 and 8 K2 launches per tree; a second run gives
@@ -30,8 +32,8 @@ Phases (any failed check exits non-zero):
    mode at level 7 (P=128) vs their plain versions, as in phase 3;
 9. the legacy path: 5 K3, 4 K1 row-mode and no other launches per tree; a
    second run bitwise equal; card predict bitwise equal to CPU predict; AUC
-   above 0.70 and rising; the tree-1 nodes that differ from the wired
-   run's tree 1 (reported, not gated); one tree profiled;
+   above 0.70 and rising; tree 1 equal to the wired run's tree 1 (no
+   node differs); one tree profiled;
 10. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
    out, 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
    freed: K1 row mode vs its plain version at the root and the widest
@@ -39,6 +41,12 @@ Phases (any failed check exits non-zero):
    run bitwise equal; held-out RMSE falls from tree 1 to the last and ends
    below the label's standard deviation; time per tree, peak memory, one
    tree profiled.
+
+Each kernel's time is held beside two bounds, the bytes over the memory
+rate and, for the histogram kernels, the shared-memory atomic updates (3
+per live (row, feature) pair) over the atomic rate; ``bound_ms`` is the
+larger.  The histogram kernels also report their
+shared memory per block, blocks and features per block.
 
 It prints, on lines of their own, a ``kernels`` JSON object, the card's
 ``name, power limit`` as nvidia-smi gives them and, last,
@@ -58,7 +66,13 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
-FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# shared-memory atomic rate of an H100 SXM: 132 SMs x 32 banks (one 32-bit
+# atomic slot per bank per clock) x 1.98 GHz boost clock.  One (row,
+# feature) update of g, h and the count takes at least 3 slots, one 32-bit
+# add each; the high-word adds the kernels also issue are not counted
+# (PERF.md, "Bounds")
+SMEM_ATOMIC_SLOTS_PER_S = 132 * 32 * 1.98e9
+SLOTS_PER_UPDATE = 3
 HEADLINE_ROWS = 10_000_000
 HOLDOUT_ROWS = 1_000_000
 EPS_ROWS = 400_000
@@ -84,6 +98,38 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def sass_atomics() -> dict:
+    """The atomic instructions in each built library (``cuobjdump -sass``),
+    by opcode.  Fails if a histogram library holds a shared-memory
+    compare-and-swap (``ATOMS.CAS*``, the loop a 64-bit shared add
+    compiles to): its adds must be native 32-bit ``ATOMS.ADD``."""
+    import collections
+    import re
+    import shutil
+
+    from dryad_tpu_torch.engine import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    check(os.path.exists(tool), "cuobjdump not found: the SASS of the "
+          "histogram kernels cannot be checked")
+    out = {}
+    for name in cuda_build.SOURCES:
+        sass = subprocess.run([tool, "-sass", cuda_build.lib_path(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        ops = collections.Counter(
+            re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)",
+                       sass))
+        out[name] = dict(ops)
+        if name in ("hist", "hist_nat"):
+            check(sum(ops.values()) > 0, f"{name}: no atomics in its SASS")
+            cas = [op for op in ops if op.startswith("ATOMS.CAS")]
+            check(not cas, f"{name}: shared-memory compare-and-swap in its "
+                  f"SASS ({cas}): a 64-bit shared add crept back in")
+    return out
+
+
 def sync() -> None:
     import torch
 
@@ -107,10 +153,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, pairs: float) -> dict:
+    """The least time for the work: the larger of the bytes over the memory
+    rate and the shared-memory atomic updates (``pairs`` live (row,
+    feature) pairs) over the atomic rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = pairs * SLOTS_PER_UPDATE / SMEM_ATOMIC_SLOTS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "update_bound_ms": t_ops,
+            "updates": 3 * pairs}
 
 
 def capture(dt, params, ds, dev, names):
@@ -137,21 +189,22 @@ def capture(dt, params, ds, dev, names):
 
 
 def compare(name: str, run, plain) -> tuple[object, float]:
-    """Kernel twice (bitwise equal) vs its plain version: counts exact,
-    g/h within rtol 1e-5 / atol 1e-4.  Returns (result, max abs error)."""
+    """Kernel twice (bitwise equal) vs its plain version: bitwise equal,
+    counts and g/h (both are fixed-point integer sums in the tree's shift,
+    rounded once).  Returns (result, max abs error)."""
+    import torch
+
     k1 = run()
     k2 = run()
     sync()
-    check(bool((k1 == k2).all()), f"{name}: two launches differ")
+    check(torch.equal(k1, k2), f"{name}: two launches differ")
     ref = plain()
     sync()
-    check(bool((k1[:, 2] == ref[:, 2]).all()), f"{name}: counts differ")
-    err = (k1 - ref).abs()
-    tol = 1e-4 + 1e-5 * ref.abs()
-    check(bool((err <= tol).all()),
-          f"{name}: g/h beyond rtol 1e-5 atol 1e-4 "
-          f"(max abs err {float(err.max())})")
-    return k1, float(err.max())
+    err = float((k1 - ref).abs().max())
+    check(torch.equal(k1[:, 2], ref[:, 2]), f"{name}: counts differ")
+    check(torch.equal(k1, ref),
+          f"{name}: g/h differ from the plain version (max abs err {err})")
+    return k1, err
 
 
 def library_ms(leaf, valid, g, h, bins, P, F, B) -> float:
@@ -178,9 +231,12 @@ def check_hist(args, name: str, reps: int) -> dict:
     """K1 layout mode on the card vs its plain version on captured inputs."""
     from dryad_tpu_torch.engine import hist
 
-    rec, src, tile_leaf, P, B, F, isz = args
+    from dryad_tpu_torch.engine import cuda_build
+
+    rec, src, tile_leaf, P, B, F, isz, shift = args
     _, err = compare(name, lambda: hist.hist_tiles(*args),
                      lambda: hist.hist_tiles_plain(*args))
+    shape = dict(cuda_build.launch_info.get("hist", {}))
     ms = time_ms(lambda: hist.hist_tiles(*args), reps)
     plain_ms = time_ms(lambda: hist.hist_tiles_plain(*args), 2)
     T, WB = hist.TILE_ROWS, hist.REC_WB
@@ -194,11 +250,11 @@ def check_hist(args, name: str, reps: int) -> dict:
     live_tiles = int(live.sum())
     nbytes = (live_tiles * T * (9 + F * isz) + src.numel() * 8
               + P * 3 * F * B * 4)
-    b_ms, b_by = bound_ms(nbytes, 3.0 * int(valid.sum()) * F)
+    bound = bound_ms(nbytes, float(int(valid.sum())) * F)
     del rows, g, h, valid, bins
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
-            "live_tiles": live_tiles, "bytes": nbytes}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
+            "max_abs_err": err, "P": P, "live_tiles": live_tiles,
+            "bytes": nbytes, **shape}
 
 
 def check_rows(args, name: str, reps: int) -> dict:
@@ -207,9 +263,12 @@ def check_rows(args, name: str, reps: int) -> dict:
 
     from dryad_tpu_torch.engine import hist
 
-    recs, buf, tile_leaf, P, B, F, isz = args
+    from dryad_tpu_torch.engine import cuda_build
+
+    recs, buf, tile_leaf, P, B, F, isz, shift = args
     _, err = compare(name, lambda: hist.hist_rows(*args),
                      lambda: hist.hist_rows_plain(*args))
+    shape = dict(cuda_build.launch_info.get("hist_rows", {}))
     ms = time_ms(lambda: hist.hist_rows(*args), reps)
     plain_ms = time_ms(lambda: hist.hist_rows_plain(*args), 2)
     N = recs.shape[0]
@@ -223,27 +282,28 @@ def check_rows(args, name: str, reps: int) -> dict:
     del rows, bins
     nbytes = (n_live * (8 + F * isz) + buf.numel() * buf.element_size()
               + P * 3 * F * B * 4)
-    b_ms, b_by = bound_ms(nbytes, 3.0 * n_live * F)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
-            "live_rows": n_live, "plan_tiles": int(tile_leaf.numel()),
-            "bytes": nbytes}
+    bound = bound_ms(nbytes, float(n_live) * F)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
+            "max_abs_err": err, "P": P, "live_rows": n_live,
+            "plan_tiles": int(tile_leaf.numel()), "bytes": nbytes, **shape}
 
 
 def check_nat(call, name: str, reps: int) -> dict:
     """K3 on the card vs its plain version on captured inputs."""
     import torch
 
-    from dryad_tpu_torch.engine import hist_nat
+    from dryad_tpu_torch.engine import cuda_build, hist_nat
 
-    (xt, g, h, sel), kw = call
+    (xt, g, h, sel, shift), kw = call
     P, B, F = kw["num_cols"], kw["total_bins"], kw["num_features"]
-    _, err = compare(name, lambda: hist_nat.build_hist_nat(xt, g, h, sel, **kw),
-                     lambda: hist_nat.build_hist_nat_plain(xt, g, h, sel,
-                                                           P, B, F))
-    ms = time_ms(lambda: hist_nat.build_hist_nat(xt, g, h, sel, **kw), reps)
+    _, err = compare(
+        name, lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift, **kw),
+        lambda: hist_nat.build_hist_nat_plain(xt, g, h, sel, shift, P, B, F))
+    shape = dict(cuda_build.launch_info.get("nat", {}))
+    ms = time_ms(lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift, **kw),
+                 reps)
     plain_ms = time_ms(lambda: hist_nat.build_hist_nat_plain(
-        xt, g, h, sel, P, B, F), 2)
+        xt, g, h, sel, shift, P, B, F), 2)
     N = g.shape[0]
     keep = (sel >= 0) & (sel < P)
     n_keep = int(keep.sum())
@@ -252,10 +312,10 @@ def check_nat(call, name: str, reps: int) -> dict:
     del bins
     isz = xt.element_size()
     nbytes = N * 4 + n_keep * (F * isz + 8) + P * 3 * F * B * 4
-    b_ms, b_by = bound_ms(nbytes, 3.0 * n_keep * F)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "P": P,
-            "kept_rows": n_keep, "bytes": nbytes}
+    bound = bound_ms(nbytes, float(n_keep) * F)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
+            "max_abs_err": err, "P": P, "kept_rows": n_keep, "bytes": nbytes,
+            **shape}
 
 
 def check_perm(args, reps: int) -> dict:
@@ -289,11 +349,11 @@ def check_perm(args, reps: int) -> dict:
     real_rows = int((dest < n_out * T).sum())
     nbytes = (real_rows * leafperm.REC_WB + pos.numel() * 4
               + dstl.numel() * 8 + n_out * T * leafperm.REC_WB)
-    b_ms, b_by = bound_ms(nbytes, 0.0)
+    bound = bound_ms(nbytes, 0.0)
     del out, dest
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
-            "real_rows": real_rows, "bytes": nbytes}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "max_abs_err": 0.0, "real_rows": real_rows, "bytes": nbytes}
 
 
 def profile_tree(params, ds, dev, fname: str) -> dict:
@@ -531,6 +591,8 @@ def phase_legacy(dt, a, ds, Xv, yv, dev, wired_params, wired_booster,
     w0, l0 = wired_booster.tree_arrays(), booster.tree_arrays()
     differ = int(((w0["feature"][0] != l0["feature"][0])
                   | (w0["threshold"][0] != l0["threshold"][0])).sum())
+    check(differ == 0, f"legacy: {differ} tree-1 nodes differ from the wired "
+          "run's tree 1")
     rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
                auc={"tree_1": auc1, "last": auc_last},
                tree1_nodes_differing_from_wired=differ)
@@ -610,12 +672,18 @@ def phase_epsilon(dt, a, dev, report) -> tuple:
     return launches, root, level
 
 
+# the histogram kernels' launch shape and both bounds
+_SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
+               "bytes_bound_ms", "update_bound_ms")
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
          "launches_by_path": by_path, "max_abs_err": m["max_abs_err"],
          "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+    e.update({k: m[k] for k in _SHAPE_KEYS if k in m})
     if extra:
         e.update(extra)
     return e
@@ -623,7 +691,8 @@ def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
 
 def brief(m: dict) -> dict:
     return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "max_abs_err", "P")}
+                              "library_ms", "max_abs_err", "P", *_SHAPE_KEYS)
+            if k in m}
 
 
 def main() -> int:
@@ -666,6 +735,8 @@ def main() -> int:
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         for name, log in cuda_build.build_log.items():
             f.write(f"== {name}.cu\n{log}\n")
+    report["sass_atomics"] = sass_atomics()
+    print("SASS atomics: " + json.dumps(report["sass_atomics"]), flush=True)
 
     # ---- 2. Higgs data ----------------------------------------------------
     if a.rows < HEADLINE_ROWS:

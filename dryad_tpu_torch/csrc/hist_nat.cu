@@ -9,188 +9,235 @@
 // every slot is written, and a slot without rows is zero.
 //
 // Input: the bins as a feature-major (F, n_pad) copy (u8, or u16 stored as
-// int16), so a warp's reads of one feature over consecutive rows are
+// int16), so a block's reads of one feature over consecutive rows are
 // contiguous; g, h (f32) and sel (i32) per row.
 //
-// What bounds it on the H100: the shared-memory updates, as in K1.  The
-// bytes are small: 10M rows x (28 B bins + 8 B g/h + 4 B sel) is 0.12 ms at
+// Arithmetic: the fixed-point integer sums of hist_accum.cuh in the tree's
+// shift.  Integer adds are exact, so K3 does not depend on the order of
+// its adds: it equals K1 and its plain version bit for bit on the same
+// rows and slots, and is within count * 2^-(s+1) of the exact sum per
+// cell.
+//
+// What bounds it on the H100: the shared-memory atomic updates (three to
+// five 32-bit adds per kept (row, feature) pair, as in K1, but with the
+// lanes' cells spread at random over the banks, as a block holds too few
+// features for K1's conflict-free layout) and the latency of staging
+// rows.  The bytes are
+// small: 10M rows x (28 B bins + 8 B g/h + 4 B sel) is 0.12 ms at
 // 3.35 TB/s.
 //
 // Design:
-// * One block owns one fixed row range, a chunk of features and a group of
-//   slots (grid x, y, z), and keeps a private histogram of all its
-//   (feature, slot, bin) cells in shared memory: fp64 g/h and an fp32 count,
-//   20 B per cell.  At 16 slots x 256 bins that is 80 KB per feature, so a
-//   block takes one feature and two blocks fit an SM.
-// * Determinism without float atomics (hist_accum.cuh): (feature, slot)
-//   pair q belongs to warp q % 8, so every cell has one writer.  For each
-//   feature it owns a pair of, a warp first compacts the staged rows of its
-//   own slots into a list (ballot + prefix count, ascending row order), then
-//   adds them 32 at a time keyed on (slot, bin).  A warp so spends its
-//   match work only on its own rows, and dropped rows cost one ballot.
-// * Accuracy: fp64 sums, rounded to fp32 once in the second pass, as K1
-//   does, so K3 and K1 agree on the same rows.
-// * Second pass: each output cell sums its per-range partials in range
-//   order (a fixed order).  The range count is chosen so that the fp64
-//   partials stay near 256 MB (engine/hist_nat.py).
-// Simple and right first: no TMA, no cp.async pipelining, no tuning yet.
+// * A block holds every slot of as many features as fit 227 KB at 20 B
+//   per cell (16 slots x 256 bins is 80 KB a feature, so 2 at Higgs'
+//   widths; where one feature's slots do not fit, as at 16 x 1024 bins,
+//   the slots are split into groups).  It stages as many rows at a time
+//   as the rest of shared memory holds, up to 4096 (2560 at Higgs'
+//   widths): sel, g and h (quantised once) and the bins of its features,
+//   each thread issuing several loads before it uses any.  Any thread adds
+//   any kept (row, feature) pair with shared-memory atomics; a dropped row
+//   costs one compare.
+// * Grid (feature chunk x slot group, row ranges): one wave of resident
+//   blocks, feature chunk fastest, so the blocks that stage the same rows
+//   run side by side and share those rows in L2.  Each block adds its
+//   nonzero cells to a global (P, 3, F, B) int64 accumulator once, with
+//   atomics; a last pass converts it to f32 (hist_accum.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hist_accum.cuh"
 
-#define STAGE_ROWS 512
-#define THREADS 256
-#define NWARPS (THREADS / 32)
+#define MAX_STAGE_ROWS 4096
+#define LOAD_BATCH 4  // rows or bins a staging thread loads at once
 
-__global__ void __launch_bounds__(THREADS)
-nat_ranges_kernel(const uint8_t* __restrict__ xt, int isz, long long n_pad,
-                  const float* __restrict__ g, const float* __restrict__ h,
-                  const int* __restrict__ sel, int n_rows, int rows_per_range,
-                  double* __restrict__ partials, int F, int B, int P,
-                  int f_chunk, int s_chunk) {
-  extern __shared__ double smem[];
-  const int range = blockIdx.x;
-  const int f0 = blockIdx.y * f_chunk;
-  const int nf = min(f_chunk, F - f0);
-  const int s0 = blockIdx.z * s_chunk;
-  const int ns = min(s_chunk, P - s0);
-  const int r_begin = range * rows_per_range;
-  const int r_end = min(n_rows, r_begin + rows_per_range);
-  const int n_cells = f_chunk * s_chunk * B;
+// Words of a K3 feature's (or slot's) cells: B, made odd, so lanes adding
+// one bin of different features or slots meet in different banks.
+static inline __host__ __device__ int cell_stride(int B) { return B | 1; }
 
-  double* hg = smem;
-  double* hh = hg + n_cells;
-  float* hc = reinterpret_cast<float*>(hh + n_cells);
-  float* sg = hc + n_cells;
-  float* sh = sg + STAGE_ROWS;
-  int* ssl = reinterpret_cast<int*>(sh + STAGE_ROWS);
-  uint16_t* sbin = reinterpret_cast<uint16_t*>(ssl + STAGE_ROWS);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  uint16_t* list = sbin + (f_chunk + warp) * STAGE_ROWS;  // this warp's rows
-
-  zero_hist(hg, n_cells);
-
-  for (int base = r_begin; base < r_end; base += STAGE_ROWS) {
-    __syncthreads();  // previous stage's readers are done
-    for (int r = tid; r < STAGE_ROWS; r += THREADS) {
-      const int row = base + r;
-      int sl = -1;
-      if (row < r_end) {
-        sl = sel[row] - s0;
-        if (sl < 0 || sl >= ns) sl = -1;  // dropped, or another slot group
-      }
-      ssl[r] = sl;
-      sg[r] = sl >= 0 ? g[row] : 0.f;
-      sh[r] = sl >= 0 ? h[row] : 0.f;
+// fn(r, fl) for every (row, feature) pair of n_rows staged rows, over all
+// the block's threads, feature fastest: the lanes of a warp mostly take one
+// row's features, whose cells lie in different feature planes, so lanes
+// rarely meet on one cell even where a bin holds most rows.
+template <class Fn>
+__device__ __forceinline__ void for_pairs(int nf, int n_rows, Fn fn) {
+  int r = threadIdx.x / nf;
+  int fl = threadIdx.x - r * nf;
+  const int dr = blockDim.x / nf;
+  const int dfl = blockDim.x - dr * nf;
+  while (r < n_rows) {
+    fn(r, fl);
+    fl += dfl;
+    r += dr;
+    if (fl >= nf) {
+      fl -= nf;
+      ++r;
     }
-    for (int e = tid; e < nf * STAGE_ROWS; e += THREADS) {
-      const int fl = e / STAGE_ROWS;
-      const int r = e - fl * STAGE_ROWS;
-      const int row = base + r;
-      const size_t at = (size_t)(f0 + fl) * n_pad + row;
-      uint16_t b = 0;
-      if (row < r_end)
-        b = isz == 1 ? (uint16_t)xt[at]
-                     : reinterpret_cast<const uint16_t*>(xt)[at];
-      sbin[e] = b;
-    }
-    __syncthreads();
-    for (int fl = 0; fl < nf; ++fl) {
-      // pairs (fl, 0..ns-1) are q = fl*ns .. fl*ns+ns-1: does one of them
-      // fall to this warp?  (uniform across the warp)
-      const int q0 = fl * ns;
-      const int first_mine = q0 + ((warp - q0 % NWARPS) + NWARPS) % NWARPS;
-      if (first_mine >= q0 + ns) continue;
-      // compact this warp's rows (ascending) into its list ...
-      int n_own = 0;
-      for (int ch = 0; ch < STAGE_ROWS / 32; ++ch) {
-        const int r = ch * 32 + lane;
-        const int sl = ssl[r];
-        const bool own = sl >= 0 && ((q0 + sl) % NWARPS) == warp;
-        const unsigned b = __ballot_sync(0xffffffffu, own);
-        if (own) list[n_own + __popc(b & ((1u << lane) - 1u))] = (uint16_t)r;
-        n_own += __popc(b);
-      }
-      __syncwarp();
-      // ... then add them 32 at a time
-      for (int c = 0; c < n_own; c += 32) {
-        int cell = -1;
-        if (c + lane < n_own) {
-          const int r = list[c + lane];
-          const int bin = sbin[fl * STAGE_ROWS + r];
-          if (bin < B) cell = (fl * s_chunk + ssl[r]) * B + bin;
-        }
-        warp_add_chunk(
-            cell,
-            [&](int j, float& gj, float& hj) {
-              const int rj = list[c + j];
-              gj = sg[rj];
-              hj = sh[rj];
-            },
-            hg, hh, hc);
-      }
-      __syncwarp();  // the list is rewritten for the next feature
-    }
-  }
-  __syncthreads();
-  // partials: (n_ranges, P, 3, F, B) fp64; this block's slots and features
-  const size_t fb = (size_t)F * B;
-  double* dst = partials + (size_t)range * P * 3 * fb;
-  const int per_plane = ns * nf * B;
-  for (int i = tid; i < 3 * per_plane; i += THREADS) {
-    const int plane = i / per_plane;
-    int rem = i - plane * per_plane;
-    const int sl = rem / (nf * B);
-    rem -= sl * nf * B;
-    const int fl = rem / B;
-    const int b = rem - fl * B;
-    const int cell = (fl * s_chunk + sl) * B + b;
-    dst[((size_t)(s0 + sl) * 3 + plane) * fb + (size_t)(f0 + fl) * B + b] =
-        plane == 0 ? hg[cell] : plane == 1 ? hh[cell] : (double)hc[cell];
   }
 }
 
-// Second pass: out[e] = sum over ranges, in range order, rounded once.
-__global__ void nat_reduce_kernel(const double* __restrict__ partials,
-                                  int n_ranges, float* __restrict__ out,
-                                  long long total) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  double acc = 0.0;
-  for (int r = 0; r < n_ranges; ++r) acc += partials[(size_t)r * total + e];
-  out[e] = (float)acc;
+__global__ void __launch_bounds__(HIST_THREADS, 1)
+nat_kernel(const uint8_t* __restrict__ xt, int isz, long long n_pad,
+           const float* __restrict__ g, const float* __restrict__ h,
+           const int* __restrict__ sel, int n_rows, int rows_per_range,
+           u64* __restrict__ acc, int F, int B, int P, int f_chunk,
+           int n_fchunks, int s_chunk, int stage_rows,
+           const int* __restrict__ shift) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int fc = blockIdx.x % n_fchunks;
+  const int f0 = fc * f_chunk;
+  const int nf = min(f_chunk, F - f0);
+  const int s0 = (blockIdx.x / n_fchunks) * s_chunk;
+  const int ns = min(s_chunk, P - s0);
+  const int r_begin = blockIdx.y * rows_per_range;
+  const int r_end = min(n_rows, r_begin + rows_per_range);
+  const int bs = cell_stride(B);
+  const int n_cells = f_chunk * s_chunk * bs;
+  long long* qg = reinterpret_cast<long long*>(smem);
+  long long* qh = qg + stage_rows;
+  const Cells cs = carve_cells(qh + stage_rows, n_cells);
+  int* ssl = cs.c + n_cells;
+  uint16_t* sbin = reinterpret_cast<uint16_t*>(ssl + stage_rows);  // [r][fl]
+  const int tid = threadIdx.x;
+  const float sg = pow2f(shift[0]);
+  const float sh = pow2f(shift[1]);
+
+  zero_cells(cs, n_cells);
+  for (int base = r_begin; base < r_end; base += stage_rows) {
+    __syncthreads();  // previous stage's readers are done
+    // a thread issues LOAD_BATCH rows' loads before it uses any
+    for (int r0 = tid; r0 < stage_rows; r0 += LOAD_BATCH * blockDim.x) {
+      int sl[LOAD_BATCH];
+      float gv[LOAD_BATCH], hv[LOAD_BATCH];
+#pragma unroll
+      for (int j = 0; j < LOAD_BATCH; ++j) {
+        const int r = r0 + j * blockDim.x, row = base + r;
+        const bool in = r < stage_rows && row < r_end;
+        sl[j] = in ? __ldg(sel + row) - s0 : -1;
+        gv[j] = in ? __ldg(g + row) : 0.f;
+        hv[j] = in ? __ldg(h + row) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < LOAD_BATCH; ++j) {
+        const int r = r0 + j * blockDim.x;
+        if (r < stage_rows) {
+          // dropped, or another slot group
+          const int s = sl[j] < 0 || sl[j] >= ns ? -1 : sl[j];
+          ssl[r] = s;
+          qg[r] = s >= 0 ? quantize(gv[j], sg) : 0;
+          qh[r] = s >= 0 ? quantize(hv[j], sh) : 0;
+        }
+      }
+    }
+    for (int e0 = tid; e0 < nf * stage_rows; e0 += LOAD_BATCH * blockDim.x) {
+      uint16_t b[LOAD_BATCH];
+#pragma unroll
+      for (int j = 0; j < LOAD_BATCH; ++j) {
+        const int e = e0 + j * blockDim.x;
+        const int fl = e / stage_rows;
+        const int row = base + e - fl * stage_rows;
+        const size_t at = (size_t)(f0 + fl) * n_pad + row;
+        b[j] = 0;
+        if (e < nf * stage_rows && row < r_end)
+          b[j] = isz == 1 ? (uint16_t)__ldg(xt + at)
+                          : __ldg(reinterpret_cast<const uint16_t*>(xt) + at);
+      }
+#pragma unroll
+      for (int j = 0; j < LOAD_BATCH; ++j) {
+        const int e = e0 + j * blockDim.x;
+        if (e < nf * stage_rows) {
+          const int fl = e / stage_rows;
+          sbin[(e - fl * stage_rows) * f_chunk + fl] = b[j];
+        }
+      }
+    }
+    __syncthreads();
+    for_pairs(nf, stage_rows, [&](int r, int fl) {
+      const int sl = ssl[r];
+      if (sl < 0) return;  // a dropped row costs this compare
+      const int bin = sbin[r * f_chunk + fl];
+      if (bin < B) add_row(cs, (fl * s_chunk + sl) * bs + bin, qg[r], qh[r]);
+    });
+  }
+  __syncthreads();
+  // cell (fl, sl, bin) -> out[s0 + sl, plane, f0 + fl, bin]
+  const size_t fb = (size_t)F * B;
+  const int sb = s_chunk * bs;
+  flush_cells(cs, nf * sb, fb, [&](int i) {
+    const int fl = i / sb;
+    const int rem = i - fl * sb;
+    const int sl = rem / bs;
+    return acc + (size_t)(s0 + sl) * 3 * fb + (size_t)(f0 + fl) * B +
+           (rem - sl * bs);
+  });
+}
+
+// Shared memory of one block: per staged row its quantised g/h (int64),
+// the cells (20 B each), then per staged row its slot and bins.
+static size_t nat_smem(int f_chunk, int s_chunk, int B, int stage_rows) {
+  return (size_t)f_chunk * s_chunk * cell_stride(B) * 5 * sizeof(unsigned) +
+         (size_t)stage_rows * (2 * sizeof(long long) + sizeof(int) +
+                               f_chunk * sizeof(uint16_t));
 }
 
 extern "C" int dryad_hist_nat(const void* xt, int isz, long long n_pad,
                               const void* g, const void* h, const void* sel,
-                              int n_rows, int rows_per_range, int n_ranges,
-                              void* partials, int F, int B, int P,
-                              int f_chunk, int n_fchunks, int s_chunk,
-                              int n_schunks, void* out, void* stream) {
-  const size_t smem =
-      (size_t)f_chunk * s_chunk * B * (2 * sizeof(double) + sizeof(float)) +
-      (size_t)STAGE_ROWS * (2 * sizeof(float) + sizeof(int)) +
-      (size_t)(f_chunk + NWARPS) * STAGE_ROWS * sizeof(uint16_t);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      nat_ranges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                              int n_rows, void* acc, int F, int B, int P,
+                              const void* shift, void* out, int* info,
+                              void* stream) {
+  int optin = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = device_limits(&optin, &n_sm);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_ranges, n_fchunks, n_schunks);
-  nat_ranges_kernel<<<grid, THREADS, smem, st>>>(
+  // all slots of as many features as fit beside a 512-row stage, else one
+  // feature and slot groups; then the stage grows into what is left, up to
+  // MAX_STAGE_ROWS rows, so each round of barriers carries more rows
+  const size_t fixed = nat_smem(0, P, B, STAGE_ROWS);
+  int f_chunk = 1, s_chunk = P;
+  if (nat_smem(1, P, B, STAGE_ROWS) <= (size_t)optin) {
+    const size_t per_feature = nat_smem(1, P, B, STAGE_ROWS) - fixed;
+    f_chunk = balanced(F, (int)(((size_t)optin - fixed) / per_feature));
+  } else {
+    const size_t per_slot =
+        nat_smem(1, 1, B, STAGE_ROWS) - nat_smem(1, 0, B, STAGE_ROWS);
+    const int cap = (int)(((size_t)optin - nat_smem(1, 0, B, STAGE_ROWS)) /
+                          per_slot);
+    if (cap < 1) return (int)cudaErrorInvalidValue;
+    s_chunk = balanced(P, cap);
+  }
+  int stage_rows = MAX_STAGE_ROWS;
+  while (stage_rows > STAGE_ROWS &&
+         nat_smem(f_chunk, s_chunk, B, stage_rows) > (size_t)optin)
+    stage_rows -= STAGE_ROWS;
+  const int n_fchunks = (F + f_chunk - 1) / f_chunk;
+  const int n_groups = n_fchunks * ((P + s_chunk - 1) / s_chunk);
+  const size_t smem = nat_smem(f_chunk, s_chunk, B, stage_rows);
+  err = cudaFuncSetAttribute(nat_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nat_kernel,
+                                                      HIST_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // row ranges of whole stages: as many as fill one wave with the chunks
+  const int n_stages = max(1, (n_rows + STAGE_ROWS - 1) / STAGE_ROWS);
+  int n_ranges = per_sm * n_sm / n_groups;
+  n_ranges = max(1, min(n_ranges, n_stages));
+  const int rows_per_range =
+      (n_stages + n_ranges - 1) / n_ranges * STAGE_ROWS;
+  n_ranges = max(1, (n_rows + rows_per_range - 1) / rows_per_range);
+  info[0] = (int)smem;
+  info[1] = n_groups * n_ranges;
+  info[2] = f_chunk;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  dim3 grid(n_groups, n_ranges);
+  nat_kernel<<<grid, HIST_THREADS, smem, st>>>(
       static_cast<const uint8_t*>(xt), isz, n_pad,
       static_cast<const float*>(g), static_cast<const float*>(h),
       static_cast<const int*>(sel), n_rows, rows_per_range,
-      static_cast<double*>(partials), F, B, P, f_chunk, s_chunk);
+      static_cast<u64*>(acc), F, B, P, f_chunk, n_fchunks, s_chunk,
+      stage_rows, static_cast<const int*>(shift));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)P * 3 * F * B;
-  nat_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const double*>(partials), n_ranges,
-      static_cast<float*>(out), total);
-  return (int)cudaGetLastError();
+  return launch_out(acc, shift, out, (long long)P * 3 * F * B,
+                    (long long)F * B, st);
 }

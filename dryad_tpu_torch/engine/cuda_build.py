@@ -14,6 +14,7 @@ this machine may have no ``nvcc``.
 ``counts`` holds one launch counter per kernel wrapper: ``hist`` (K1,
 layout mode), ``hist_rows`` (K1, row mode), ``perm`` (K2) and ``nat`` (K3).
 A wrapper adds one where it launches its kernel and nowhere else.
+``launch_info`` keeps the shape of each histogram kernel's last launch.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 counts = {"hist": 0, "hist_rows": 0, "perm": 0, "nat": 0}
+launch_info: dict[str, dict] = {}
 build_seconds: float | None = None
 build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,7 +56,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [name + ".cu", *headers]:
@@ -71,7 +75,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in SOURCES:
-        out = _lib_path(name)
+        out = lib_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -91,7 +95,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for name in SOURCES:
-        _libs[name] = ctypes.CDLL(_lib_path(name))
+        _libs[name] = ctypes.CDLL(lib_path(name))
     _declare(_libs)
     build_seconds = time.perf_counter() - t0
     return _libs
@@ -100,20 +104,19 @@ def build_all() -> dict[str, ctypes.CDLL]:
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = libs["hist"].dryad_hist_tiles
-    # rec, src, tile_leaf, item_first, n_sel, n_items, partials,
-    # F, B, itemsize, f_chunk, n_chunks, leaf_item_start, out, P, stream
-    fn.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, p, p, i, p]
+    # rec, src, tile_leaf, n_sel, n_used, acc, F, B, itemsize, shift, out,
+    # P, info, stream
+    fn.argtypes = [p, p, p, i, p, p, i, i, i, p, p, i, p, p]
     fn.restype = i
     fn = libs["hist"].dryad_hist_rows
-    # recs, rec_words, n_rows, buf, src, tile_leaf, item_first, n_sel,
-    # n_items, partials, F, B, itemsize, f_chunk, n_chunks, leaf_item_start,
-    # out, P, stream
-    fn.argtypes = [p, i, i, p, p, p, p, i, i, p, i, i, i, i, i, p, p, i, p]
+    # recs, rec_words, n_rows, buf, src, tile_leaf, n_sel, n_used, acc,
+    # F, B, itemsize, shift, out, P, info, stream
+    fn.argtypes = [p, i, i, p, p, p, i, p, p, i, i, i, p, p, i, p, p]
     fn.restype = i
     fn = libs["hist_nat"].dryad_hist_nat
-    # xt, itemsize, n_pad, g, h, sel, n_rows, rows_per_range, n_ranges,
-    # partials, F, B, P, f_chunk, n_fchunks, s_chunk, n_schunks, out, stream
-    fn.argtypes = [p, i, ll, p, p, p, i, i, i, p, i, i, i, i, i, i, i, p, p]
+    # xt, itemsize, n_pad, g, h, sel, n_rows, acc, F, B, P, shift, out,
+    # info, stream
+    fn.argtypes = [p, i, ll, p, p, p, i, p, i, i, i, p, p, p, p]
     fn.restype = i
     fn = libs["perm"].dryad_permute_records
     # rec, pos, dstl, dstr, out, n_tiles, cap_rows, stream
@@ -123,6 +126,19 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
 
 def lib(name: str) -> ctypes.CDLL:
     return build_all()[name]
+
+
+def launch_hist(key: str, fn, dev, *args) -> None:
+    """Launch a histogram kernel through its C entry
+    ``fn(*args, info, stream)``: count the launch under ``key``, raise on a
+    CUDA error, and keep the launch's shape in ``launch_info[key]``
+    (shared-memory bytes per block, blocks, features per block)."""
+    info = (ctypes.c_int * 3)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts[key] += 1
+    check(fn(*args, ctypes.addressof(info), stream), f"{key} kernel")
+    launch_info[key] = {"smem_bytes": info[0], "blocks": info[1],
+                        "features_per_block": info[2]}
 
 
 def check(status: int, what: str) -> None:

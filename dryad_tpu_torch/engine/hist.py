@@ -8,7 +8,8 @@ transpose.  The result is (P, 3, F, B) f32: per leaf the sums of g, h and
 written; a leaf without live rows is zero.  ``tile_leaf`` (one entry per
 plan tile) names each tile's output leaf and is non-decreasing.
 
-Two modes share one kernel source (``csrc/hist.cu``) and its accumulation:
+Two modes share one kernel source (``csrc/hist.cu``) and its arithmetic
+(``csrc/hist_accum.cuh``):
 
 * layout mode, ``hist_tiles`` (the wired path): a record buffer ``rec``
   (n_tiles_in*512, 128) uint8 in the layout format of ``leafperm`` (g f32
@@ -18,6 +19,25 @@ Two modes share one kernel source (``csrc/hist.cu``) and its accumulation:
   per-tree record table ``recs`` (N, 2 + ceil(F*itemsize/4)) int32 of
   words [g, h, bin bytes] (``tile_plan.make_records``) of any width, and a
   plan ``buf`` of row ids, where N marks an empty slot.
+
+Fixed-point sums.  The grower picks one shift per tree for g and one for h
+(``fixed_point_shift``): the (2,) int32 ``shift`` s = 62 - k - e for
+N <= 2^k rows and max|x| < 2^e, so N * max|x| * 2^s <= 2^62 and no cell
+can overflow.  Every row adds rint(x * 2^s) to an int64 cell;
+each cell is rounded once to fp32 and scaled by 2^-s.  Integer sums are
+exact, so the result does not depend on the order of the adds: the kernels
+add with atomics, in no fixed order, and still equal each other (K1's two
+modes and K3, ``hist_nat``) and their plain versions bit for bit.  The
+quantisation error is at most count * 2^-(s+1) per cell, nonzero only for
+values below 2^-s: at 10M rows 2^-s is at most 2^-37 of max|x|, so a
+logloss hessian (max 0.25) is kept to 2^-39, about 1.8e-12.  A non-finite g
+or h is refused where the shift is chosen (a device-side assert on the
+card, RuntimeError on the CPU): an integer cell has no NaN.
+
+What bounds the kernels on the H100 is the shared-memory atomic updates,
+at least three per live (row, feature) pair (g, h and the count) plus a
+high-word add for each of g and h that reaches past 32 bits, and the
+latency of staging rows, not the bytes (``csrc/hist.cu``).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  There is no fallback from one to the other.
@@ -33,14 +53,55 @@ TILE_ROWS = 512
 REC_WB = 128
 # supports(): the reference's Pallas cap on total bins, kept as the port's
 MAX_BINS = 1024
-# plan tiles one block of the CUDA kernel accumulates before it writes its
-# partial histogram (see csrc/hist.cu)
-TILES_PER_ITEM = 16
-# shared-memory budget of one block's private histogram, in bytes
-_HIST_SMEM = 100 * 1024
+# the fixed point: cell sums stay within 2^FIXED_POINT_BITS.  SHIFT_MAX
+# caps the shift of tiny or all-zero weights (2^-SHIFT_MAX stays a normal
+# fp32)
+FIXED_POINT_BITS = 62
+SHIFT_MAX = 126
 # (row, feature) cells per index_add_ in the plain versions: bounds their
 # scratch (an Epsilon-wide pass would otherwise expand to tens of GB)
 _PLAIN_CELLS = 1 << 25
+
+
+def fixed_point_shift(g: torch.Tensor, h: torch.Tensor,
+                      num_rows: int | None = None) -> torch.Tensor:
+    """The tree's (2,) int32 fixed-point shifts [s_g, s_h], on g's device:
+    s = 62 - k - e with N <= 2^k and max|x| < 2^e, so that
+    N * max|x| * 2^s <= 2^62; capped at ``SHIFT_MAX``, which an all-zero
+    weight gets.  ``num_rows`` (N) defaults to g's length.  Nothing is
+    fetched: a non-finite weight fails a device-side assert."""
+    n = g.numel() if num_rows is None else int(num_rows)
+    k = max(0, n - 1).bit_length()                  # n <= 2^k
+    if g.numel() == 0:
+        m = torch.zeros(2, dtype=torch.float32, device=g.device)
+    else:
+        m = torch.stack([g.abs().amax(), h.abs().amax()]).to(torch.float32)
+    torch._assert_async(torch.isfinite(m).all(),
+                        "fixed_point_shift: g or h is not finite")
+    _, e = torch.frexp(m)                           # m < 2^e
+    s = torch.where(m > 0, FIXED_POINT_BITS - k - e.to(torch.int64),
+                    SHIFT_MAX)
+    return s.clamp(max=SHIFT_MAX).to(torch.int32)
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32, exact for integer e in [-126, 127]."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """rint(x * 2^s) as int64, rounding half to even as ``__float2ll_rn``
+    does; the product is exact (a power-of-two scaling in fp32)."""
+    return torch.round(x.to(torch.float32) * pow2(s)).to(torch.int64)
+
+
+def sums_to_float(acc: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """(P, 3, F, B) int64 sums -> f32: each rounded once to nearest, g and
+    h then scaled by 2^-s (exact)."""
+    out = acc.to(torch.float32)
+    out[:, 0] *= pow2(-shift[0])
+    out[:, 1] *= pow2(-shift[1])
+    return out
 
 
 def supports(total_bins: int) -> bool:
@@ -61,6 +122,13 @@ def _check_common(tile_leaf, num_cols, total_bins, itemsize, device):
         raise ValueError("all inputs must lie on one device")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+
+
+def check_shift(shift, device):
+    if (shift.dtype != torch.int32 or tuple(shift.shape) != (2,)
+            or shift.device != device):
+        raise ValueError("shift must be the tree's (2,) int32 fixed-point "
+                         "shifts on the inputs' device (fixed_point_shift)")
 
 
 def _check(rec, src, tile_leaf, num_cols, total_bins, num_features, itemsize):
@@ -99,111 +167,67 @@ def _check_rows(recs, buf, tile_leaf, num_cols, total_bins, num_features,
         raise ValueError("all inputs must lie on one device")
 
 
-def _plan_items(tile_leaf: torch.Tensor, P: int):
-    """Work items of the CUDA kernel: runs of <= TILES_PER_ITEM consecutive
-    plan tiles of one leaf.  Their count is data-dependent; ``n_items`` is
-    its static bound (each leaf adds at most one partial item), so nothing
-    is fetched here.  Returns (item_first, leaf_item_start, n_items)."""
-    dev = tile_leaf.device
-    n_sel = tile_leaf.numel()
-    idx = torch.arange(n_sel, device=dev, dtype=torch.int64)
-    first = torch.ones(n_sel, dtype=torch.bool, device=dev)
-    first[1:] = tile_leaf[1:] != tile_leaf[:-1]
-    run_start = torch.cummax(torch.where(first, idx, 0), 0).values
-    istart = ((idx - run_start) % TILES_PER_ITEM) == 0
-    item_id = torch.cumsum(istart.to(torch.int64), 0) - 1
-    n_items = n_sel // TILES_PER_ITEM + P + 1
-    # dropped scatters: non-start slots write the sentinel cell n_items,
-    # which is sliced off (index_put_ has no mode="drop")
-    tgt = torch.where(istart, item_id, n_items)
-    item_first = torch.full((n_items + 1,), n_sel, dtype=torch.int32,
-                            device=dev)
-    item_first[tgt] = idx.to(torch.int32)
-    item_leaf = torch.full((n_items + 1,), P, dtype=torch.int32, device=dev)
-    item_leaf[tgt] = tile_leaf
-    item_first = item_first[:n_items].contiguous()
-    leaf_item_start = torch.searchsorted(
-        item_leaf[:n_items].contiguous(),
-        torch.arange(P + 1, dtype=torch.int32, device=dev)).to(
-            torch.int32).contiguous()
-    return item_first, leaf_item_start, n_items
-
-
-def balanced_chunks(n: int, cap: int) -> tuple[int, int]:
-    """(chunk, n_chunks): n split into balanced chunks of at most cap."""
-    k = -(-n // max(1, cap))
-    return -(-n // k), k
-
-
-def _feature_chunks(F: int, B: int) -> tuple[int, int]:
-    """(f_chunk, n_chunks): balanced feature chunks whose fp64 g/h + fp32
-    count cells (20 B each) fit one block's histogram budget."""
-    return balanced_chunks(F, _HIST_SMEM // (20 * B))
+def _outputs(P, F, B, dev):
+    """A kernel's zeroed (P, 3, F, B) int64 accumulator, its f32 output and
+    its one-word scratch (the plan tiles in use)."""
+    return (torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev),
+            torch.empty((P, 3, F, B), dtype=torch.float32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev))
 
 
 def hist_tiles(rec: torch.Tensor, src: torch.Tensor, tile_leaf: torch.Tensor,
                num_cols: int, total_bins: int, num_features: int,
-               itemsize: int) -> torch.Tensor:
+               itemsize: int, shift: torch.Tensor) -> torch.Tensor:
     """(P, 3, F, B) f32 histograms of the planned layout tiles (module
-    doc, layout mode)."""
+    doc, layout mode), with the tree's fixed-point ``shift``."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(rec, src, tile_leaf, P, B, F, itemsize)
+    check_shift(shift, rec.device)
     if rec.device.type == "cpu":
-        return hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize)
+        return hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize,
+                                shift)
     if not rec.is_contiguous():
         raise ValueError("rec must be contiguous")
     dev = rec.device
     src = src.to(torch.int32).contiguous()
     tile_leaf = tile_leaf.to(torch.int32).contiguous()
-    item_first, leaf_item_start, n_items = _plan_items(tile_leaf, P)
-    f_chunk, n_chunks = _feature_chunks(F, B)
-    partials = torch.empty((n_items, 3, F, B), dtype=torch.float64,
-                           device=dev)
-    out = torch.empty((P, 3, F, B), dtype=torch.float32, device=dev)
-    fn = cuda_build.lib("hist").dryad_hist_tiles
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_build.counts["hist"] += 1
-    cuda_build.check(fn(rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(),
-                        item_first.data_ptr(), src.numel(), n_items,
-                        partials.data_ptr(), F, B, int(itemsize), f_chunk,
-                        n_chunks, leaf_item_start.data_ptr(), out.data_ptr(),
-                        P, stream), "hist kernel")
+    acc, out, n_used = _outputs(P, F, B, dev)
+    cuda_build.launch_hist(
+        "hist", cuda_build.lib("hist").dryad_hist_tiles, dev,
+        rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(), src.numel(),
+        n_used.data_ptr(), acc.data_ptr(), F, B, int(itemsize),
+        shift.data_ptr(), out.data_ptr(), P)
     return out
 
 
 def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
               tile_leaf: torch.Tensor, num_cols: int, total_bins: int,
-              num_features: int, itemsize: int) -> torch.Tensor:
+              num_features: int, itemsize: int,
+              shift: torch.Tensor) -> torch.Tensor:
     """(P, 3, F, B) f32 histograms of the planned rows (module doc, row
-    mode).  Tiles without a live row are skipped."""
+    mode), with the tree's fixed-point ``shift``.  Tiles without a live
+    row are skipped."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check_rows(recs, buf, tile_leaf, P, B, F, itemsize)
+    check_shift(shift, recs.device)
     if recs.device.type == "cpu":
-        return hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize)
+        return hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize,
+                               shift)
     if not recs.is_contiguous():
         raise ValueError("recs must be contiguous")
     dev = recs.device
     N, W = recs.shape
-    T = TILE_ROWS
     n_tiles = tile_leaf.numel()
     buf = buf.to(torch.int32).contiguous()
-    live = (buf.view(n_tiles, T) < N).any(1)
-    src = torch.where(live, torch.arange(n_tiles, device=dev), -1).to(
-        torch.int32).contiguous()
     tile_leaf = tile_leaf.to(torch.int32).contiguous()
-    item_first, leaf_item_start, n_items = _plan_items(tile_leaf, P)
-    f_chunk, n_chunks = _feature_chunks(F, B)
-    partials = torch.empty((n_items, 3, F, B), dtype=torch.float64,
-                           device=dev)
-    out = torch.empty((P, 3, F, B), dtype=torch.float32, device=dev)
-    fn = cuda_build.lib("hist").dryad_hist_rows
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_build.counts["hist_rows"] += 1
-    cuda_build.check(fn(recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
-                        tile_leaf.data_ptr(), item_first.data_ptr(), n_tiles,
-                        n_items, partials.data_ptr(), F, B, int(itemsize),
-                        f_chunk, n_chunks, leaf_item_start.data_ptr(),
-                        out.data_ptr(), P, stream), "hist rows kernel")
+    # the kernel marks the plan tiles with a live row here
+    src = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    acc, out, n_used = _outputs(P, F, B, dev)
+    cuda_build.launch_hist(
+        "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev,
+        recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
+        tile_leaf.data_ptr(), n_tiles, n_used.data_ptr(), acc.data_ptr(),
+        F, B, int(itemsize), shift.data_ptr(), out.data_ptr(), P)
     return out
 
 
@@ -228,27 +252,24 @@ def bin_bytes(raw: torch.Tensor, at: int, f0: int, f1: int,
 
 
 def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-               h: torch.Tensor, bins_of, P: int, F: int,
-               B: int) -> torch.Tensor:
+               h: torch.Tensor, bins_of, P: int, F: int, B: int,
+               shift: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch histogram, shared by the plain versions of K1 and
     K3: per row ``leaf`` (n,) in [0, P), live flag ``w`` (n,), weights g
     and h; ``bins_of(f0, f1)`` gives the (n, f1 - f0) int64 bins of a
-    feature chunk.  One ``index_add_`` per chunk of (g, h, 1) into flat
-    (leaf, feature, bin) cells; rows that add nothing go to one sentinel
-    cell, sliced off.
-
-    The sums run in float64 and round to fp32 once, so the result barely
-    depends on the order of the adds (``index_add_`` on CUDA adds in no
-    fixed order): at 10M rows a fp32 sum in arbitrary order can drift past
-    the comparison tolerance on its own."""
+    feature chunk.  g and h are quantised with the tree's ``shift`` as the
+    kernels do; one int64 ``index_add_`` per chunk of (g, h, 1) into flat
+    (leaf, feature, bin) cells, exact in any order on the CPU and the card
+    alike; rows that add nothing go to one sentinel cell, sliced off; then
+    ``sums_to_float``."""
     n = leaf.numel()
     dev = leaf.device
     dead = P * F * B
     leaf = leaf.to(torch.int64)
-    vals = torch.stack([g.to(torch.float64), h.to(torch.float64),
-                        torch.ones(n, dtype=torch.float64, device=dev)], -1)
-    vals = vals * w.to(torch.float64)[:, None]
-    out = torch.zeros((dead + 1, 3), dtype=torch.float64, device=dev)
+    vals = torch.stack([quantize(g, shift[0]), quantize(h, shift[1]),
+                        torch.ones(n, dtype=torch.int64, device=dev)], -1)
+    vals = torch.where(w[:, None], vals, 0)
+    out = torch.zeros((dead + 1, 3), dtype=torch.int64, device=dev)
     fc = max(1, _PLAIN_CELLS // max(n, 1))
     for f0 in range(0, F, fc):
         f1 = min(F, f0 + fc)
@@ -258,11 +279,11 @@ def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         cell = torch.where(w[:, None] & (bins < B), cell, dead)
         out.index_add_(0, cell.reshape(-1),
                        vals[:, None, :].expand(-1, f1 - f0, -1).reshape(-1, 3))
-    return (out[:dead].to(torch.float32).view(P, F, B, 3)
-            .permute(0, 3, 1, 2).contiguous())
+    return sums_to_float(out[:dead].view(P, F, B, 3).permute(0, 3, 1, 2),
+                         shift).contiguous()
 
 
-def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize):
+def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize, shift):
     """The plain PyTorch version of K1's layout mode: gather the planned
     tiles, then ``plain_sums``."""
     T = TILE_ROWS
@@ -275,10 +296,10 @@ def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize):
     leaf = tile_leaf.to(torch.int64).repeat_interleave(T)
     return plain_sums(leaf, valid, g, h,
                       lambda f0, f1: bin_bytes(rows, 9, f0, f1, itemsize),
-                      P, F, B)
+                      P, F, B, shift)
 
 
-def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize):
+def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize, shift):
     """The plain PyTorch version of K1's row mode: gather the planned rows
     of the record table, then ``plain_sums``."""
     N = recs.shape[0]
@@ -291,4 +312,4 @@ def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize):
     leaf = tile_leaf.to(torch.int64).repeat_interleave(TILE_ROWS)
     return plain_sums(leaf, valid, g, h,
                       lambda f0, f1: bin_bytes(raw, 8, f0, f1, itemsize),
-                      P, F, B)
+                      P, F, B, shift)

@@ -13,6 +13,13 @@ u16 held as int16), zero-padded to whole 512-row tiles, so the kernel's
 reads of one feature over consecutive rows are contiguous.  The grower
 builds it once per tree, as the reference does.
 
+The sums are the fixed-point integer sums of ``hist`` with the tree's
+``shift`` (``hist.fixed_point_shift``), so K3 equals K1 bit for bit on the
+same rows and slots whatever the order of the adds, and is within
+count * 2^-(s+1) of the exact sum per cell.  What bounds the kernel on the
+H100 is its shared-memory atomic updates, three per kept (row, feature)
+pair (``csrc/hist_nat.cu``).
+
 On a CUDA tensor ``build_hist_nat`` launches ``csrc/hist_nat.cu``; on a CPU
 tensor it runs ``build_hist_nat_plain``.  There is no fallback from one to
 the other.
@@ -31,11 +38,6 @@ NAT_DROP = 31          # sel sentinel (any value >= NAT_SLOTS drops the row)
 # the gate on the whole bin matrix, MB: the reference's default
 # (pallas_hist._NAT_GATE_MB), a constant of the port
 NAT_GATE_MB = 512
-# budget of the kernel's fp64 per-range partials, and of one block's
-# private histogram (bytes)
-_PARTIALS_BYTES = 256 << 20
-_HIST_SMEM = 96 * 1024
-_MIN_RANGE_ROWS = 4096
 
 
 def nat_gate_admits(num_rows: int, num_features: int, itemsize: int) -> bool:
@@ -61,15 +63,18 @@ def maybe_natural_tiles(Xb: torch.Tensor) -> torch.Tensor | None:
 
 def build_hist_small(nat_tiles: torch.Tensor, g: torch.Tensor,
                      h: torch.Tensor, sel: torch.Tensor, num_cols: int,
-                     total_bins: int, num_features: int) -> torch.Tensor:
+                     total_bins: int, num_features: int,
+                     shift: torch.Tensor) -> torch.Tensor:
     """(P, 3, F, B) via the natural-order pass for a level's smaller
-    children: ``sel`` (N,) in [0, P], where P means "drop"."""
+    children: ``sel`` (N,) in [0, P], where P means "drop"; ``shift`` is
+    the tree's (``hist.fixed_point_shift``)."""
     P = int(num_cols)
     if P > NAT_SLOTS:
         raise ValueError(f"the natural-order pass holds at most {NAT_SLOTS} "
                          f"slots, got {P}")
     sel_nat = torch.where(sel >= P, NAT_DROP, sel)
-    return build_hist_nat(nat_tiles, g, h, sel_nat, total_bins=total_bins,
+    return build_hist_nat(nat_tiles, g, h, sel_nat, shift,
+                          total_bins=total_bins,
                           num_features=num_features, num_cols=P)
 
 
@@ -97,51 +102,37 @@ def _check(xt, g, h, sel, P, B, F):
 
 
 def build_hist_nat(nat_tiles: torch.Tensor, g: torch.Tensor,
-                   h: torch.Tensor, sel: torch.Tensor, *, total_bins: int,
+                   h: torch.Tensor, sel: torch.Tensor, shift: torch.Tensor,
+                   *, total_bins: int,
                    num_features: int,
                    num_cols: int = NAT_SLOTS) -> torch.Tensor:
     """(num_cols, 3, F, B) f32 histograms from natural-order tiles: per
     slot the sums of g, h and 1 per (feature, bin) over the rows whose
     ``sel`` is that slot; a row with ``sel`` outside [0, num_cols) adds
-    nothing, and the padded tail past ``g``'s rows is never read."""
+    nothing, and the padded tail past ``g``'s rows is never read.
+    ``shift`` is the tree's fixed-point shift."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(nat_tiles, g, h, sel, P, B, F)
+    hist.check_shift(shift, nat_tiles.device)
     if nat_tiles.device.type == "cpu":
-        return build_hist_nat_plain(nat_tiles, g, h, sel, P, B, F)
+        return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F)
     dev = nat_tiles.device
     N = g.shape[0]
     n_pad = nat_tiles.shape[1]
     g = g.to(torch.float32).contiguous()
     h = h.to(torch.float32).contiguous()
     sel = sel.to(torch.int32).contiguous()
-    # a block's (feature, slot, bin) cells cost 20 B each (fp64 g/h, fp32
-    # count); slots first, then as many features as still fit
-    pairs = max(1, _HIST_SMEM // (20 * B))
-    s_chunk, n_schunks = hist.balanced_chunks(P, pairs)
-    f_chunk, n_fchunks = hist.balanced_chunks(F, pairs // s_chunk)
-    # row ranges: whole tiles each, as many as keep the fp64 partials
-    # (n_ranges, P, 3, F, B) within budget
-    per_range = P * 3 * F * B * 8
-    n_tiles = max(1, -(-N // hist.TILE_ROWS))
-    n_ranges = max(1, min(-(-N // _MIN_RANGE_ROWS),
-                          _PARTIALS_BYTES // per_range))
-    rows_per_range = -(-n_tiles // n_ranges) * hist.TILE_ROWS
-    n_ranges = max(1, -(-N // rows_per_range))
-    partials = torch.empty((n_ranges, P, 3, F, B), dtype=torch.float64,
-                           device=dev)
+    acc = torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev)
     out = torch.empty((P, 3, F, B), dtype=torch.float32, device=dev)
-    fn = cuda_build.lib("hist_nat").dryad_hist_nat
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_build.counts["nat"] += 1
-    cuda_build.check(fn(nat_tiles.data_ptr(), nat_tiles.element_size(),
-                        n_pad, g.data_ptr(), h.data_ptr(), sel.data_ptr(), N,
-                        rows_per_range, n_ranges, partials.data_ptr(), F, B,
-                        P, f_chunk, n_fchunks, s_chunk, n_schunks,
-                        out.data_ptr(), stream), "nat kernel")
+    cuda_build.launch_hist(
+        "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev,
+        nat_tiles.data_ptr(), nat_tiles.element_size(), n_pad, g.data_ptr(),
+        h.data_ptr(), sel.data_ptr(), N, acc.data_ptr(), F, B, P,
+        shift.data_ptr(), out.data_ptr())
     return out
 
 
-def build_hist_nat_plain(nat_tiles, g, h, sel, P, B, F):
+def build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F):
     """The plain PyTorch version of K3: ``hist.plain_sums`` over the rows
     in natural order, keyed by ``sel``."""
     N = g.shape[0]
@@ -152,4 +143,4 @@ def build_hist_nat_plain(nat_tiles, g, h, sel, P, B, F):
         return nat_tiles[f0:f1, :N].t().to(torch.int64) & 0xFFFF
 
     return hist.plain_sums(torch.where(keep, s, 0), keep, g, h, bins_of,
-                           P, F, B)
+                           P, F, B, shift)

@@ -13,6 +13,10 @@ The counterpart of ``dryad_tpu/engine/histogram.py`` on its Pallas arm:
   ``hist_subtraction=False`` pass.  The reference computes it as a dense
   one-hot matmul; the port takes the generic tile plan and K1 row mode.
 
+Every pass takes the tree's fixed-point ``shift``
+(``hist.fixed_point_shift``), so all the histograms of one tree are sums
+in one fixed point and agree bit for bit whichever kernel computes them.
+
 Bins past ``hist.MAX_BINS`` (1024) raise: the reference histograms those
 on its XLA (non-Pallas) arm, which is a later slice of the port.
 """
@@ -33,8 +37,8 @@ def require_kernel_bins(total_bins: int) -> None:
 
 
 def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-               mask: torch.Tensor, total_bins: int, *,
-               layout: torch.Tensor | None = None,
+               mask: torch.Tensor, total_bins: int, shift: torch.Tensor,
+               *, layout: torch.Tensor | None = None,
                records: torch.Tensor | None = None) -> torch.Tensor:
     """Masked per-(feature, bin) sums -> (3, F, B) fp32: grad, hess, count.
 
@@ -56,19 +60,21 @@ def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 layout, (0, 0, 0, n_tiles * T - layout.shape[0]))
         src = torch.arange(n_tiles, dtype=torch.int64, device=dev)
         return hist.hist_tiles(layout, src, torch.zeros_like(src), 1,
-                               total_bins, F, isz)[0]
+                               total_bins, F, isz, shift)[0]
     if records is None:
         records = tile_plan.make_records(Xb, g, h)
     rows = torch.arange(N, dtype=torch.int64, device=dev)
     buf = torch.nn.functional.pad(torch.where(mask, rows, N),
                                   (0, n_tiles * T - N), value=N)
     tile_leaf = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
-    return hist.hist_rows(records, buf, tile_leaf, 1, total_bins, F, isz)[0]
+    return hist.hist_rows(records, buf, tile_leaf, 1, total_bins, F, isz,
+                          shift)[0]
 
 
 def build_hist_segmented(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                          sel: torch.Tensor, num_cols: int, total_bins: int,
-                         *, records: torch.Tensor | None = None,
+                         shift: torch.Tensor, *,
+                         records: torch.Tensor | None = None,
                          rows_bound: int | None = None,
                          sel_counts: torch.Tensor | None = None
                          ) -> torch.Tensor:
@@ -90,14 +96,15 @@ def build_hist_segmented(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         buf, tile_leaf, _ = tile_plan.tile_plan(sel, N, P,
                                                 rows_bound=rows_bound)
     return hist.hist_rows(records, buf, tile_leaf, P, total_bins, F,
-                          leafperm.bin_itemsize(Xb))
+                          leafperm.bin_itemsize(Xb), shift)
 
 
 def build_hist_multi(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-                     sel: torch.Tensor, num_cols: int, total_bins: int, *,
+                     sel: torch.Tensor, num_cols: int, total_bins: int,
+                     shift: torch.Tensor, *,
                      records: torch.Tensor | None = None) -> torch.Tensor:
     """Histograms of ``num_cols`` slots in one pass -> (P, 3, F, B) fp32;
     ``sel`` (N,) in [0, P], P drops the row.  No bound on the selection:
     the generic plan covers every row."""
-    return build_hist_segmented(Xb, g, h, sel, num_cols, total_bins,
+    return build_hist_segmented(Xb, g, h, sel, num_cols, total_bins, shift,
                                 records=records)

@@ -124,6 +124,9 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             "slice of the port")
     use_layout = deep_layout_supported(p, F, B, isz)
     i64, f32 = torch.int64, torch.float32
+    # one fixed-point shift per tree, kept on the device: every histogram
+    # of the tree (root, every level, either arm, either kernel) sums in it
+    shift = _hist.fixed_point_shift(g, h, N)
 
     def best(hist, G, H, C, allow):
         return find_best_split(
@@ -146,14 +149,14 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         lay_rec, lay_tr, lay_rs = leafperm.natural_root_layout(
             rec_nat, L, n_buf_tiles)
         del rec_nat
-        hist0 = build_hist(Xb, g, h, bag_mask, B, layout=lay_rec)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec)
         nat_tiles = None
     else:
         # ---- legacy: one record table per tree (g/h change per tree) and
         # the natural-order tiles for the shallow levels, where admitted
         records = tile_plan.make_records(Xb, g, h)
         nat_tiles = hist_nat.maybe_natural_tiles(Xb)
-        hist0 = build_hist(Xb, g, h, bag_mask, B, records=records)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
     G0, H0, C0 = root_stats(hist0)
     root = best(hist0[None], G0[None], H0[None], C0[None],
                 (C0 >= 2 * p.min_data_in_leaf)[None])
@@ -261,11 +264,11 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         if use_layout:
             hist_l, hist_r, lay_rec, lay_tr, lay_rs = _wired_level(
                 p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
-                B, F, isz, sel_bound[P], n_buf_tiles, learn_missing)
+                B, F, isz, sel_bound[P], n_buf_tiles, learn_missing, shift)
         else:
             hist_l, hist_r = _legacy_level(
                 p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
-                right_slot, do, ls, CL, CR, hists, P, L, B, half_ok)
+                right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift)
         hists[torch.where(do, sj, L)] = hist_l
         hists[torch.where(do, right_slot, L)] = hist_r
 
@@ -312,7 +315,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
 
 
 def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
-                 B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing):
+                 B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift):
     """One wired level: sides off the layout records, one move (K2), the
     children as contiguous runs of the new layout (K1, layout mode).
     Returns (hist_l, hist_r) and the advanced layout."""
@@ -359,7 +362,7 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
         seg_nt = torch.where(
             sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
         hist_small = leafperm.hist_from_layout(
-            lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles)
+            lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift)
         hist_large = torch.index_select(hists, 0, sj) - hist_small
         ls4 = ls[:, None, None, None]
         hist_l = torch.where(ls4, hist_small, hist_large)
@@ -371,13 +374,13 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
         segn2 = torch.cat([torch.where(sel_ok, lt_l[rjc], 0),
                            torch.where(sel_ok, lt_r[rjc], 0)])
         h2 = leafperm.hist_from_layout(
-            lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles)
+            lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles, shift)
         hist_l, hist_r = h2[:P], h2[P:]
     return hist_l, hist_r, lay_rec, lay_tr, lay_rs
 
 
 def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
-                  right_slot, do, ls, CL, CR, hists, P, L, B, half_ok):
+                  right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift):
     """One legacy level (the reference's plan arm): the smaller children's
     rows are selected off the natural-order ``row_slot`` (already routed
     to this level's children) and histogrammed by the natural-order pass
@@ -397,7 +400,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
     smallsel = torch.where(bag_mask, colof[torch.clamp(row_slot, max=L)], P)
     if nat_tiles is not None and P <= hist_nat.NAT_SLOTS:
         hist_small = hist_nat.build_hist_small(nat_tiles, g, h, smallsel, P,
-                                               B, F)
+                                               B, F, shift)
     else:
         # exact per-slot counts (the smaller child's C off the parent
         # histogram, integer-exact in f32 below 2^24 rows) admit the
@@ -405,7 +408,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         small_cnt = (torch.where(do, torch.where(ls, CL, CR), 0.0).to(i64)
                      if half_ok else None)
         hist_small = build_hist_segmented(
-            Xb, g, h, smallsel, P, B, records=records,
+            Xb, g, h, smallsel, P, B, shift, records=records,
             rows_bound=(N // 2 + 1) if half_ok else None,
             sel_counts=small_cnt)
     if p.hist_subtraction:
@@ -416,7 +419,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         hist_large = build_hist_multi(
             Xb, g, h,
             torch.where(bag_mask, largesel[torch.clamp(row_slot, max=L)], P),
-            P, B, records=records)
+            P, B, shift, records=records)
     ls4 = ls[:, None, None, None]
     return (torch.where(ls4, hist_small, hist_large),
             torch.where(ls4, hist_large, hist_small))

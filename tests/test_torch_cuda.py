@@ -6,11 +6,13 @@ dryad_tpu, so it also runs on a machine that has only the port installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: K1 (both modes) and K3 counts exact and g/h at rtol 1e-5 /
-atol 1e-4 (the histogram contract); each kernel twice and K2 against the
-numpy oracle bitwise; a tree grown on the card vs on the CPU, on either
-arm: integer arrays equal and leaf values within 1e-4 (the split scan's
-fp32 prefix sums may round differently on the two devices).
+Tolerances: K1 (both modes) and K3 equal their plain versions bitwise,
+counts and g/h (both are exact fixed-point integer sums in one shift,
+rounded once); each kernel twice and K2 against the numpy oracle bitwise;
+K1's two modes and K3 bitwise equal on the same rows; a tree grown on the
+card vs on the CPU, on either arm: integer arrays equal and leaf values
+within 1e-4 (the split scan's fp32 prefix sums may round differently on
+the two devices).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from dryad_tpu_torch.config import Params
 from dryad_tpu_torch.engine import hist, hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
+from torch_layout import grouped_layout
 
 T = leafperm.TILE_ROWS
 
@@ -37,21 +40,16 @@ def _grouped_layout(rng, N, F, B, S):
     h = rng.uniform(0.1, 1, N).astype(np.float32)
     rec_nat = leafperm.make_layout_records(
         torch.from_numpy(Xb), torch.from_numpy(g), torch.from_numpy(h)).numpy()
-    seg_of = rng.integers(0, S, N)
-    lt = np.maximum(-(-np.bincount(seg_of, minlength=S) // T), 1)
-    base = np.concatenate([[0], np.cumsum(lt)])
-    rec = np.zeros((base[-1] * T, leafperm.REC_WB), np.uint8)
-    for s in range(S):
-        rows = rec_nat[seg_of == s]
-        rec[base[s] * T: base[s] * T + len(rows)] = rows
-    return rec, lt, base
+    rec, lt, base = grouped_layout(rec_nat, rng.integers(0, S, N), S)
+    return rec, lt, base, hist.fixed_point_shift(torch.from_numpy(g),
+                                                 torch.from_numpy(h))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,B", [(28, 256), (5, 1024)])
 def test_hist_kernel_matches_plain(cuda_device, F, B):
     rng = np.random.default_rng(F)
-    rec, lt, base = _grouped_layout(rng, 20000, F, B, 6)
+    rec, lt, base, shift = _grouped_layout(rng, 20000, F, B, 6)
     seg_first = torch.tensor([int(base[5]), 0, int(base[2])])
     seg_nt = torch.tensor([int(lt[5]), 0, int(lt[2])])
     n_sel = int(lt[5] + lt[2]) + 1
@@ -59,17 +57,17 @@ def test_hist_kernel_matches_plain(cuda_device, F, B):
     args = (3, B, F, 1, n_sel)
     a = leafperm.hist_from_layout(rec_t.to(cuda_device),
                                   seg_first.to(cuda_device),
-                                  seg_nt.to(cuda_device), *args)
+                                  seg_nt.to(cuda_device), *args,
+                                  shift.to(cuda_device))
     b = leafperm.hist_from_layout(rec_t.to(cuda_device),
                                   seg_first.to(cuda_device),
-                                  seg_nt.to(cuda_device), *args)
+                                  seg_nt.to(cuda_device), *args,
+                                  shift.to(cuda_device))
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    plain = leafperm.hist_from_layout(rec_t, seg_first, seg_nt, *args)
+    plain = leafperm.hist_from_layout(rec_t, seg_first, seg_nt, *args, shift)
     got = a.cpu()
-    assert torch.equal(got[:, 2], plain[:, 2])
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
-                               atol=1e-4)
+    assert torch.equal(got, plain)
     assert not got[1].any()                     # empty selection zeroed
 
 
@@ -103,9 +101,7 @@ def _twice_and_plain(fn, args_card, args_cpu):
     assert torch.equal(a, b)
     plain = fn(*args_cpu)
     got = a.cpu()
-    assert torch.equal(got[:, 2], plain[:, 2])
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
-                               atol=1e-4)
+    assert torch.equal(got, plain)
     return got
 
 
@@ -123,13 +119,15 @@ def test_nat_kernel_matches_plain(cuda_device, F, B, P, isz):
     sel[::11] = hist_nat.NAT_DROP
     nat = hist_nat.natural_tiles(torch.from_numpy(Xb))
     sel = torch.from_numpy(sel)
+    shift = hist.fixed_point_shift(g, h)
 
-    def run(nt, gg, hh, ss):
-        return hist_nat.build_hist_nat(nt, gg, hh, ss, total_bins=B,
+    def run(nt, gg, hh, ss, sh):
+        return hist_nat.build_hist_nat(nt, gg, hh, ss, sh, total_bins=B,
                                        num_features=F, num_cols=P)
 
     got = _twice_and_plain(
-        run, [t.to(cuda_device) for t in (nat, g, h, sel)], (nat, g, h, sel))
+        run, [t.to(cuda_device) for t in (nat, g, h, sel, shift)],
+        (nat, g, h, sel, shift))
     if P > 1:
         assert not got[1].any()
 
@@ -154,12 +152,14 @@ def test_hist_rows_kernel_matches_plain(cuda_device, F, B, isz, aligned):
     else:
         buf, tl, _ = tile_plan.tile_plan(sel, N, P)
     rec = tile_plan.make_records(Xb, g, h)
+    shift = hist.fixed_point_shift(g, h)
 
-    def run(r, b, t):
-        return hist.hist_rows(r, b, t, P, B, F, isz)
+    def run(r, b, t, s):
+        return hist.hist_rows(r, b, t, P, B, F, isz, s)
 
-    got = _twice_and_plain(run, [t.to(cuda_device) for t in (rec, buf, tl)],
-                           (rec, buf, tl))
+    got = _twice_and_plain(
+        run, [t.to(cuda_device) for t in (rec, buf, tl, shift)],
+        (rec, buf, tl, shift))
     assert not got[2].any()
 
 

@@ -3,9 +3,10 @@ histogram kernel, run in interpret mode on the CPU.
 
 Tolerance: counts exact (sums of 0/1); g/h at rtol 1e-5 / atol 1e-4, the
 contract of tests/test_pallas_hist.py — the two packages add the same
-fp32 values in different orders (the port in float64 rounded once, the
-reference on its three-limb fp32 path), so only ulp-level differences
-remain.
+fp32 values differently (the port as exact fixed-point integer sums in
+the tree's shift, rounded once; the reference on its three-limb fp32
+path), so only ulp-level differences remain.  On late-tree hessians, far
+below the largest, the h sums are held at rtol 1e-5 with no atol.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from dryad_tpu.engine.pallas_hist import build_hist_pallas
 from dryad_tpu_torch.engine import hist as thist
 from dryad_tpu_torch.engine import histogram as thg
 from dryad_tpu_torch.engine import leafperm as tlp
+from torch_layout import grouped_layout
 
 T = tlp.TILE_ROWS
 
@@ -55,11 +57,40 @@ def test_root_hist_matches_pallas(n, f, b, dtype, p_mask):
     mask = np.random.default_rng(f).random(n) < p_mask
     want = build_hist_pallas(jnp.asarray(Xb), jnp.asarray(g), jnp.asarray(h),
                              jnp.asarray(mask), b)
-    got = thg.build_hist(_to_torch_bins(Xb), torch.from_numpy(g),
-                         torch.from_numpy(h), torch.from_numpy(mask), b)
+    gt, ht = torch.from_numpy(g), torch.from_numpy(h)
+    got = thg.build_hist(_to_torch_bins(Xb), gt, ht, torch.from_numpy(mask),
+                         b, thist.fixed_point_shift(gt, ht))
     _close(got, want)
     if p_mask == 0.0:
         assert not got.any()
+
+
+def test_root_hist_late_tree_hessians_match_pallas():
+    """Late in training most rows are confident: their logloss hessians
+    p(1-p) lie far below the largest (0.25).  Feature 0 bins rows by their
+    margin, so its top bins hold only hessians near 1e-8.  Each still
+    counts at its own precision: the h sums equal the reference's at
+    rtol 1e-5 with no absolute slack (a fixed point whose step is near
+    max|h| * 2^-24 rounds those rows to zero)."""
+    n, F, B = 3000, 4, 16
+    rng = np.random.default_rng(11)
+    y = rng.random(n) < 0.5
+    m = rng.uniform(0, 20, n)                 # |margin|, sign agreeing with y
+    p = 1 / (1 + np.exp(-np.where(y, m, -m)))
+    g = (p - y).astype(np.float32)
+    h = (p * (1 - p)).astype(np.float32)
+    Xb = rng.integers(0, B, (n, F)).astype(np.uint8)
+    Xb[:, 0] = np.minimum(m / 20 * B, B - 1).astype(np.uint8)
+    assert h[Xb[:, 0] == B - 1].max() < 1e-7 < h.max()
+    mask = np.ones(n, bool)
+    want = np.asarray(build_hist_pallas(jnp.asarray(Xb), jnp.asarray(g),
+                                        jnp.asarray(h), jnp.asarray(mask), B))
+    gt, ht = torch.from_numpy(g), torch.from_numpy(h)
+    got = thg.build_hist(torch.from_numpy(Xb), gt, ht, torch.from_numpy(mask),
+                         B, thist.fixed_point_shift(gt, ht)).numpy()
+    _close(got, want)
+    np.testing.assert_allclose(got[..., 1, :, :], want[..., 1, :, :],
+                               rtol=1e-5, atol=0)
 
 
 def _grouped_layout(Xb, g, h, seg_of, S):
@@ -67,15 +98,7 @@ def _grouped_layout(Xb, g, h, seg_of, S):
     the reference's test_hist_from_layout_bitwise_vs_plan builds)."""
     rec_nat = np.asarray(jlp.make_layout_records(
         jnp.asarray(Xb), jnp.asarray(g), jnp.asarray(h)))
-    lt = np.maximum(-(-np.bincount(seg_of, minlength=S) // T), 1)
-    base = np.concatenate([[0], np.cumsum(lt)])
-    rec = np.zeros((base[-1] * T, jlp._REC_WB), np.uint8)
-    fill = np.zeros(S, np.int64)
-    for r in range(len(seg_of)):
-        s = seg_of[r]
-        rec[base[s] * T + fill[s]] = rec_nat[r]
-        fill[s] += 1
-    return rec, lt, base
+    return grouped_layout(rec_nat, seg_of, S)
 
 
 @pytest.mark.parametrize("f,b,dtype,sel", [
@@ -101,7 +124,9 @@ def test_hist_from_layout_matches_pallas(f, b, dtype, sel):
     got = tlp.hist_from_layout(torch.from_numpy(rec),
                                torch.from_numpy(seg_first),
                                torch.from_numpy(seg_nt), len(sel), b, f,
-                               np.dtype(dtype).itemsize, bound)
+                               np.dtype(dtype).itemsize, bound,
+                               thist.fixed_point_shift(torch.from_numpy(g),
+                                                       torch.from_numpy(h)))
     _close(got, want)
     for i, s in enumerate(sel):
         if s is None:
@@ -112,7 +137,8 @@ def test_hist_raises_past_bin_cap():
     rec = torch.zeros((T, tlp.REC_WB), dtype=torch.uint8)
     src = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="1024"):
-        thist.hist_tiles(rec, src, src, 1, 1025, 4, 2)
+        thist.hist_tiles(rec, src, src, 1, 1025, 4, 2,
+                         torch.zeros(2, dtype=torch.int32))
 
 
 def test_hist_from_layout_raises_on_short_plan():
@@ -122,5 +148,6 @@ def test_hist_from_layout_raises_on_short_plan():
     seg_first = torch.tensor([0, 2])
     seg_nt = torch.tensor([2, 0])                 # needs 2 + 1 slots
     with pytest.raises(RuntimeError, match="n_sel_tiles"):
-        tlp.hist_from_layout(rec, seg_first, seg_nt, 2, 16, 4, 1, 2)
+        tlp.hist_from_layout(rec, seg_first, seg_nt, 2, 16, 4, 1, 2,
+                             torch.zeros(2, dtype=torch.int32))
 

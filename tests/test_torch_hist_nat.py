@@ -4,8 +4,8 @@ reference's Pallas kernels run in interpret mode on the CPU.
 
 Tolerance: counts exact (sums of 0/1); g/h at rtol 1e-5 / atol 1e-4, the
 contract of tests/test_pallas_hist.py: the two packages add the same fp32
-values in different orders (the port in float64 rounded once, the
-reference on its three-limb fp32 path).
+values differently (the port as exact fixed-point integer sums in the
+tree's shift, rounded once; the reference on its three-limb fp32 path).
 """
 
 import numpy as np
@@ -61,8 +61,9 @@ def test_natural_order_pass_matches_reference(N, F, B, dtype, P):
     nat_t = hist_nat.natural_tiles(_torch_bins(Xb))
     assert nat_t.shape == (F, -(-N // T) * T)
     gt, ht = torch.from_numpy(g), torch.from_numpy(h)
+    shift = hist.fixed_point_shift(gt, ht)
     got = hist_nat.build_hist_small(nat_t, gt, ht, torch.from_numpy(sel),
-                                    P, B, F)
+                                    P, B, F, shift)
     _close(got, want)
     if P > 2:
         assert not got[2].any()
@@ -73,7 +74,8 @@ def test_natural_order_pass_matches_reference(N, F, B, dtype, P):
                               jnp.asarray(sel_raw), total_bins=B,
                               num_features=F, num_cols=P, platform="cpu")
     got = hist_nat.build_hist_nat(nat_t, gt, ht, torch.from_numpy(sel_raw),
-                                  total_bins=B, num_features=F, num_cols=P)
+                                  shift, total_bins=B, num_features=F,
+                                  num_cols=P)
     _close(got, want)
 
 
@@ -110,15 +112,17 @@ def test_row_mode_matches_reference(N, F, B, dtype, P, aligned):
                               platform="cpu")
     rec_t = tile_plan.make_records(_torch_bins(Xb), torch.from_numpy(g),
                                    torch.from_numpy(h))
+    shift = hist.fixed_point_shift(torch.from_numpy(g), torch.from_numpy(h))
     got = hist.hist_rows(
         rec_t, torch.from_numpy(np.array(buf)),
-        torch.from_numpy(np.array(tl)), P, B, F, np.dtype(dtype).itemsize)
+        torch.from_numpy(np.array(tl)), P, B, F, np.dtype(dtype).itemsize,
+        shift)
     _close(got, want)
     assert not got[1].any()                                   # empty slot
     # the port's own plan through build_hist_segmented gives the same
     got2 = build_hist_segmented(
         _torch_bins(Xb), torch.from_numpy(g), torch.from_numpy(h),
-        torch.from_numpy(sel), P, B, records=rec_t,
+        torch.from_numpy(sel), P, B, shift, records=rec_t,
         sel_counts=torch.from_numpy(counts) if aligned else None)
     assert torch.equal(got, got2)
 
@@ -128,4 +132,4 @@ def test_nat_pass_refuses_more_than_16_slots():
     z = torch.zeros(10)
     with pytest.raises(ValueError, match="16"):
         hist_nat.build_hist_small(nat, z, z, torch.zeros(10, dtype=torch.int32),
-                                  17, 16, 3)
+                                  17, 16, 3, hist.fixed_point_shift(z, z))
