@@ -34,7 +34,25 @@ Phases (any failed check exits non-zero):
    second run bitwise equal; card predict bitwise equal to CPU predict; AUC
    above 0.70 and rising; tree 1 equal to the wired run's tree 1 (no
    node differs); one tree profiled;
-10. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
+10. leaf-wise growth, wired (Higgs data, ``growth="leafwise"``, 255
+   leaves, max_depth 8): the batched grower and the wired gate are taken;
+   one capture tree holds K2 at level 4 and K1 layout mode at the widest
+   level (P=128) against their plain versions, under heap-node runs; 9 K1
+   and 8 K2 launches per tree and no other; a second run bitwise equal;
+   card predict bitwise equal to CPU predict; AUC above 0.70 and rising;
+   one tree profiled, and the selection replay's host and device time;
+11. leaf-wise at the reference's default depth (``max_depth=-1``, which
+   ``effective_depth_params`` maps to 12, past the wired cap of 2^D <=
+   1024, so the legacy arm): K3 at P=8 and K1 row mode at P=2048 against
+   their plain versions; 4 K3 and 9 K1 row-mode launches per tree and no
+   other; second run, predict and AUC as in 10; peak device memory; one
+   tree profiled;
+12. the leaf-wise fixture (50k rows, 64 bins, 4 trees, 128 leaves, depth
+   8): wired and legacy trees equal; on one tree the batched grower equals
+   the sequential ``grow_tree`` on every integer array (node ids and
+   ``row_leaf`` included); ``{"objective": "binary"}`` alone trains 3
+   trees of 31 leaves at effective depth 9 on the wired arm;
+13. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
    out, 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
    freed: K1 row mode vs its plain version at the root and the widest
    level (P=32); 7 K1 row-mode launches per tree and no other; a second
@@ -364,13 +382,15 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import dryad_tpu_torch as dt
+    from dryad_tpu_torch.config import effective_depth_params
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.train import binned_to_device
     from dryad_tpu_torch.objectives import get_objective
 
-    p = dt.Params.from_dict(params)
-    obj = get_objective(p)
     B = ds.mapper.total_bins
+    p = effective_depth_params(dt.Params.from_dict(params), ds.num_features,
+                               B, ds.num_rows)
+    obj = get_objective(p)
     Xb = binned_to_device(ds.X_binned, dev)
     y = torch.from_numpy(ds.y).to(dev)
     score = torch.full((ds.num_rows,), obj.init_score(ds.y),
@@ -471,13 +491,44 @@ def tree_summary(booster) -> dict:
             "trees_per_s": 1.0 / mean}
 
 
+def train_and_check(dt, params, ds, Xv, yv, dev, want: dict,
+                    what: str) -> tuple:
+    """A path's main-path run: launch counts (set to 0 just before it), a
+    second run bitwise equal, card predict finite and bitwise equal to CPU
+    predict, AUC above 0.70 and rising.  Returns (booster, report)."""
+    import numpy as np
+
+    from dryad_tpu_torch.metrics import auc
+
+    booster, launches, peak = train_counted(dt, params, ds, dev)
+    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
+    check_launches(launches, want, what)
+    same_trees(booster, dt.train(params, ds, device=dev), what)
+    check(raw_gpu.shape == (len(yv),) and bool(np.isfinite(raw_gpu).all()),
+          f"{what}: predict shape or finiteness")
+    check(np.array_equal(raw_gpu, dt.predict(booster, Xv, raw_score=True,
+                                             device="cpu")),
+          f"{what}: card predict != CPU predict")
+    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
+    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
+    check(auc_last > auc1, f"{what}: AUC did not rise")
+    check(auc_last > 0.70, f"{what}: AUC {auc_last} <= 0.70")
+    rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
+               auc={"tree_1": auc1, "last": auc_last},
+               effective_max_depth=booster.params.max_depth,
+               splits_per_tree=float((booster.arrays["feature"] >= 0)
+                                     .sum(1).mean()))
+    print(f"{what} train: " + json.dumps(rep), flush=True)
+    print(f"{what}: second run bitwise equal; card predict bitwise equal to "
+          "CPU", flush=True)
+    return booster, rep
+
+
 def phase_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
     """Phases 3-6: the wired path at the headline config."""
-    import numpy as np
     import torch
 
     from dryad_tpu_torch.engine import hist, leafperm
-    from dryad_tpu_torch.metrics import auc
 
     params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
               "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
@@ -498,33 +549,15 @@ def phase_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
     torch.cuda.empty_cache()
     report.update(hist_root=root, hist_level=level, perm=perm)
 
-    booster, launches, peak = train_counted(dt, params, ds, dev)
-    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
-    check_launches(launches, {"hist": 9 * a.trees, "perm": 8 * a.trees},
-                   "wired")
-    train_rep = dict(tree_summary(booster), peak_bytes=peak,
-                     launches=launches)
-    print("wired train: " + json.dumps(train_rep), flush=True)
-    report["train"] = train_rep
-    same_trees(booster, dt.train(params, ds, device=dev), "wired")
-    print("wired determinism: second run bitwise equal", flush=True)
-
-    raw_cpu = dt.predict(booster, Xv, raw_score=True, device="cpu")
-    check(raw_gpu.shape == (len(yv),) and bool(np.isfinite(raw_gpu).all()),
-          "predict shape or finiteness")
-    check(np.array_equal(raw_gpu, raw_cpu), "card predict != CPU predict")
-    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
-    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
-    print(f"wired predict: bitwise equal to CPU; AUC tree 1 {auc1:.6f}, "
-          f"tree {a.trees} {auc_last:.6f}", flush=True)
-    check(auc_last > auc1, "AUC did not rise")
-    check(auc_last > 0.70, f"AUC {auc_last} <= 0.70")
-    report["auc"] = {"tree_1": auc1, "last": auc_last}
+    booster, rep = train_and_check(dt, params, ds, Xv, yv, dev,
+                                   {"hist": 9 * a.trees,
+                                    "perm": 8 * a.trees}, "wired")
+    report["train"] = rep
 
     prof = profile_tree(params, ds, dev, "profile.txt")
     print("wired profile: " + json.dumps(prof), flush=True)
     report["profile"] = prof
-    return params, booster, launches, level
+    return params, booster, rep["launches"], level
 
 
 def phase_fixture(dt, dev, report) -> None:
@@ -552,11 +585,9 @@ def phase_fixture(dt, dev, report) -> None:
 def phase_legacy(dt, a, ds, Xv, yv, dev, wired_params, wired_booster,
                  report) -> tuple:
     """Phases 8-9: the legacy plan arm at the headline config."""
-    import numpy as np
     import torch
 
     from dryad_tpu_torch.engine import hist, hist_nat
-    from dryad_tpu_torch.metrics import auc
 
     params = dict(wired_params, deep_layout="legacy")
     n_nat, n_rows = legacy_calls(ds.num_rows, ds.num_features, 8, 255)
@@ -575,39 +606,263 @@ def phase_legacy(dt, a, ds, Xv, yv, dev, wired_params, wired_booster,
     torch.cuda.empty_cache()
     report.update(nat_level=nat, rows_level=rows)
 
-    booster, launches, peak = train_counted(dt, params, ds, dev)
-    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
-    check_launches(launches, {"nat": n_nat * a.trees,
-                              "hist_rows": n_rows * a.trees}, "legacy")
-    same_trees(booster, dt.train(params, ds, device=dev), "legacy")
-    check(np.array_equal(raw_gpu,
-                         dt.predict(booster, Xv, raw_score=True,
-                                    device="cpu")),
-          "legacy: card predict != CPU predict")
-    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
-    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
-    check(auc_last > auc1, "legacy: AUC did not rise")
-    check(auc_last > 0.70, f"legacy: AUC {auc_last} <= 0.70")
+    booster, rep = train_and_check(dt, params, ds, Xv, yv, dev,
+                                   {"nat": n_nat * a.trees,
+                                    "hist_rows": n_rows * a.trees}, "legacy")
     w0, l0 = wired_booster.tree_arrays(), booster.tree_arrays()
     differ = int(((w0["feature"][0] != l0["feature"][0])
                   | (w0["threshold"][0] != l0["threshold"][0])).sum())
     check(differ == 0, f"legacy: {differ} tree-1 nodes differ from the wired "
           "run's tree 1")
-    rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
-               auc={"tree_1": auc1, "last": auc_last},
-               tree1_nodes_differing_from_wired=differ)
-    print("legacy train: " + json.dumps(rep), flush=True)
-    print("legacy: second run bitwise equal; card predict bitwise equal to "
-          "CPU", flush=True)
+    rep["tree1_nodes_differing_from_wired"] = differ
     prof = profile_tree(params, ds, dev, "profile_legacy.txt")
     print("legacy profile: " + json.dumps(prof), flush=True)
     rep["profile"] = prof
     report["legacy"] = rep
-    return launches, nat, rows
+    return rep["launches"], nat, rows
+
+
+def selection_cost(args, params, ds, dev) -> dict:
+    """The leaf-wise selection replay (``leafwise_fast.select_tree``) alone
+    on a captured tree's heap tables, against whole trees of the same
+    config timed in the same window (alternately, 3 each, every call
+    ending in a synchronisation): host wall ms of each, the replay's share
+    of a tree, and its device ms and kernel launches under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.config import effective_depth_params
+    from dryad_tpu_torch.engine import leafwise_fast
+    from dryad_tpu_torch.engine.grower import grow_any
+    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.objectives import get_objective
+
+    B = ds.mapper.total_bins
+    p = effective_depth_params(dt.Params.from_dict(params), ds.num_features,
+                               B, ds.num_rows)
+    obj = get_objective(p)
+    Xb = binned_to_device(ds.X_binned, dev)
+    y = torch.from_numpy(ds.y).to(dev)
+    g, h = obj.grad_hess(torch.full((ds.num_rows,), obj.init_score(ds.y),
+                                    dtype=torch.float32, device=dev), y)
+    bag = torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
+    fmask = torch.ones(ds.num_features, dtype=torch.bool, device=dev)
+
+    def wall_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def tree():
+        grow_any(p, B, Xb, g, h, bag, fmask)
+
+    def select():
+        leafwise_fast.select_tree(*args)
+
+    wall_ms(tree)
+    wall_ms(select)
+    trees, sels = [], []
+    for _ in range(3):
+        trees.append(wall_ms(tree))
+        sels.append(wall_ms(select))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        select()
+        sync()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in kernels)
+    del Xb, y, g, h
+    tree_ms, sel_ms = sum(trees) / 3, sum(sels) / 3
+    return {"trips": int(args[0]) - 1, "host_ms": sel_ms,
+            "tree_wall_ms": tree_ms, "share_of_tree_wall": sel_ms / tree_ms,
+            "device_ms": dev_us / 1e3 if dev_us > 0 else "not measured",
+            "kernel_launches": sum(e.count for e in kernels)}
+
+
+def leafwise_capture(dt, params, ds, dev, names: dict, what: str) -> dict:
+    """One capture tree of a leaf-wise configuration, with the batched
+    grower and the sequential one watched: the batched grower must run
+    once and the sequential one never."""
+    from dryad_tpu_torch.engine import grower, leafwise_fast
+
+    calls = capture(dt, params, ds, dev, dict(
+        names, batched=(leafwise_fast, "grow_tree_leafwise_batched"),
+        sequential=(grower, "grow_tree"),
+        select=(leafwise_fast, "select_tree")))
+    check(len(calls["batched"]) == 1 and not calls["sequential"],
+          f"{what}: the batched leaf-wise grower was not the one taken")
+    return calls
+
+
+def phase_leafwise_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phase 10: leaf-wise growth on the wired arm at max_depth 8."""
+    import torch
+
+    from dryad_tpu_torch.config import (
+        effective_depth_params,
+        leafwise_fast_supported,
+    )
+    from dryad_tpu_torch.engine import hist, leafperm, leafwise_fast
+
+    params = {"objective": "binary", "growth": "leafwise", "max_depth": 8,
+              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+              "num_trees": a.trees}
+    F, B, N = ds.num_features, ds.mapper.total_bins, ds.num_rows
+    p = effective_depth_params(dt.Params.from_dict(params), F, B, N)
+    check(p.max_depth == 8 and leafwise_fast_supported(p, F, B, N)
+          and leafwise_fast.leafwise_layout_supported(p, F, B, 1),
+          "leaf-wise depth 8: not the batched grower on the wired arm")
+    calls = leafwise_capture(dt, params, ds, dev,
+                             {"hist": (hist, "hist_tiles"),
+                              "perm": (leafperm, "permute_records")},
+                             "leaf-wise wired")
+    check(len(calls["hist"]) == 9 and len(calls["perm"]) == 8,
+          f"leaf-wise wired capture tree made {len(calls['hist'])} "
+          f"histogram calls and {len(calls['perm'])} row moves")
+    level = check_hist(calls["hist"][-1][0], "leaf-wise hist level 7",
+                       a.reps)
+    check(level["P"] == 128, f"leaf-wise widest level P={level['P']}")
+    print("K1 leaf-wise level 7: " + json.dumps(level), flush=True)
+    perm = check_perm(calls["perm"][4][0], a.reps)
+    print("K2 leaf-wise level 4: " + json.dumps(perm), flush=True)
+    select_args = calls["select"][0][0]
+    del calls
+    torch.cuda.empty_cache()
+
+    _, rep = train_and_check(dt, params, ds, Xv, yv, dev,
+                             {"hist": 9 * a.trees, "perm": 8 * a.trees},
+                             "leaf-wise wired")
+    rep["profile"] = profile_tree(params, ds, dev, "profile_leafwise.txt")
+    print("leaf-wise wired profile: " + json.dumps(rep["profile"]),
+          flush=True)
+    rep["selection"] = selection_cost(select_args, params, ds, dev)
+    print("leaf-wise selection replay: " + json.dumps(rep["selection"]),
+          flush=True)
+    rep.update(hist_level=level, perm=perm)
+    report["leafwise_wired"] = rep
+    return rep["launches"], level, perm
+
+
+def phase_leafwise_default(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phase 11: leaf-wise at the reference's default max_depth=-1."""
+    import torch
+
+    from dryad_tpu_torch.config import (
+        effective_depth_params,
+        leafwise_fast_supported,
+    )
+    from dryad_tpu_torch.engine import hist, hist_nat, leafwise_fast
+
+    params = {"objective": "binary", "growth": "leafwise", "num_leaves": 255,
+              "max_bins": 256, "learning_rate": 0.1, "num_trees": a.trees}
+    F, B, N = ds.num_features, ds.mapper.total_bins, ds.num_rows
+    p = effective_depth_params(dt.Params.from_dict(params), F, B, N)
+    check(p.max_depth == 12 and leafwise_fast_supported(p, F, B, N)
+          and not leafwise_fast.leafwise_layout_supported(p, F, B, 1),
+          f"leaf-wise default: effective depth {p.max_depth}, not the "
+          "batched grower's legacy arm at 12")
+    check(hist_nat.nat_gate_admits(N, F, 1), "the Higgs matrix left the "
+          "K3 gate")
+    calls = leafwise_capture(dt, params, ds, dev,
+                             {"rows": (hist, "hist_rows"),
+                              "nat": (hist_nat, "build_hist_nat")},
+                             "leaf-wise default")
+    check(len(calls["rows"]) == 9 and len(calls["nat"]) == 4,
+          f"leaf-wise default capture tree made {len(calls['rows'])} "
+          f"row-mode and {len(calls['nat'])} natural-order calls")
+    nat = check_nat(calls["nat"][3], "leaf-wise nat level 3", a.reps)
+    check(nat["P"] == 8, f"leaf-wise K3 P={nat['P']}")
+    print("K3 leaf-wise level 3: " + json.dumps(nat), flush=True)
+    rows = check_rows(calls["rows"][-1][0], "leaf-wise rows level 11",
+                      a.reps)
+    check(rows["P"] == 2048, f"leaf-wise K1 row mode P={rows['P']}")
+    print("K1 rows leaf-wise level 11: " + json.dumps(rows), flush=True)
+    select_args = calls["select"][0][0]
+    del calls
+    torch.cuda.empty_cache()
+
+    _, rep = train_and_check(dt, params, ds, Xv, yv, dev,
+                             {"nat": 4 * a.trees, "hist_rows": 9 * a.trees},
+                             "leaf-wise default")
+    rep["profile"] = profile_tree(params, ds, dev,
+                                  "profile_leafwise_default.txt")
+    print("leaf-wise default profile: " + json.dumps(rep["profile"]),
+          flush=True)
+    rep["selection"] = selection_cost(select_args, params, ds, dev)
+    print("leaf-wise default selection replay: "
+          + json.dumps(rep["selection"]), flush=True)
+    rep.update(nat_level=nat, rows_level=rows)
+    report["leafwise_default"] = rep
+    return rep["launches"], nat, rows
+
+
+def phase_leafwise_fixture(dt, dev, report) -> None:
+    """Phase 12: the leaf-wise fixture: wired vs legacy, batched vs
+    sequential, and the reference's defaults."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.engine import grower, leafwise_fast
+    from dryad_tpu_torch.objectives import Binary
+
+    X, y = datasets.higgs_like(50_000, seed=43)
+    ds = dt.Dataset(X, y, max_bins=64)
+    base = {"objective": "binary", "num_trees": 4, "num_leaves": 128,
+            "max_bins": 64, "growth": "leafwise", "max_depth": 8}
+    b_w = dt.train(base, ds, device=dev)
+    b_l = dt.train(dict(base, deep_layout="legacy"), ds, device=dev)
+    for k in ("feature", "threshold", "left", "right", "default_left"):
+        check(np.array_equal(b_w.tree_arrays()[k], b_l.tree_arrays()[k]),
+              f"leaf-wise fixture, wired vs legacy: {k!r} differs")
+    dv = float(np.abs(b_w.arrays["value"] - b_l.arrays["value"]).max())
+    check(dv <= 1e-5, f"leaf-wise fixture, wired vs legacy: values differ "
+          f"by {dv}")
+
+    p = dt.Params.from_dict(base)
+    B, F = ds.mapper.total_bins, ds.num_features
+    yt = torch.from_numpy(ds.y).to(dev)
+    g, h = Binary.grad_hess(
+        torch.full_like(yt, float(Binary.init_score(ds.y))), yt)
+    args = (p, B, torch.from_numpy(ds.X_binned).to(dev), g, h,
+            torch.ones(ds.num_rows, dtype=torch.bool, device=dev),
+            torch.ones(F, dtype=torch.bool, device=dev))
+    bat = leafwise_fast.grow_tree_leafwise_batched(*args)
+    seq = grower.grow_tree(*args)
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "row_leaf", "max_depth"):
+        check(torch.equal(bat[k], seq[k]),
+              f"leaf-wise fixture, batched vs sequential: {k!r} differs")
+    check(torch.equal(bat["value"], seq["value"])
+          and torch.equal(bat["cover"], seq["cover"]),
+          "leaf-wise fixture, batched vs sequential: values or covers "
+          "differ")
+    n_split = int((bat["feature"] >= 0).sum())
+
+    b_d = dt.train({"objective": "binary", "num_trees": 3}, ds, device=dev)
+    splits = (b_d.arrays["feature"] >= 0).sum(1)
+    check(b_d.params.max_depth == 9 and b_d.params.growth == "leafwise"
+          and leafwise_fast.leafwise_layout_supported(b_d.params, F, B, 1),
+          f"reference defaults: max_depth {b_d.params.max_depth}, not the "
+          "wired arm at 9")
+    check(bool((splits == 30).all()), f"reference defaults: {splits} "
+          "splits per tree, want 30 (31 leaves)")
+    rep = {"wired_vs_legacy_max_value_diff": dv,
+           "batched_vs_sequential": "bitwise equal",
+           "splits_tree_1": n_split,
+           "defaults": {"max_depth": b_d.params.max_depth,
+                        "splits_per_tree": splits.tolist()}}
+    print("leaf-wise fixture: " + json.dumps(rep), flush=True)
+    report["leafwise_fixture"] = rep
 
 
 def phase_epsilon(dt, a, dev, report) -> tuple:
-    """Phase 10: Epsilon-shaped regression through the legacy arm."""
+    """Phase 13: Epsilon-shaped regression through the legacy arm."""
     import numpy as np
     import torch
 
@@ -762,13 +1017,21 @@ def main() -> int:
     # ---- 8-9. the legacy plan arm at the headline config ------------------
     l_launches, nat, rows = phase_legacy(dt, a, ds, Xv, yv, dev, w_params,
                                          w_booster, report)
-    # ---- 10. Epsilon-shaped regression, the Higgs tensors freed -----------
+    # ---- 10-11. leaf-wise growth at Higgs-10M, wired and default depth ---
+    lw_launches, lw_level, lw_perm = phase_leafwise_wired(
+        dt, a, ds, Xv, yv, dev, report)
+    ld_launches, ld_nat, ld_rows = phase_leafwise_default(
+        dt, a, ds, Xv, yv, dev, report)
+    # ---- 12. the leaf-wise fixture ----------------------------------------
+    phase_leafwise_fixture(dt, dev, report)
+    # ---- 13. Epsilon-shaped regression, the Higgs tensors freed -----------
     del ds, Xv, yv, w_booster
     gc.collect()
     torch.cuda.empty_cache()
     e_launches, e_root, e_level = phase_epsilon(dt, a, dev, report)
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
+               "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
                "epsilon": e_launches}
 
     def launches(k):
@@ -783,18 +1046,21 @@ def main() -> int:
         kernel_entry("hist", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140", launches("hist"),
                      paths("hist"), w_level,
-                     {"mode": "layout", "root": brief(root)}),
+                     {"mode": "layout", "root": brief(root),
+                      "leafwise_level": brief(lw_level)}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,
-                     {"mode": "rows", "epsilon_root": brief(e_root),
+                     {"mode": "rows", "leafwise_level": brief(ld_rows),
+                      "epsilon_root": brief(e_root),
                       "epsilon_level": brief(e_level)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
-                     paths("perm"), perm),
+                     paths("perm"), perm,
+                     {"leafwise_level": brief(lw_perm)}),
         kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
                      "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
-                     paths("nat"), nat),
+                     paths("nat"), nat, {"leafwise_level": brief(ld_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

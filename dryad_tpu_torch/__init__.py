@@ -2,18 +2,19 @@
 
     import dryad_tpu_torch as dryad
     ds = dryad.Dataset(X, y)
-    booster = dryad.train({"objective": "binary", "growth": "depthwise",
-                           "max_depth": 8, "num_leaves": 255}, ds)
+    booster = dryad.train({"objective": "binary"}, ds)
     p = dryad.predict(booster, X_test)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
 
-This slice runs depthwise training of binary and regression objectives,
-on the wired leaf-ordered layout and on the legacy plan arm (taken with
-``deep_layout="legacy"``, leaf budgets above 512 or records above 128 B),
-and predict.  It imports nothing of ``jax`` or of ``dryad_tpu``.
+The port trains binary and regression objectives with the reference's
+growers: leaf-wise (the default; the batched expansion plus selection for
+a finite depth cap, which ``max_depth=-1`` maps to as the reference does,
+else the sequential grower) and depthwise, each on the wired leaf-ordered
+layout or the legacy plan arm; and it predicts.  It imports nothing of
+``jax`` or of ``dryad_tpu``.
 """
 
 from __future__ import annotations

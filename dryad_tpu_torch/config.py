@@ -1,12 +1,15 @@
 """Training parameters of the port: the subset of ``dryad_tpu.config.Params``
-that the depthwise grower runs (binary and regression objectives, the
-wired leaf-ordered layout and the legacy plan arm).
+that its growers run (binary and regression objectives; leaf-wise and
+depthwise growth, on the wired leaf-ordered layout or the legacy plan
+arm), and the growth-policy helpers that pick a grower.
 
-Defaults and LightGBM-style aliases are the reference's.  A parameter the
-slice does not run raises a ``ValueError`` naming it, unless it is given at
-the reference's default value (so a params dict written for the reference
-at its defaults still loads).  Note that the reference's default growth is
-``"leafwise"``, which this slice does not run: pass ``growth="depthwise"``.
+Defaults and LightGBM-style aliases are the reference's, so
+``{"objective": "binary"}`` alone trains leaf-wise with 31 leaves and
+``max_depth=-1``, which ``effective_depth_params`` maps to a depth cap as
+the reference does.  A parameter the port does not run raises a
+``ValueError`` naming it, unless it is given at the reference's default
+value (so a params dict written for the reference at its defaults still
+loads).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import dataclasses
 from typing import Any, Mapping
 
 OBJECTIVES = ("binary", "regression")
-GROWTH_POLICIES = ("depthwise",)
+GROWTH_POLICIES = ("leafwise", "depthwise")
 
 _PARAM_ALIASES = {
     "num_iterations": "num_trees",
@@ -66,7 +69,6 @@ _GROWTH_ALIASES = {
 # other value raises.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "num_class": 1,
-    "unbounded_depth": "auto",
     "boosting": "gbdt",
     "goss_top_rate": 0.2,
     "goss_other_rate": 0.1,
@@ -112,6 +114,10 @@ class Params:
     min_data_in_leaf: int = 20
     min_split_gain: float = 0.0
     growth: str = "leafwise"
+    # leaf-wise max_depth <= 0: "auto" maps it to a depth cap the batched
+    # grower takes (effective_depth_params); "exact" keeps unbounded
+    # best-first growth on the sequential grower
+    unbounded_depth: str = "auto"
     seed: int = 0
     hist_subtraction: bool = True
     deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
@@ -142,11 +148,10 @@ class Params:
                 f"port (supported: {OBJECTIVES})")
         if self.growth not in GROWTH_POLICIES:
             raise ValueError(
-                f"growth {self.growth!r} is outside this slice of the port: "
-                "pass growth='depthwise' (leaf-wise growth is a later slice)")
-        if self.max_depth <= 0:
-            raise ValueError(
-                "max_depth must be > 0: depthwise growth needs a depth cap")
+                f"growth must be one of {GROWTH_POLICIES}, got "
+                f"{self.growth!r}")
+        if self.unbounded_depth not in ("auto", "exact"):
+            raise ValueError("unbounded_depth must be auto|exact")
         if not (2 <= self.max_bins <= 65536):
             raise ValueError("max_bins must be in [2, 65536]")
         if self.min_data_in_leaf < 1:
@@ -188,6 +193,71 @@ class Params:
                 raise ValueError(f"unknown parameter {key!r}")
             norm[key] = value
         return cls(**norm).validate()
+
+
+# ---- growth-policy helpers, the reference's (dryad_tpu/config.py) ----------
+# The grower is a pure function of params and data shape, the same on both
+# packages, so their trees agree.  The constants are the reference's.
+LEAFWISE_HIST_BYTES_BUDGET = 256 << 20   # pinned expansion histogram buffer
+MAX_FAST_DEPTH = 14
+# peak-residency envelope of the batched grower: the pinned (Pf, 3, F, B)
+# buffer fans out ~6x at the widest level, beside the row-scaled working
+# set.  The reference sized it for a 16 GiB device; the port keeps it so
+# that both packages pick the same grower.
+LEAFWISE_TOTAL_BYTES_BUDGET = 12 << 30
+
+
+def leafwise_fast_supported(p: Params, num_features: int,
+                            total_bins: int,
+                            num_rows: int | None = None) -> bool:
+    """Whether the batched leaf-wise grower can take this config: a finite
+    depth cap up to ``MAX_FAST_DEPTH``, histogram subtraction (the
+    expansion derives every larger sibling by it), the pinned expansion
+    buffer within its budget and, given ``num_rows``, the whole working
+    set within the envelope."""
+    D = p.max_depth
+    if not 0 < D <= MAX_FAST_DEPTH:
+        return False
+    if not p.hist_subtraction:
+        return False
+    Pf = 1 << max(D - 1, 0)
+    pinned = Pf * 3 * num_features * total_bins * 4
+    if pinned > LEAFWISE_HIST_BYTES_BUDGET:
+        return False
+    if num_rows is not None:
+        bin_bytes = 1 if total_bins <= 256 else 2
+        rec_words = 2 + -(-num_features * bin_bytes // 4)
+        K = p.num_outputs
+        per_row = (num_features * bin_bytes      # binned matrix
+                   + 4 * rec_words               # per-tree record table
+                   + 16 * K + 8)                 # g/h/score + slots
+        if 6 * pinned + num_rows * per_row > LEAFWISE_TOTAL_BYTES_BUDGET:
+            return False
+    return True
+
+
+def effective_depth_params(p: Params, num_features: int,
+                           total_bins: int,
+                           num_rows: int | None = None) -> Params:
+    """The ``max_depth=-1`` policy of leaf-wise growth: under
+    ``unbounded_depth="auto"`` the depth becomes
+
+        min(ceil(log2(num_leaves)) + 4, MAX_FAST_DEPTH)
+
+    whenever the batched grower then takes the config; otherwise (and
+    under ``"exact"``, or for depthwise growth, or an explicit cap) the
+    params come back unchanged."""
+    if (p.max_depth > 0 or p.growth != "leafwise"
+            or p.unbounded_depth == "exact"):
+        return p
+    L = p.effective_num_leaves
+    eff = min(max((L - 1).bit_length(), 1) + 4, MAX_FAST_DEPTH)
+    if L > (1 << eff):
+        return p                      # the cap cannot hold the leaf budget
+    cand = p.replace(max_depth=eff)
+    if leafwise_fast_supported(cand, num_features, total_bins, num_rows):
+        return cand
+    return p
 
 
 def make_params(params: "Params | Mapping[str, Any] | None" = None,

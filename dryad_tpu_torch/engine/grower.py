@@ -1,25 +1,68 @@
-"""Grower helpers and routing, the counterpart of
-``dryad_tpu/engine/grower.py`` for depthwise growth."""
+"""The grower routing and the sequential grower, the counterpart of
+``dryad_tpu/engine/grower.py``.
+
+``grow_any`` picks the grower for the growth policy: depthwise growth with
+a depth cap goes level by level (``levelwise``), leaf-wise growth with a
+finite cap inside the expansion envelope goes to the batched grower
+(``leafwise_fast``), and everything else (unbounded depth, leaf-wise
+without histogram subtraction, envelopes the batched grower refuses) to
+the sequential grower ``grow_tree``.
+
+``grow_tree`` is the reference's slot machine: ``row_slot`` (N,) holds each
+row's leaf slot; L slots hold a node id, stats, depth, cached best split
+and histogram; L-1 trips each split the best slot (leaf-wise: the best
+gain; depthwise: the best gain of the shallowest level), the left child
+keeping the slot and the right child taking slot k+1.  The smaller child's
+histogram is one masked pass over every row (K1, row mode, in the tree's
+fixed-point shift) and the larger one is the parent's minus it.  A trip
+without a finite gain is a masked update whose writes go to sentinel rows
+(slot L, node M), so nothing is fetched to the host.
+"""
 
 from __future__ import annotations
 
+import warnings
+from typing import Any
+
 import torch
 
+from dryad_tpu_torch.config import MAX_FAST_DEPTH, leafwise_fast_supported
+from dryad_tpu_torch.engine import hist as _hist
+from dryad_tpu_torch.engine import tile_plan
+from dryad_tpu_torch.engine.histogram import build_hist, require_kernel_bins
 from dryad_tpu_torch.engine.ops import drop_set
+from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
 
 
 def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
              learn_missing=False):
-    """Route to the grower for the growth policy.  This slice runs
-    depthwise growth only (leaf-wise growth is a later slice)."""
-    if params.growth == "depthwise" and params.max_depth > 0:
+    """Route to the grower for the growth policy (module doc)."""
+    p = params
+    if p.growth == "depthwise" and p.max_depth > 0:
         from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 
-        return grow_tree_levelwise(params, total_bins, Xb, g, h, bag_mask,
+        return grow_tree_levelwise(p, total_bins, Xb, g, h, bag_mask,
                                    feat_mask, learn_missing=learn_missing)
-    raise NotImplementedError(
-        f"growth={params.growth!r} with max_depth={params.max_depth} is "
-        "outside this slice of the port (leaf-wise growth is a later slice)")
+    if p.growth == "leafwise":
+        from dryad_tpu_torch.engine import leafwise_fast
+
+        if leafwise_fast_supported(p, Xb.shape[1], int(total_bins),
+                                   Xb.shape[0]):
+            return leafwise_fast.grow_tree_leafwise_batched(
+                p, total_bins, Xb, g, h, bag_mask, feat_mask,
+                learn_missing=learn_missing)
+        if p.max_depth > 0 and p.hist_subtraction:
+            # a visible, specific reason; hist_subtraction=False is a
+            # deliberate choice and does not warn
+            reason = (f"max_depth above the batched grower's cap "
+                      f"({MAX_FAST_DEPTH})" if p.max_depth > MAX_FAST_DEPTH
+                      else "peak-memory envelope "
+                           "(config.leafwise_fast_supported)")
+            warnings.warn(
+                f"batched leaf-wise grower unavailable: {reason} — "
+                "falling back to the sequential grower", stacklevel=2)
+    return grow_tree(p, total_bins, Xb, g, h, bag_mask, feat_mask,
+                     learn_missing=learn_missing)
 
 
 def root_stats(hist0: torch.Tensor):
@@ -35,3 +78,165 @@ def finalize_leaf_values(p, M: int, slot_node, slot_G, slot_H,
     vals = raw * p.effective_learning_rate
     idx = torch.where(slot_node >= 0, slot_node, M)
     return drop_set(value, idx, vals)
+
+
+def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
+              h: torch.Tensor, bag_mask: torch.Tensor,
+              feat_mask: torch.Tensor, *,
+              learn_missing: bool = False) -> dict[str, Any]:
+    """Grow one tree with the sequential slot machine (module doc)."""
+    p = params
+    N, F = Xb.shape
+    B = int(total_bins)
+    L = p.effective_num_leaves
+    M = p.max_nodes
+    depth_cap = p.max_depth if p.max_depth > 0 else L
+    dev = Xb.device
+    i64, f32 = torch.int64, torch.float32
+    require_kernel_bins(B)
+    # one record table and one fixed-point shift per tree: every masked
+    # pass reads the table (K1, row mode) and sums in the shift
+    records = tile_plan.make_records(Xb, g, h)
+    shift = _hist.fixed_point_shift(g, h, N)
+
+    def hist_of(mask):
+        # the bag gates histograms only; every row is routed, so the final
+        # row_slot gives each row's leaf
+        return build_hist(Xb, g, h, mask & bag_mask, B, shift,
+                          records=records)[None]
+
+    def best(hist, G, H, C, depth):
+        allow = (depth < depth_cap) & (C >= 2 * p.min_data_in_leaf)
+        return find_best_split(
+            hist, G, H, C, lambda_l2=p.lambda_l2,
+            min_child_weight=p.min_child_weight,
+            min_data_in_leaf=p.min_data_in_leaf,
+            min_split_gain=p.min_split_gain, feat_mask=feat_mask,
+            allow=allow, learn_missing=learn_missing)
+
+    row_slot = torch.zeros(N, dtype=i64, device=dev)
+    hist0 = hist_of(torch.ones(N, dtype=torch.bool, device=dev))
+    G0, H0, C0 = root_stats(hist0[0])
+    G0, H0, C0 = G0[None], H0[None], C0[None]
+    root = best(hist0, G0, H0, C0, torch.zeros(1, dtype=i64, device=dev))
+
+    # slot tables with one sentinel row (L) for the no-op writes
+    def slots(fill, dtype, at0):
+        t = torch.full((L + 1,), fill, dtype=dtype, device=dev)
+        t[0] = at0[0]
+        return t
+
+    slot_node = torch.full((L + 1,), -1, dtype=i64, device=dev)
+    slot_node[0] = 0
+    slot_gain = slots(NEG_INF, f32, root["gain"])
+    slot_G = slots(0.0, f32, G0)
+    slot_H = slots(0.0, f32, H0)
+    slot_C = slots(0.0, f32, C0)
+    slot_depth = torch.zeros(L + 1, dtype=i64, device=dev)
+    sp = {"feature": slots(-1, i64, root["feature"]),
+          "threshold": slots(0, i64, root["threshold"]),
+          "g_left": slots(0.0, f32, root["g_left"]),
+          "h_left": slots(0.0, f32, root["h_left"]),
+          "c_left": slots(0.0, f32, root["c_left"]),
+          "default_left": slots(True, torch.bool, root["default_left"])}
+    hists = torch.zeros((L + 1, 3, F, B), dtype=f32, device=dev)
+    hists[0] = hist0[0]
+
+    # node tables with one sentinel row (M)
+    feature = torch.full((M + 1,), -1, dtype=i64, device=dev)
+    threshold = torch.zeros(M + 1, dtype=i64, device=dev)
+    left = torch.zeros(M + 1, dtype=i64, device=dev)
+    right = torch.zeros(M + 1, dtype=i64, device=dev)
+    gain = torch.zeros(M + 1, dtype=f32, device=dev)
+    cover = torch.zeros(M + 1, dtype=f32, device=dev)
+    cover[0] = C0[0]
+    node_dleft = torch.ones(M + 1, dtype=torch.bool, device=dev)
+    num_nodes = torch.ones(1, dtype=i64, device=dev)
+    max_depth = torch.zeros(1, dtype=i64, device=dev)
+    ar2 = torch.arange(2, dtype=i64, device=dev)
+    right_slot = torch.arange(1, L, dtype=i64, device=dev)    # k + 1
+    big_depth = torch.iinfo(i64).max
+
+    for k in range(L - 1):
+        # pick: leaf-wise the best gain; depthwise the best gain of the
+        # shallowest level.  Every index is a 1-element tensor (a 0-d
+        # index would be read back to the host).
+        s_gain, s_depth = slot_gain[:L], slot_depth[:L]
+        if p.growth == "depthwise":
+            finite = s_gain > NEG_INF
+            dmin = torch.where(finite, s_depth, big_depth).min()
+            s_gain = torch.where(finite & (s_depth == dmin), s_gain, NEG_INF)
+        s = torch.argmax(s_gain, 0, keepdim=True)
+        g_s = slot_gain[s]
+        ok = g_s > NEG_INF
+        sf, thr = sp["feature"][s], sp["threshold"][s]
+        dl = sp["default_left"][s]
+
+        # row partition: the left child keeps slot s, the right takes k+1
+        bins_f = Xb.index_select(1, torch.clamp(sf, min=0))[:, 0].to(i64)
+        go_left = bins_f <= thr
+        if learn_missing:
+            go_left &= dl | (bins_f > 0)
+        new_r = right_slot[k:k + 1]
+        row_slot = torch.where(ok & (row_slot == s) & ~go_left, new_r,
+                               row_slot)
+
+        GL, HL, CL = sp["g_left"][s], sp["h_left"][s], sp["c_left"][s]
+        GR, HR, CR = slot_G[s] - GL, slot_H[s] - HL, slot_C[s] - CL
+        ids = num_nodes + ar2                          # left, right node ids
+        pi = torch.where(ok, slot_node[s], M)
+        feature[pi] = sf
+        threshold[pi] = thr
+        gain[pi] = g_s
+        left[pi] = ids[:1]
+        right[pi] = ids[1:]
+        node_dleft[pi] = dl
+        cover[torch.where(ok, ids, M)] = torch.cat([CL, CR])
+
+        # the smaller child's histogram directly, the larger by subtraction
+        if p.hist_subtraction:
+            ls = (CL <= CR)[:, None, None, None]
+            shist = hist_of(row_slot == torch.where(CL <= CR, s, new_r))
+            ohist = hists[s] - shist
+            hist_l = torch.where(ls, shist, ohist)
+            hist_r = torch.where(ls, ohist, shist)
+        else:
+            hist_l = hist_of(row_slot == s)
+            hist_r = hist_of(row_slot == new_r)
+        si = torch.where(ok, torch.cat([s, new_r]), L)
+        hists[si] = torch.cat([hist_l, hist_r])
+
+        depth_c = slot_depth[s] + 1
+        ch_G, ch_H, ch_C = (torch.cat([GL, GR]), torch.cat([HL, HR]),
+                            torch.cat([CL, CR]))
+        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C,
+                   depth_c.expand(2))
+        slot_node[si] = ids
+        slot_gain[si] = res["gain"]
+        slot_G[si] = ch_G
+        slot_H[si] = ch_H
+        slot_C[si] = ch_C
+        slot_depth[si] = depth_c.expand(2)
+        for key in sp:
+            sp[key][si] = res[key]
+        num_nodes = num_nodes + 2 * ok.to(i64)
+        max_depth = torch.where(ok, torch.maximum(max_depth, depth_c),
+                                max_depth)
+
+    value = finalize_leaf_values(p, M, slot_node[:L], slot_G[:L],
+                                 slot_H[:L],
+                                 torch.zeros(M, dtype=f32, device=dev))
+    return {
+        "feature": feature[:M],
+        "threshold": threshold[:M],
+        "left": left[:M],
+        "right": right[:M],
+        "value": value,
+        "gain": gain[:M],
+        "default_left": node_dleft[:M],
+        "cover": cover[:M],
+        "max_depth": max_depth[0],
+        # each row's leaf node straight from the partition state
+        "row_leaf": torch.clamp(slot_node[:L], min=0)[
+            torch.clamp(row_slot, max=L - 1)],
+    }

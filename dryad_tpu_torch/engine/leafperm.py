@@ -79,11 +79,13 @@ def tile_bins(rec3: torch.Tensor, feat: torch.Tensor,
 
 
 def natural_root_layout(rec_nat: torch.Tensor, num_runs: int,
-                        n_buf_tiles: int):
+                        n_buf_tiles: int, first_slot: int = 0,
+                        sentinel: int | None = None):
     """Root layout: the natural-order records padded to ``n_buf_tiles``
     tiles are one segment (run 0 owns every tile).  Returns
-    (rec_lay, tile_run, run_slot); run_slot holds slot 0 at run 0 and the
-    sentinel ``num_runs`` elsewhere."""
+    (rec_lay, tile_run, run_slot); run_slot holds ``first_slot`` at run 0
+    and ``sentinel`` (default ``num_runs``) elsewhere.  The leaf-wise
+    expansion stores heap node ids in run_slot: root 1, sentinel 2^(D+1)."""
     N = rec_nat.shape[0]
     T = TILE_ROWS
     if N > n_buf_tiles * T:
@@ -91,9 +93,10 @@ def natural_root_layout(rec_nat: torch.Tensor, num_runs: int,
     dev = rec_nat.device
     rec_lay = nnf.pad(rec_nat, (0, 0, 0, n_buf_tiles * T - N))
     tile_run = torch.zeros(n_buf_tiles, dtype=torch.int64, device=dev)
-    run_slot = torch.full((num_runs,), num_runs, dtype=torch.int64,
-                          device=dev)
-    run_slot[0] = 0
+    run_slot = torch.full((num_runs,),
+                          num_runs if sentinel is None else sentinel,
+                          dtype=torch.int64, device=dev)
+    run_slot[0] = first_slot
     return rec_lay, tile_run, run_slot
 
 
@@ -297,14 +300,21 @@ def hist_from_layout(rec: torch.Tensor, seg_first: torch.Tensor,
 
 def advance_runs(run_slot: torch.Tensor, run_do: torch.Tensor,
                  run_right: torch.Tensor, base_l: torch.Tensor,
-                 base_r: torch.Tensor, n_buf_tiles: int):
+                 base_r: torch.Tensor, n_buf_tiles: int,
+                 sentinel: int | None = None):
     """Next level's (tile_run, run_slot) after ``level_moves``: every left
     segment of a live run keeps its run index, each splitting run's right
     segment appends a new run (in run order); tiles between kept segment
-    starts are absorbed into the preceding run."""
+    starts are absorbed into the preceding run.
+
+    ``sentinel`` marks an unused run (default: the run capacity).  A caller
+    whose kept runs change their slot id across the level (the leaf-wise
+    expansion: node n's left child is 2n) applies that change to
+    ``run_slot`` first; liveness is read from it and only the appended
+    right runs are written."""
     L = run_slot.shape[0]
     dev = run_slot.device
-    R = (run_slot < L).sum()
+    R = (run_slot < (L if sentinel is None else sentinel)).sum()
     ridx = torch.arange(L, dtype=torch.int64, device=dev)
     ones = torch.ones(L, dtype=torch.int64, device=dev)
     marks = torch.zeros(n_buf_tiles, dtype=torch.int64, device=dev)

@@ -1,0 +1,416 @@
+"""Batched leaf-wise growth: a depth-capped full expansion, then the exact
+best-first selection.
+
+The counterpart of ``dryad_tpu/engine/leafwise_fast.py``.  Split gains do
+not depend on the order in which leaves are split (splitting leaf A never
+changes leaf B's rows), so leaf-wise growth with a depth cap D factorises:
+
+1. **Expansion.**  Every node with a valid split is split, level by level
+   down to depth D, with the depthwise machinery (one histogram pass for
+   the smaller children of a level, subtraction for the larger ones).
+   Each node's best split, gain and stats go into heap tables (node 1 is
+   the root, node n's children are 2n and 2n+1) of ``HN = 2^(D+1)``
+   entries.
+2. **Selection.**  The sequential grower's slot machine
+   (``grower.grow_tree``) is replayed on the precomputed gains: L-1 trips
+   of a first-max argmax over the slot gains, the left child keeping the
+   parent's slot and the right child taking slot k+1, node ids in
+   execution order.  The tree equals the sequential grower's, node ids
+   included, whenever both see the same histograms; here every histogram
+   of a tree is a fixed-point sum in one shift, so they do.
+
+The expansion runs on one of two arms, as the depthwise grower does:
+
+* wired (``leafwise_layout_supported``): the tree carries the leaf-ordered
+  layout from the root.  Runs store heap node ids (sentinel ``HN``, run
+  capacity ``NR = 2^D``): a split keeps the parent's run for the left
+  child (node 2n) and appends a run for the right one (2n+1).  Each level
+  moves the rows (K2) and histograms the smaller children as contiguous
+  tile runs (K1, layout mode);
+* legacy plan arm: levels with at most 16 columns read every row once in
+  natural order with its slot id (K3, when the bin matrix passes the
+  natural-order gate); the others sort the selected rows into a tile plan
+  read from the per-tree record table (K1, row mode).
+
+The reference runs the levels in two ``fori_loop`` phases at a narrow and
+a full width (``phase_plan``) and the selection in a ``fori_loop`` whose
+``lax.cond`` skips a trip without a finite gain.  Here the levels are a
+Python loop with the same per-phase widths, and a skipped trip is a masked
+update whose writes go to sentinel rows.  Nothing is fetched to the host.
+Categorical and monotone splits are outside the port (``config``).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from dryad_tpu_torch.config import MAX_FAST_DEPTH
+from dryad_tpu_torch.engine import hist as _hist
+from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
+from dryad_tpu_torch.engine.grower import finalize_leaf_values, root_stats
+from dryad_tpu_torch.engine.histogram import (
+    build_hist,
+    build_hist_segmented,
+    require_kernel_bins,
+)
+from dryad_tpu_torch.engine.levelwise import (
+    deep_layout_supported,
+    packed_route,
+)
+from dryad_tpu_torch.engine.ops import drop_set
+from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
+
+# the wired expansion's run capacity 2^D: each level's move mandates at
+# least 2 * 2^D + 2 tiles, so deeper caps take the legacy arm (the
+# reference's policy-table default "leafwise_layout"/"max_segments")
+MAX_WIRED_SEGMENTS = 1024
+
+
+def phase_plan(depth_cap: int):
+    """(d_switch, P_narrow, P_full) of the two-phase expansion: levels
+    below ``d_switch`` take ``P_narrow`` columns, the rest the widest
+    level's ``P_full = 2^(D-1)``.  Not levelwise's plan."""
+    P_full = 1 << max(depth_cap - 1, 0)
+    P_narrow = min(8, P_full)
+    d_switch = 4 if (depth_cap > 4 and P_full > 8) else depth_cap
+    return d_switch, P_narrow, P_full
+
+
+def leafwise_layout_supported(p, num_features: int, total_bins: int,
+                              bin_itemsize: int) -> bool:
+    """Static gate for the wired expansion: levelwise's gate (record
+    width, bins, leaf budget, ``deep_layout="legacy"``), subtraction on,
+    and a run capacity 2^D of at most ``MAX_WIRED_SEGMENTS``.  A pure
+    function of params and the feature/bin shape, never of the rows."""
+    if not deep_layout_supported(p, num_features, total_bins, bin_itemsize):
+        return False
+    if not p.hist_subtraction:
+        return False
+    D = p.max_depth
+    return 0 < D and (1 << D) <= MAX_WIRED_SEGMENTS
+
+
+def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
+                               g: torch.Tensor, h: torch.Tensor,
+                               bag_mask: torch.Tensor,
+                               feat_mask: torch.Tensor, *,
+                               learn_missing: bool = False
+                               ) -> dict[str, Any]:
+    p = params
+    N, F = Xb.shape
+    B = int(total_bins)
+    L = p.effective_num_leaves
+    M = p.max_nodes
+    D = p.max_depth
+    if not 0 < D <= MAX_FAST_DEPTH:
+        raise ValueError(f"the batched leaf-wise grower needs 0 < max_depth "
+                         f"<= {MAX_FAST_DEPTH}, got {D}")
+    if not p.hist_subtraction:
+        raise ValueError("the batched leaf-wise grower derives the larger "
+                         "children by subtraction (hist_subtraction=True)")
+    require_kernel_bins(B)
+    HN = 1 << (D + 1)                 # heap slots (1-based; 0 unused)
+    Pf = 1 << (D - 1)                 # widest expansion level
+    NR = 1 << D                       # run capacity of the wired layout
+    dev = Xb.device
+    isz = leafperm.bin_itemsize(Xb)
+    i64, f32 = torch.int64, torch.float32
+    use_layout = leafwise_layout_supported(p, F, B, isz)
+    # one fixed-point shift per tree: every histogram of the tree (root,
+    # every level, either arm, any kernel) sums in it
+    shift = _hist.fixed_point_shift(g, h, N)
+
+    def best(hist, G, H, C, allow):
+        return find_best_split(
+            hist, G, H, C, lambda_l2=p.lambda_l2,
+            min_child_weight=p.min_child_weight,
+            min_data_in_leaf=p.min_data_in_leaf,
+            min_split_gain=p.min_split_gain, feat_mask=feat_mask,
+            allow=allow, learn_missing=learn_missing)
+
+    d_switch, P_narrow, _ = phase_plan(D)
+    T = leafperm.TILE_ROWS
+    n_row_tiles = -(-N // T)
+    # smaller children cover <= half the rows while the f32 counts behind
+    # the smaller-child choice are exact (< 2^24 rows)
+    half_ok = N < (1 << 24)
+    if use_layout:
+        # ---- root: the natural-order records are the one-run layout, run
+        # 0 holding heap node 1; out-of-bag rows are dropped by level 0's
+        # move
+        n_buf_tiles = leafperm.wired_tiles_bound(n_row_tiles, NR)
+        n_sel = {P: leafperm.wired_sel_tiles_bound(
+            n_row_tiles, n_buf_tiles, P, half=half_ok)
+            for P in (P_narrow, Pf)}
+        rec_nat = leafperm.make_layout_records(Xb, g, h, valid=bag_mask)
+        lay_rec, lay_tr, lay_ns = leafperm.natural_root_layout(
+            rec_nat, NR, n_buf_tiles, first_slot=1, sentinel=HN)
+        del rec_nat
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec)
+        records = nat_tiles = None
+    else:
+        records = tile_plan.make_records(Xb, g, h)
+        nat_tiles = hist_nat.maybe_natural_tiles(Xb)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
+    G0, H0, C0 = root_stats(hist0)
+    root = best(hist0[None], G0[None], H0[None], C0[None],
+                (C0 >= 2 * p.min_data_in_leaf)[None])
+
+    # ---- heap-node tables (index = heap id; unwritten nodes keep these) --
+    def table(fill, dtype, at_root):
+        t = torch.full((HN,), fill, dtype=dtype, device=dev)
+        t[1] = at_root
+        return t
+
+    nd_gain = table(NEG_INF, f32, root["gain"][0])
+    nd_feature = table(-1, i64, root["feature"][0])
+    nd_thresh = table(0, i64, root["threshold"][0])
+    nd_GL = table(0.0, f32, root["g_left"][0])
+    nd_HL = table(0.0, f32, root["h_left"][0])
+    nd_CL = table(0.0, f32, root["c_left"][0])
+    nd_G = table(0.0, f32, G0)
+    nd_H = table(0.0, f32, H0)
+    nd_C = table(0.0, f32, C0)
+    nd_dleft = table(True, torch.bool, root["default_left"][0])
+    # level-d histograms at offsets 0..2^d-1; one sentinel row (Pf) takes
+    # the dropped writes, the final level's children among them
+    hists = torch.zeros((Pf + 1, 3, F, B), dtype=f32, device=dev)
+    hists[0] = hist0
+    # every row is routed (the bag gates histograms only)
+    row_node = torch.ones(N, dtype=i64, device=dev)
+
+    for d in range(D):
+        P = P_narrow if d < d_switch else Pf
+        base = 1 << d                                  # level-d heap base
+        jarr = torch.arange(P, dtype=i64, device=dev)
+        idx = torch.clamp(base + jarr, max=HN - 1)
+        do = (nd_gain[idx] > NEG_INF) & (jarr < base)
+        GL, HL, CL = nd_GL[idx], nd_HL[idx], nd_CL[idx]
+        GR, HR, CR = nd_G[idx] - GL, nd_H[idx] - HL, nd_C[idx] - CL
+
+        # ---- packed per-node routing table (HN+1,): w0 | feature << 32,
+        # a zero row at HN for sentinel runs.  The expansion splits EVERY
+        # node with a finite gain at its level, so a row can only sit at
+        # such a node while that node is at the current level: the valid
+        # bit needs no level check.
+        w0_t = (((nd_gain > NEG_INF).to(i64) << 31)
+                | (nd_dleft.to(i64) << 30)
+                | (torch.clamp(nd_thresh, 0, B - 1) << 16))
+        rec_t = torch.cat([w0_t | (torch.clamp(nd_feature, min=0) << 32),
+                           torch.zeros(1, dtype=i64, device=dev)])
+        do_n, left_n, _ = packed_route(
+            rec_t[row_node],
+            lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
+            learn_missing)
+        row_node = torch.where(do_n, 2 * row_node + (~left_n).to(i64),
+                               row_node)
+
+        ls = CL <= CR
+        if use_layout:
+            hist_small, lay_rec, lay_tr, lay_ns = _wired_level(
+                lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B, F,
+                isz, n_sel[P], n_buf_tiles, learn_missing, shift)
+        else:
+            hist_small = _legacy_level(
+                Xb, g, h, bag_mask, records, nat_tiles, row_node, idx, jarr,
+                do, ls, CL, CR, P, HN, B, half_ok, shift)
+        hist_large = torch.index_select(
+            hists, 0, torch.clamp(jarr, max=Pf - 1)) - hist_small
+        ls4 = ls[:, None, None, None]
+        hist_l = torch.where(ls4, hist_small, hist_large)
+        hist_r = torch.where(ls4, hist_large, hist_small)
+        del hist_small, hist_large
+        # children land at level-(d+1) offsets 2j / 2j+1; past the buffer
+        # (the final level's children, never split) they are dropped
+        hists[torch.clamp(torch.where(do, 2 * jarr, Pf), max=Pf)] = hist_l
+        hists[torch.clamp(torch.where(do, 2 * jarr + 1, Pf), max=Pf)] = hist_r
+
+        # ---- children's stats and best splits, batched -------------------
+        ch_do = torch.cat([do, do])
+        ch_G = torch.cat([GL, GR])
+        ch_H = torch.cat([HL, HR])
+        ch_C = torch.cat([CL, CR])
+        allow = ch_do & (d + 1 < D) & (ch_C >= 2 * p.min_data_in_leaf)
+        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow)
+        del hist_l, hist_r
+        cidx = torch.where(ch_do, torch.cat([2 * idx, 2 * idx + 1]), HN)
+        nd_gain = drop_set(nd_gain, cidx, res["gain"])
+        nd_feature = drop_set(nd_feature, cidx, res["feature"])
+        nd_thresh = drop_set(nd_thresh, cidx, res["threshold"])
+        nd_GL = drop_set(nd_GL, cidx, res["g_left"])
+        nd_HL = drop_set(nd_HL, cidx, res["h_left"])
+        nd_CL = drop_set(nd_CL, cidx, res["c_left"])
+        nd_G = drop_set(nd_G, cidx, ch_G)
+        nd_H = drop_set(nd_H, cidx, ch_H)
+        nd_C = drop_set(nd_C, cidx, ch_C)
+        nd_dleft = drop_set(nd_dleft, cidx, res["default_left"])
+    del hists
+
+    tree, slot_heap, slot_tree, child_tree = select_tree(
+        L, M, HN, nd_gain, nd_feature, nd_thresh, nd_dleft, nd_C)
+    sh = torch.clamp(slot_heap, 0, HN - 1)
+    tree["value"] = finalize_leaf_values(
+        p, M, slot_tree, nd_G[sh], nd_H[sh],
+        torch.zeros(M, dtype=f32, device=dev))
+    # every heap node's leaf in the selected tree: walking down, a node is
+    # its own tree node where its parent was selected (it then has a tree
+    # id, >= 1), else it inherits its parent's leaf
+    leaf_of = torch.zeros(HN, dtype=i64, device=dev)
+    heap = torch.arange(HN, dtype=i64, device=dev)
+    for lv in range(1, D + 1):
+        leaf_of = torch.where((heap >> lv) == 1,
+                              torch.where(child_tree > 0, child_tree,
+                                          leaf_of[heap >> 1]),
+                              leaf_of)
+    tree["row_leaf"] = leaf_of[torch.clamp(row_node, 0, HN - 1)]
+    return tree
+
+
+def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
+                 F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift):
+    """One wired expansion level: sides off the layout records, one move
+    (K2), the run bookkeeping under heap node ids, the smaller children as
+    contiguous runs of the new layout (K1, layout mode).  Returns
+    (hist_small, lay_rec, lay_tr, lay_ns)."""
+    T = leafperm.TILE_ROWS
+    dev = lay_rec.device
+    i64 = torch.int64
+    # every row of a tile shares the tile's run, so the routing word is
+    # gathered per tile and broadcast over its rows; sentinel runs read the
+    # zero row HN and stay put (they hold no valid rows anyway)
+    lns = torch.clamp(lay_ns, max=HN)
+    rr_lay = rec_t[lns][lay_tr][:, None]
+    rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
+    valid_lay = rec3[:, :, 8] == 1
+    do_lay, left_lay, _ = packed_route(
+        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing)
+    side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
+                       2).reshape(-1)
+    del rr_lay, rec3, valid_lay, do_lay, left_lay
+    pos, dstl, dstr, base_l, base_r, _ = leafperm.level_moves(
+        lay_tr, side, NR)
+    del side
+    lay_rec = leafperm.permute_records(lay_rec, pos, dstl, dstr, n_buf_tiles)
+    del pos, dstl, dstr
+    # node -> run inverse before advancing; sentinel runs scatter to HN + 1,
+    # past the (HN+1,) table, so they are dropped
+    node_run = drop_set(
+        torch.full((HN + 1,), NR, dtype=i64, device=dev),
+        torch.where(lay_ns < HN, lay_ns, HN + 1),
+        torch.arange(NR, dtype=i64, device=dev))
+    # a run splits iff its node has a finite gain (it is at this level);
+    # the left child keeps the run as node 2n, the right appends node 2n+1
+    run_do = (((rec_t >> 31) & 1) != 0)[lns] & (lay_ns < HN)
+    lay_tr, lay_ns = leafperm.advance_runs(
+        torch.where(run_do, 2 * lay_ns, lay_ns), run_do, 2 * lay_ns + 1,
+        base_l, base_r, n_buf_tiles, sentinel=HN)
+
+    rj = node_run[idx]
+    rjc = torch.clamp(rj, max=NR - 1)
+    lt_l = base_l[1:] - base_l[:-1]
+    lt_r = base_r[1:] - base_r[:-1]
+    sel_ok = do & (rj < NR)
+    seg_first = torch.where(
+        sel_ok, torch.where(ls, base_l[rjc], base_r[rjc]), 0)
+    seg_nt = torch.where(sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
+    hist_small = leafperm.hist_from_layout(
+        lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift)
+    return hist_small, lay_rec, lay_tr, lay_ns
+
+
+def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
+                  jarr, do, ls, CL, CR, P, HN, B, half_ok, shift):
+    """One legacy expansion level: the smaller children's rows are picked
+    off the routed natural-order ``row_node`` and histogrammed by K3 when
+    it is live and holds P columns, else through a sorted tile plan (K1,
+    row mode).  Out-of-bag rows are routed but never summed."""
+    N, F = Xb.shape
+    small_heap = 2 * idx + (~ls).to(torch.int64)
+    colof = drop_set(
+        torch.full((HN,), P, dtype=torch.int64, device=Xb.device),
+        torch.where(do, small_heap, HN), jarr)
+    smallsel = torch.where(bag_mask, colof[row_node], P)
+    if nat_tiles is not None and P <= hist_nat.NAT_SLOTS:
+        return hist_nat.build_hist_small(nat_tiles, g, h, smallsel, P, B, F,
+                                         shift)
+    # exact per-column counts (the smaller child's C off the parent
+    # histogram, integer-exact in f32 below 2^24 rows) admit the aligned
+    # plan where it applies
+    small_cnt = (torch.where(do, torch.where(ls, CL, CR), 0.0)
+                 .to(torch.int64) if half_ok else None)
+    return build_hist_segmented(
+        Xb, g, h, smallsel, P, B, shift, records=records,
+        rows_bound=(N // 2 + 1) if half_ok else None, sel_counts=small_cnt)
+
+
+def select_tree(L: int, M: int, HN: int, nd_gain, nd_feature, nd_thresh,
+                nd_dleft, nd_C):
+    """Replay the sequential slot machine on the heap gains: L-1 trips of
+    a first-max argmax over the slot gains; the left child keeps the slot,
+    the right child takes slot k+1, node ids go in execution order.
+
+    A trip records only what the order decides: the slots' heap and tree
+    ids, each split node's heap id and left child id, and each selected
+    child's tree id.  The node arrays follow from the heap tables after the
+    loop (a split node's gain, feature, threshold and default direction
+    are its heap node's; its right child is left + 1; a child's cover is
+    its heap node's count).  A trip without a finite gain writes only to
+    the sentinel rows (slot L, node M, heap HN), so the loop needs no host
+    decision; every index is a 1-element tensor (a 0-d index would be read
+    back to the host).  Returns (tree arrays, slot_heap, slot_tree,
+    child_tree), child_tree (HN,) holding each selected heap node's tree
+    id and 0 elsewhere."""
+    dev = nd_gain.device
+    i64 = torch.int64
+    ar2 = torch.arange(2, dtype=i64, device=dev)
+    right_slot = torch.arange(1, L, dtype=i64, device=dev)    # k + 1
+    # per heap node: its children's heap ids and gains
+    kid_heap = torch.clamp(2 * torch.arange(HN, dtype=i64, device=dev)[:, None]
+                           + ar2, max=HN - 1)
+    kid_gain = nd_gain[kid_heap]
+    # slots: [heap id, tree node], the tree node -1 while unused
+    slot_int = torch.zeros((L + 1, 2), dtype=i64, device=dev)
+    slot_int[:, 1] = -1
+    slot_int[0, 0] = 1
+    slot_int[0, 1] = 0
+    slot_gain = torch.full((L + 1,), NEG_INF, dtype=torch.float32,
+                           device=dev)
+    slot_gain[0] = nd_gain[1]
+    node_split = torch.zeros((M + 1, 2), dtype=i64, device=dev)  # heap, left
+    child_tree = torch.zeros(HN + 1, dtype=i64, device=dev)
+    num_nodes = torch.ones(1, dtype=i64, device=dev)
+
+    for k in range(L - 1):
+        g_s, s = slot_gain[:L].max(0, keepdim=True)   # first max, as argmax
+        ok = g_s > NEG_INF
+        n, parent = slot_int[s].unbind(1)
+        kids = kid_heap[n][0]
+        ids = num_nodes + ar2
+        si = torch.where(ok, torch.cat([s, right_slot[k:k + 1]]), L)
+        slot_int[si] = torch.stack([kids, ids], 1)
+        slot_gain[si] = kid_gain[n][0]
+        node_split[torch.where(ok, parent, M)] = torch.cat([n, ids[:1]])
+        child_tree[torch.where(ok, kids, HN)] = ids
+        num_nodes = torch.add(num_nodes, ok, alpha=2)
+
+    heap, left = node_split[:M].unbind(1)
+    split = left > 0
+    child_tree = child_tree[:HN]
+    picked = child_tree > 0
+    depth = torch.frexp(torch.arange(HN, device=dev).to(torch.float32))[1] - 1
+    cover = torch.zeros(M + 1, dtype=torch.float32, device=dev)
+    cover[0] = nd_C[1]
+    tree = {
+        "feature": torch.where(split, nd_feature[heap], -1),
+        "threshold": torch.where(split, nd_thresh[heap], 0),
+        "left": left,
+        "right": torch.where(split, left + 1, 0),
+        "default_left": torch.where(split, nd_dleft[heap], True),
+        "gain": torch.where(split, nd_gain[heap], 0.0),
+        "cover": drop_set(cover, torch.where(picked, child_tree, M),
+                          nd_C)[:M],
+        "max_depth": torch.where(picked, depth.to(i64), 0).max(),
+    }
+    return tree, slot_int[:L, 0], slot_int[:L, 1], child_tree

@@ -84,7 +84,7 @@ def phase_plan(depth_cap: int, num_leaves: int, nat_live: bool):
     return d_switch, P_narrow, P_full
 
 
-def _packed_route(rr: torch.Tensor, bins_of, learn_missing: bool):
+def packed_route(rr: torch.Tensor, bins_of, learn_missing: bool):
     """Per-row split routing off packed per-slot words: (splits?,
     goes-left?, w0).  ``rr`` int64 holds the reference's routing word w0 in
     its low 32 bits and the split feature above them.
@@ -254,7 +254,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         # natural-order routing of every row (each row's final leaf; the
         # legacy arm's histogram selection reads it too)
         rr = rec_t[torch.clamp(row_slot, max=L - 1)]
-        do_n, left_n, w0r = _packed_route(
+        do_n, left_n, w0r = packed_route(
             rr, lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
             learn_missing)
         row_do = do_n & (row_slot < L)
@@ -327,7 +327,7 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
     rr_lay = rec_t[torch.clamp(lay_rs, max=L)][lay_tr][:, None]
     rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
     valid_lay = rec3[:, :, 8] == 1
-    do_lay, left_lay, _ = _packed_route(
+    do_lay, left_lay, _ = packed_route(
         rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing)
     side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
                        2).reshape(-1)

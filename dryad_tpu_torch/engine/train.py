@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.booster import CAT_WORDS, Booster
-from dryad_tpu_torch.config import Params
+from dryad_tpu_torch.config import Params, effective_depth_params
 from dryad_tpu_torch.dataset import Dataset
 from dryad_tpu_torch.engine.grower import grow_any
 from dryad_tpu_torch.objectives import get_objective
@@ -36,6 +36,9 @@ def train_device(params: Params, data: Dataset, *,
         raise ValueError("training needs labels")
     N, F = data.num_rows, data.num_features
     B = data.mapper.total_bins
+    # the max_depth=-1 policy of leaf-wise growth, as the reference applies
+    # it; the booster keeps the effective params
+    p = effective_depth_params(p, F, B, N)
     obj = get_objective(p)
     T, M = p.num_trees, p.max_nodes
     Xb = binned_to_device(data.X_binned, device)

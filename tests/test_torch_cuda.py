@@ -10,18 +10,25 @@ Tolerances: K1 (both modes) and K3 equal their plain versions bitwise,
 counts and g/h (both are exact fixed-point integer sums in one shift,
 rounded once); each kernel twice and K2 against the numpy oracle bitwise;
 K1's two modes and K3 bitwise equal on the same rows; a tree grown on the
-card vs on the CPU, on either arm: integer arrays equal and leaf values
-within 1e-4 (the split scan's fp32 prefix sums may round differently on
-the two devices).
+card vs on the CPU, depthwise or leaf-wise, on either arm: integer arrays
+(row_leaf included) equal and leaf values within 1e-4 (the split scan's
+fp32 prefix sums may round differently on the two devices).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dryad_tpu_torch import datasets
 from dryad_tpu_torch.config import Params
+from dryad_tpu_torch.dataset import Dataset
 from dryad_tpu_torch.engine import hist, hist_nat, leafperm, tile_plan
+from dryad_tpu_torch.engine.leafwise_fast import (
+    grow_tree_leafwise_batched,
+    leafwise_layout_supported,
+)
 from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
+from dryad_tpu_torch.objectives import Binary
 from torch_layout import grouped_layout
 
 T = leafperm.TILE_ROWS
@@ -188,3 +195,35 @@ def test_tree_on_card_matches_cpu(cuda_device, layout):
                                       err_msg=k)
     np.testing.assert_allclose(card["value"].cpu().numpy(),
                                cpu["value"].numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["auto", "legacy"])
+def test_leafwise_tree_on_card_matches_cpu(cuda_device, layout):
+    """The leaf-wise fixture (50k Higgs-like rows, 64 bins, 128 leaves,
+    depth 8): the batched grower's first tree on the card equals the CPU
+    tree, on the wired arm (K1 layout mode, K2 under heap-node runs) and
+    the legacy arm (K3, K1 row mode)."""
+    X, y = datasets.higgs_like(50_000, seed=43)
+    ds = Dataset(X, y, max_bins=64)
+    B, F = ds.mapper.total_bins, ds.num_features
+    p = Params(growth="leafwise", max_depth=8, num_leaves=128, max_bins=64,
+               deep_layout=layout)
+    assert leafwise_layout_supported(p, F, B, 1) == (layout == "auto")
+    yt = torch.from_numpy(ds.y)
+    score = torch.full_like(yt, float(Binary.init_score(ds.y)))
+    g, h = Binary.grad_hess(score, yt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        out[str(dev)] = grow_tree_leafwise_batched(
+            p, B, torch.from_numpy(ds.X_binned).to(dev), g.to(dev),
+            h.to(dev), torch.ones(ds.num_rows, dtype=torch.bool, device=dev),
+            torch.ones(F, dtype=torch.bool, device=dev))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "row_leaf", "cover", "max_depth"):
+        np.testing.assert_array_equal(card[k].cpu().numpy(), cpu[k].numpy(),
+                                      err_msg=k)
+    np.testing.assert_allclose(card["value"].cpu().numpy(),
+                               cpu["value"].numpy(), atol=1e-4)
+    assert int((cpu["feature"] >= 0).sum()) == 127

@@ -145,8 +145,17 @@ def test_params_aliases_and_slice_limits():
     assert (p.num_trees, p.learning_rate, p.max_bins, p.growth) == (
         7, 0.3, 63, "depthwise")
     assert p.effective_num_leaves == 8 and p.max_nodes == 15
-    for bad, name in (({"growth": "leafwise", "max_depth": 4}, "growth"),
-                      ({"max_depth": 4}, "growth"),      # reference default
+    # leaf-wise growth and max_depth <= 0 (the reference's defaults) are
+    # accepted
+    for ok in ({"growth": "leafwise", "max_depth": 4}, {"max_depth": 4},
+               {}, {"grow_policy": "lossguide", "unbounded_depth": "exact"},
+               {"growth": "depthwise", "max_depth": -1}):
+        q = dt.Params.from_dict(ok)
+        assert q.growth == ok.get("growth", "leafwise").replace(
+            "lossguide", "leafwise")
+        assert q.max_depth == ok.get("max_depth", -1)
+    for bad, name in (({"unbounded_depth": "bogus"}, "unbounded_depth"),
+                      ({"categorical_features": [1]}, "categorical_features"),
                       ({"growth": "depthwise", "max_depth": 4,
                         "categorical_features": [1]}, "categorical_features"),
                       ({"growth": "depthwise", "max_depth": 4,
