@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--rows N] [--trees T] [--seed S] [--reps R]
-                          [--eps-rows N] [--eps-trees T]
+                          [--eps-rows N] [--eps-trees T] [--bag-trees T]
+                          [--bag-legacy-trees T]
 
 Phases (any failed check exits non-zero):
 
@@ -52,7 +53,27 @@ Phases (any failed check exits non-zero):
    the sequential ``grow_tree`` on every integer array (node ids and
    ``row_leaf`` included); ``{"objective": "binary"}`` alone trains 3
    trees of 31 leaves at effective depth 9 on the wired arm;
-13. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
+13. the training loop on the wired path, bagged and validated (the
+   headline config with ``subsample=0.8``, ``colsample=0.8``, the 1M
+   held-out rows as the valid set, AUC early stopping after 5 rounds,
+   ``bag_trees`` trees): one capture tree holds K1 at the masked root and
+   K2 at level 0 against their plain versions, counts the root's rows
+   (the bag's), and checks that level 0's move keeps every in-bag record
+   once and no out-of-bag one; 9 K1 and 8 K2 launches per tree; a second
+   run bitwise equal (trees, evals, best iteration); the trainer's valid
+   scores bitwise equal to predict's, its last AUC within 1e-5 of the host
+   AUC, above 0.70 and risen from tree 1; trees/s with and without the
+   valid set, ms per device AUC at 1M rows, peak memory;
+14. checkpoint/resume on the card: 10 bagged, validated trees straight; a
+   run that crashes at iteration 6 after checkpoints every 3; the resumed
+   run grows 4 trees (9 K1 + 8 K2 each) and equals the straight run bit
+   for bit (trees, evals, best iteration, predict of the held-out rows);
+   its saved model file loads and predicts bitwise;
+15. leaf-wise at the default depth (legacy arm) with ``subsample=0.8``:
+   on a capture tree out-of-bag rows carry K3's drop slot and stay out of
+   K1 row mode's plan, and K3 at P=8 and K1 row mode at P=2048 equal their
+   plain versions; then as in 11 with ``bag_legacy_trees`` trees;
+16. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
    out, 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
    freed: K1 row mode vs its plain version at the root and the widest
    level (P=32); 7 K1 row-mode launches per tree and no other; a second
@@ -226,19 +247,21 @@ def compare(name: str, run, plain) -> tuple[object, float]:
 
 
 def library_ms(leaf, valid, g, h, bins, P, F, B) -> float:
-    """The library yardstick: one ``index_add_`` of the (g, h, 1) rows into
-    flat (leaf, feature, bin) cells, on precomputed cells (the port never
-    calls it).  ``bins`` (n, F) int64 is overwritten with the cells."""
+    """The library yardstick: one ``index_add_`` of the live (g, h, 1) rows
+    into flat (leaf, feature, bin) cells, on precomputed cells (the port
+    never calls it).  Rows outside ``valid`` (out of the bag, padding) are
+    left out of the call rather than sent to one dump cell, whose
+    contention would time the dump and not the sums.  ``bins`` (n, F)
+    int64 is overwritten with the cells."""
     import torch
 
     dev = bins.device
     cell = bins
     cell += (leaf.long()[:, None] * F + torch.arange(F, device=dev)) * B
-    cell.masked_fill_(~valid[:, None], P * F * B)
-    w = valid.float()
-    vals = torch.stack([g * w, h * w, w], -1)[:, None, :].expand(
-        -1, F, -1).reshape(-1, 3)
-    acc = torch.zeros((P * F * B + 1, 3), device=dev)
+    cell = cell[valid]
+    vals = torch.stack([g[valid], h[valid], torch.ones_like(g[valid])],
+                       -1)[:, None, :].expand(-1, F, -1).reshape(-1, 3)
+    acc = torch.zeros((P * F * B, 3), device=dev)
     cell = cell.reshape(-1)
     ms = time_ms(lambda: acc.index_add_(0, cell, vals), 3)
     del cell, vals, acc
@@ -374,16 +397,24 @@ def check_perm(args, reps: int) -> dict:
             "max_abs_err": 0.0, "real_rows": real_rows, "bytes": nbytes}
 
 
+def dev_us(e) -> float:
+    """Self device time of a profiler event, in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_tree(params, ds, dev, fname: str) -> dict:
-    """One tree of the grower under torch.profiler: device time by kernel,
-    and the device's busy share of the tree's wall time (measured again
-    without the profiler).  The table goes to chiprun_out/<fname>."""
+    """One tree of the grower (under iteration 0's bag and feature mask)
+    under torch.profiler: device time by kernel, and the device's busy
+    share of the tree's wall time (measured again without the profiler).
+    The table goes to chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import dryad_tpu_torch as dt
     from dryad_tpu_torch.config import effective_depth_params
     from dryad_tpu_torch.engine.grower import grow_any
+    from dryad_tpu_torch.engine.loop_state import sample_masks
     from dryad_tpu_torch.engine.train import binned_to_device
     from dryad_tpu_torch.objectives import get_objective
 
@@ -396,8 +427,11 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     score = torch.full((ds.num_rows,), obj.init_score(ds.y),
                        dtype=torch.float32, device=dev)
     g, h = obj.grad_hess(score, y)
-    bag = torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
-    fmask = torch.ones(ds.num_features, dtype=torch.bool, device=dev)
+    row_mask, feat_mask = sample_masks(p, 0, ds.num_rows, ds.num_features)
+    bag = (torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
+           if row_mask is None else torch.from_numpy(row_mask).to(dev))
+    fmask = (torch.ones(ds.num_features, dtype=torch.bool, device=dev)
+             if feat_mask is None else torch.from_numpy(feat_mask).to(dev))
 
     def tree():
         grow_any(p, B, Xb, g, h, bag, fmask)
@@ -411,10 +445,6 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         tree()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     # kernels only: op-level events carry their kernels' time again
     kernels = [e for e in prof.key_averages()
@@ -673,14 +703,12 @@ def selection_cost(args, params, ds, dev) -> dict:
         sync()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in kernels)
+    sel_us = sum(dev_us(e) for e in kernels)
     del Xb, y, g, h
     tree_ms, sel_ms = sum(trees) / 3, sum(sels) / 3
     return {"trips": int(args[0]) - 1, "host_ms": sel_ms,
             "tree_wall_ms": tree_ms, "share_of_tree_wall": sel_ms / tree_ms,
-            "device_ms": dev_us / 1e3 if dev_us > 0 else "not measured",
+            "device_ms": sel_us / 1e3 if sel_us > 0 else "not measured",
             "kernel_launches": sum(e.count for e in kernels)}
 
 
@@ -827,8 +855,8 @@ def phase_leafwise_fixture(dt, dev, report) -> None:
     p = dt.Params.from_dict(base)
     B, F = ds.mapper.total_bins, ds.num_features
     yt = torch.from_numpy(ds.y).to(dev)
-    g, h = Binary.grad_hess(
-        torch.full_like(yt, float(Binary.init_score(ds.y))), yt)
+    g, h = Binary().grad_hess(
+        torch.full_like(yt, float(Binary().init_score(ds.y))), yt)
     args = (p, B, torch.from_numpy(ds.X_binned).to(dev), g, h,
             torch.ones(ds.num_rows, dtype=torch.bool, device=dev),
             torch.ones(F, dtype=torch.bool, device=dev))
@@ -861,8 +889,360 @@ def phase_leafwise_fixture(dt, dev, report) -> None:
     report["leafwise_fixture"] = rep
 
 
+BAGGED = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+          "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+          "subsample": 0.8, "colsample": 0.8, "seed": 0, "metric": "auc",
+          "early_stopping_rounds": 5}
+
+
+def record_hashes(rec):
+    """Sorted 64-bit hashes of the records whose flag (byte 8) is set: two
+    multisets of records are equal when these are."""
+    import torch
+
+    keep = rec[:, 8] == 1
+    words = rec[keep].contiguous().view(torch.int64)
+    mult = torch.tensor(
+        [(0x9E3779B97F4A7C15 * (2 * i + 1)) % (1 << 63) | 1
+         for i in range(words.shape[1])], dtype=torch.int64,
+        device=rec.device)
+    return torch.sort((words * mult).sum(1)).values
+
+
+def check_bag_move(args, bag_rows: int) -> None:
+    """Level 0's row move under a partial bag: every in-bag record is in
+    the output exactly once, and no out-of-bag record is (every written
+    row carries the flag)."""
+    import torch
+
+    from dryad_tpu_torch.engine import leafperm
+
+    rec = args[0]
+    check(int((rec[:, 8] == 1).sum()) == bag_rows,
+          "bagged level 0: the input's flags are not the bag")
+    out = leafperm.permute_records(*args)
+    written = out.ne(0).any(1)
+    check(bool((out[written, 8] == 1).all()),
+          "bagged level 0: an out-of-bag record was moved")
+    n_out = int(written.sum())
+    check(n_out == bag_rows,
+          f"bagged level 0: {n_out} records out, {bag_rows} in the bag")
+    check(torch.equal(record_hashes(rec), record_hashes(out)),
+          "bagged level 0: the moved records are not the in-bag records")
+
+
+def profile_train(dt, params, ds, dv, dev, fname: str) -> dict:
+    """Three iterations of the boosting loop (valid set ``dv`` or none,
+    early stopping and a callback when ``dv`` is given) under
+    torch.profiler, after a warm run: device time by op and kernel, and
+    the device's busy share of the loop's wall time (``tree_seconds``, so
+    set-up is outside it).  The table goes to chiprun_out/<fname>."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params = dict(params, num_trees=3)
+    valid = [dv] if dv is not None else None
+
+    def run():
+        return dt.train(params, ds, valid, device=dev,
+                        callback=(lambda it, info: None) if dv else None)
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        b = run()
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and dev_us(e) > 0]
+    with open(os.path.join(OUT, fname), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
+    loop_ms = sum(b.tree_seconds) * 1e3
+    total_us = sum(dev_us(e) for e in kernels)
+    if total_us <= 0:
+        return {"loop_wall_ms_3_trees": loop_ms, "device_ms": "not measured"}
+    return {"loop_wall_ms_3_trees": loop_ms,
+            "device_ms_incl_setup": total_us / 1e3,
+            "ops": [[e.key[:50], dev_us(e) / 1e3, e.count]
+                    for e in sorted(ops, key=dev_us, reverse=True)[:12]]}
+
+
+def valid_path_costs(dt, booster, ds, dv, dev, reps: int) -> dict:
+    """The costs the valid set adds to an iteration, alone: the new tree's
+    packing and traversal over the valid rows (device ms), the device AUC
+    (device ms), one eval fetch (host ms), and the host's Philox bag draw
+    of one iteration at the training set's rows (host ms, paid with or
+    without a valid set)."""
+    import torch
+
+    from dryad_tpu_torch.engine.loop_state import sample_masks
+    from dryad_tpu_torch.engine.predict import add_tree, pack_words
+    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.metrics.device import make_evaluator
+
+    t = booster.num_iterations - 1
+    arr = {k: torch.from_numpy(v[t]).to(dev)
+           for k, v in booster.arrays.items()}
+    vXb = binned_to_device(dv.X_binned, dev)
+    vs = torch.zeros(dv.num_rows, dtype=torch.float32, device=dev)
+    depth = booster.params.max_depth
+
+    def traverse():
+        words = pack_words(arr["feature"], arr["threshold"], arr["left"],
+                           arr["right"], arr["default_left"])
+        return add_tree(words, arr["value"], vXb, vs, depth)
+
+    traverse_ms = time_ms(traverse, reps)
+    _, _, fn = make_evaluator("binary", "auc", dv, dev)
+    vs = traverse()
+    auc_ms = time_ms(lambda: fn(vs), reps)
+    fetch = []
+    for _ in range(3):
+        v = fn(vs)
+        sync()
+        t0 = time.perf_counter()
+        torch.stack([v]).cpu()
+        fetch.append((time.perf_counter() - t0) * 1e3)
+    p = booster.params
+    draw = []
+    for it in range(3):
+        t0 = time.perf_counter()
+        sample_masks(p, it, ds.num_rows, ds.num_features)
+        draw.append((time.perf_counter() - t0) * 1e3)
+    del vXb, vs
+    return {"traverse_ms": traverse_ms, "auc_device_ms": auc_ms,
+            "fetch_host_ms": sum(fetch) / 3,
+            "bag_draw_host_ms": sum(draw) / 3}
+
+
+def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phase 13: Higgs-10M bagged and validated, depthwise wired."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import hist, leafperm
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.loop_state import sample_masks
+    from dryad_tpu_torch.metrics import auc
+    from dryad_tpu_torch.metrics.device import auc_device
+
+    params = dict(BAGGED, num_trees=a.bag_trees)
+    t0 = time.perf_counter()
+    dv = ds.bind(Xv, yv)
+    bind_s = time.perf_counter() - t0
+    calls = capture(dt, params, ds, dev,
+                    {"hist": (hist, "hist_tiles"),
+                     "perm": (leafperm, "permute_records")})
+    check(len(calls["hist"]) == 9 and len(calls["perm"]) == 8,
+          f"bagged capture tree made {len(calls['hist'])} histogram calls "
+          f"and {len(calls['perm'])} row moves")
+    bag_rows = int(np.count_nonzero(sample_masks(
+        dt.Params.from_dict(params), 0, ds.num_rows, ds.num_features)[0]))
+    root_args = calls["hist"][0][0]
+    root = check_hist(root_args, "bagged hist root", a.reps)
+    n_root = int(hist.hist_tiles(*root_args)[0, 2, 0].sum())
+    check(root["P"] == 1 and n_root == bag_rows,
+          f"bagged root: P={root['P']}, {n_root} rows counted, "
+          f"{bag_rows} in the bag")
+    print("K1 bagged root: " + json.dumps(root), flush=True)
+    check_bag_move(calls["perm"][0][0], bag_rows)
+    perm0 = check_perm(calls["perm"][0][0], a.reps)
+    perm0.update(in_bag_rows=bag_rows,
+                 out_of_bag_rows=ds.num_rows - bag_rows)
+    print("K2 bagged level 0: " + json.dumps(perm0), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+    # the main path: bagged, validated, early stopping on the card's AUC;
+    # the trainer's running valid scores are read through add_tree
+    infos, vscore = [], {}
+    real_add = engine_train.add_tree
+
+    def spy_add(*args):
+        vscore["last"] = real_add(*args)
+        return vscore["last"]
+
+    engine_train.add_tree = spy_add
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        from dryad_tpu_torch.engine import cuda_build
+
+        cuda_build.reset_counts()
+        booster = dt.train(params, ds, [dv], device=dev,
+                           callback=lambda it, info: infos.append(info))
+        launches = dict(cuda_build.counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine_train.add_tree = real_add
+    n = booster.num_iterations
+    check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "bagged")
+    curve = [i["valid_auc"] for i in infos]
+    check(len(curve) == n, "bagged: not every iteration was evaluated")
+    again = []
+    b2 = dt.train(params, ds, [dv], device=dev,
+                  callback=lambda it, info: again.append(info))
+    same_trees(booster, b2, "bagged")
+    check(again == infos and b2.best_iteration == booster.best_iteration,
+          "bagged: a second run's evals or best iteration differ")
+    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+                     device=dev)
+    check(np.array_equal(vscore["last"].cpu().numpy(), raw),
+          "bagged: the trainer's valid scores differ from predict's")
+    host_auc = auc(yv, raw)
+    check(abs(curve[-1] - host_auc) <= 1e-5,
+          f"bagged: last valid_auc {curve[-1]} vs host AUC {host_auc}")
+    check(curve[-1] > curve[0] and curve[-1] > 0.70,
+          f"bagged: AUC {curve[0]} -> {curve[-1]}")
+    y_dev = torch.from_numpy(yv).to(dev)
+    eval_ms = time_ms(lambda: auc_device(y_dev, vscore["last"]), a.reps)
+    del vscore, y_dev
+    plain = dict(params, early_stopping_rounds=0)
+    no_valid = dt.train(plain, ds, device=dev)
+    costs = valid_path_costs(dt, booster, ds, dv, dev, a.reps)
+    print("bagged valid-path costs: " + json.dumps(costs), flush=True)
+    prof = {"with_valid": profile_train(dt, params, ds, dv, dev,
+                                        "profile_bagged_valid.txt"),
+            "without_valid": profile_train(dt, plain, ds, None, dev,
+                                           "profile_bagged.txt"),
+            "tree": profile_tree(params, ds, dev, "profile_bagged_tree.txt")}
+    print("bagged profiles: " + json.dumps(prof), flush=True)
+    rep = {"with_valid": tree_summary(booster),
+           "without_valid": tree_summary(no_valid),
+           "valid_path": costs, "profile": prof,
+           "auc_device_ms_1M": eval_ms, "peak_bytes": peak,
+           "launches": launches, "trees": n,
+           "best_iteration": booster.best_iteration,
+           "auc": {"tree_1": curve[0], "last": curve[-1],
+                   "host_last": host_auc}, "bind_seconds": bind_s,
+           "hist_root": root, "perm_level0": perm0}
+    print("bagged train: " + json.dumps(
+        {k: v for k, v in rep.items() if k not in ("hist_root",
+                                                   "perm_level0",
+                                                   "profile")}),
+          flush=True)
+    print("bagged: second run bitwise equal; valid scores bitwise equal to "
+          "predict; last valid_auc matches the host AUC", flush=True)
+    report["bagged"] = rep
+    return params, dv, launches, root, perm0
+
+
+def phase_resume(dt, ds, dv, Xv, dev, params, report) -> dict:
+    """Phase 14: checkpoint/resume on the card, the bagged config."""
+    import tempfile
+
+    import numpy as np
+
+    from dryad_tpu_torch.checkpoint import Checkpointer
+    from dryad_tpu_torch.engine import cuda_build
+
+    class Crash(RuntimeError):
+        pass
+
+    T, crash_at = 10, 6
+    params = dict(params, num_trees=T)
+    straight_infos = []
+    straight = dt.train(params, ds, [dv], device=dev,
+                        callback=lambda it, info: straight_infos.append(info))
+    check(straight.num_iterations == T, "resume: the straight run stopped "
+          "early")
+
+    def crash(it, info):
+        if it == crash_at:
+            raise Crash
+
+    with tempfile.TemporaryDirectory(dir=OUT) as ckdir:
+        try:
+            dt.train(params, ds, [dv], device=dev, checkpoint_dir=ckdir,
+                     checkpoint_every=3, callback=crash)
+            fail("resume: the crash callback did not stop the run")
+        except Crash:
+            pass
+        check(Checkpointer(ckdir).iterations() == [3, 6],
+              "resume: checkpoints are not [3, 6]")
+        infos = []
+        t0 = time.perf_counter()
+        cuda_build.reset_counts()
+        resumed = dt.train(params, ds, [dv], device=dev,
+                           checkpoint_dir=ckdir, checkpoint_every=3,
+                           resume=True,
+                           callback=lambda it, info: infos.append(info))
+        launches = dict(cuda_build.counts)
+        resume_s = time.perf_counter() - t0
+        grown = T - crash_at
+        check_launches(launches, {"hist": 9 * grown, "perm": 8 * grown},
+                       "resume")
+        same_trees(straight, resumed, "resume")
+        check(infos == straight_infos[crash_at:]
+              and resumed.best_iteration == straight.best_iteration,
+              "resume: evals or best iteration differ from the straight run")
+        raw = dt.predict(straight, Xv, raw_score=True, device=dev)
+        check(np.array_equal(dt.predict(resumed, Xv, raw_score=True,
+                                        device=dev), raw),
+              "resume: predict differs from the straight run")
+        path = os.path.join(ckdir, "model.dryad")
+        resumed.save(path)
+        loaded = dt.Booster.load(path)
+        check(np.array_equal(dt.predict(loaded, Xv, raw_score=True,
+                                        device=dev), raw),
+              "resume: the loaded model file predicts differently")
+    rep = {"trees": T, "crash_at": crash_at, "resume_seconds": resume_s,
+           "launches": launches, "best_iteration": resumed.best_iteration}
+    print("resume: " + json.dumps(rep), flush=True)
+    print("resume: trees, evals, best iteration and predict bitwise equal "
+          "to the straight run; the saved file predicts bitwise", flush=True)
+    report["resume"] = rep
+    return launches
+
+
+def phase_bagged_legacy(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phase 15: leaf-wise at the default depth (legacy arm), bagged."""
+    import torch
+
+    from dryad_tpu_torch.engine import hist, hist_nat
+    from dryad_tpu_torch.engine.loop_state import sample_masks
+
+    params = {"objective": "binary", "growth": "leafwise", "num_leaves": 255,
+              "max_bins": 256, "learning_rate": 0.1, "subsample": 0.8,
+              "seed": 0, "num_trees": a.bag_legacy_trees}
+    calls = leafwise_capture(dt, params, ds, dev,
+                             {"rows": (hist, "hist_rows"),
+                              "nat": (hist_nat, "build_hist_nat")},
+                             "bagged leaf-wise default")
+    check(len(calls["rows"]) == 9 and len(calls["nat"]) == 4,
+          f"bagged leaf-wise capture tree made {len(calls['rows'])} "
+          f"row-mode and {len(calls['nat'])} natural-order calls")
+    bag = torch.from_numpy(sample_masks(
+        dt.Params.from_dict(params), 0, ds.num_rows,
+        ds.num_features)[0]).to(dev)
+    sel = calls["nat"][3][0][3]
+    check(bool((sel[~bag] >= calls["nat"][3][1]["num_cols"]).all()),
+          "bagged K3: an out-of-bag row kept a slot")
+    buf = calls["rows"][-1][0][1]
+    check(bool(bag[buf[buf < ds.num_rows]].all()),
+          "bagged K1 row mode: an out-of-bag row is in the plan")
+    nat = check_nat(calls["nat"][3], "bagged nat level 3", a.reps)
+    check(nat["P"] == 8, f"bagged K3 P={nat['P']}")
+    print("K3 bagged leaf-wise level 3: " + json.dumps(nat), flush=True)
+    rows = check_rows(calls["rows"][-1][0], "bagged rows level 11", a.reps)
+    check(rows["P"] == 2048, f"bagged K1 row mode P={rows['P']}")
+    print("K1 rows bagged leaf-wise level 11: " + json.dumps(rows),
+          flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    _, rep = train_and_check(dt, params, ds, Xv, yv, dev,
+                             {"nat": 4 * a.bag_legacy_trees,
+                              "hist_rows": 9 * a.bag_legacy_trees},
+                             "bagged leaf-wise default")
+    rep.update(nat_level=nat, rows_level=rows)
+    report["bagged_leafwise_default"] = rep
+    return rep["launches"], nat, rows
+
+
+
 def phase_epsilon(dt, a, dev, report) -> tuple:
-    """Phase 13: Epsilon-shaped regression through the legacy arm."""
+    """Phase 16: Epsilon-shaped regression through the legacy arm."""
     import numpy as np
     import torch
 
@@ -959,6 +1339,8 @@ def main() -> int:
     ap.add_argument("--eps-rows", type=int, default=EPS_ROWS)
     ap.add_argument("--eps-holdout", type=int, default=EPS_HOLDOUT)
     ap.add_argument("--eps-trees", type=int, default=20)
+    ap.add_argument("--bag-trees", type=int, default=20)
+    ap.add_argument("--bag-legacy-trees", type=int, default=5)
     a = ap.parse_args()
 
     import torch
@@ -970,8 +1352,9 @@ def main() -> int:
     from dryad_tpu_torch import datasets
     from dryad_tpu_torch.engine import cuda_build
 
-    check(a.trees >= 2 and a.eps_trees >= 2,
-          "--trees and --eps-trees must be >= 2 (metrics must move)")
+    check(min(a.trees, a.eps_trees, a.bag_trees, a.bag_legacy_trees) >= 2,
+          "--trees, --eps-trees, --bag-trees and --bag-legacy-trees must "
+          "be >= 2 (metrics must move)")
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = smi_line()
@@ -1024,7 +1407,15 @@ def main() -> int:
         dt, a, ds, Xv, yv, dev, report)
     # ---- 12. the leaf-wise fixture ----------------------------------------
     phase_leafwise_fixture(dt, dev, report)
-    # ---- 13. Epsilon-shaped regression, the Higgs tensors freed -----------
+    # ---- 13-15. the training loop: bagged and validated, resume, bagged
+    # legacy arm -----------------------------------------------------------
+    bag_params, dv, b_launches, b_root, b_perm = phase_bagged(
+        dt, a, ds, Xv, yv, dev, report)
+    r_launches = phase_resume(dt, ds, dv, Xv, dev, bag_params, report)
+    del dv
+    bl_launches, bl_nat, bl_rows = phase_bagged_legacy(dt, a, ds, Xv, yv,
+                                                       dev, report)
+    # ---- 16. Epsilon-shaped regression, the Higgs tensors freed -----------
     del ds, Xv, yv, w_booster
     gc.collect()
     torch.cuda.empty_cache()
@@ -1032,6 +1423,8 @@ def main() -> int:
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
+               "bagged_wired": b_launches, "resume": r_launches,
+               "bagged_leafwise_default": bl_launches,
                "epsilon": e_launches}
 
     def launches(k):
@@ -1047,20 +1440,25 @@ def main() -> int:
                      "dryad_tpu/engine/pallas_hist.py:140", launches("hist"),
                      paths("hist"), w_level,
                      {"mode": "layout", "root": brief(root),
-                      "leafwise_level": brief(lw_level)}),
+                      "leafwise_level": brief(lw_level),
+                      "bagged_root": brief(b_root)}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,
                      {"mode": "rows", "leafwise_level": brief(ld_rows),
+                      "bagged_leafwise_level": brief(bl_rows),
                       "epsilon_root": brief(e_root),
                       "epsilon_level": brief(e_level)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
                      paths("perm"), perm,
-                     {"leafwise_level": brief(lw_perm)}),
+                     {"leafwise_level": brief(lw_perm),
+                      "bagged_level0": brief(b_perm)}),
         kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
                      "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
-                     paths("nat"), nat, {"leafwise_level": brief(ld_nat)}),
+                     paths("nat"), nat, {"leafwise_level": brief(ld_nat),
+                                         "bagged_leafwise_level":
+                                             brief(bl_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

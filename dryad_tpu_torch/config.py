@@ -1,7 +1,8 @@
 """Training parameters of the port: the subset of ``dryad_tpu.config.Params``
-that its growers run (binary and regression objectives; leaf-wise and
-depthwise growth, on the wired leaf-ordered layout or the legacy plan
-arm), and the growth-policy helpers that pick a grower.
+that it runs (binary and regression objectives; leaf-wise and depthwise
+growth, on the wired leaf-ordered layout or the legacy plan arm; bagging,
+column sampling, evaluation and early stopping), and the growth-policy
+helpers that pick a grower.
 
 Defaults and LightGBM-style aliases are the reference's, so
 ``{"objective": "binary"}`` alone trains leaf-wise with 31 leaves and
@@ -75,14 +76,8 @@ _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "drop_rate": 0.1,
     "skip_drop": 0.5,
     "max_drop": 50,
-    "subsample": 1.0,
-    "colsample": 1.0,
     "categorical_features": (),
     "monotone_constraints": (),
-    "metric": "",
-    "early_stopping_rounds": 0,
-    "eval_period": 1,
-    "scale_pos_weight": 1.0,
     "alpha": 0.9,
     "fair_c": 1.0,
     "poisson_max_delta_step": 0.7,
@@ -118,7 +113,20 @@ class Params:
     # grower takes (effective_depth_params); "exact" keeps unbounded
     # best-first growth on the sequential grower
     unbounded_depth: str = "auto"
+    # per-iteration Philox(seed, iteration) draw of the row bag and the
+    # feature mask (engine/loop_state.sample_masks)
+    subsample: float = 1.0
+    colsample: float = 1.0
     seed: int = 0
+    # evaluation / early stopping
+    metric: str = ""              # "" = the objective's default
+    # 0 = disabled.  Counts evaluations without improvement, so with
+    # eval_period > 1 the patience in iterations is
+    # early_stopping_rounds * eval_period
+    early_stopping_rounds: int = 0
+    eval_period: int = 1
+    # binary: multiply the positive class's grad/hess (imbalanced data)
+    scale_pos_weight: float = 1.0
     hist_subtraction: bool = True
     deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
 
@@ -158,10 +166,19 @@ class Params:
             raise ValueError("min_data_in_leaf must be >= 1")
         if self.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
-        if self.num_trees < 1:
-            raise ValueError("num_trees must be >= 1")
+        if self.num_trees < 0:
+            # 0 is the warm-start no-op append; train() rejects it for a
+            # fresh run
+            raise ValueError("num_trees must be >= 0")
         if not (0.0 < self.learning_rate):
             raise ValueError("learning_rate must be > 0")
+        if (not (0.0 < self.subsample <= 1.0)
+                or not (0.0 < self.colsample <= 1.0)):
+            raise ValueError("subsample/colsample must be in (0, 1]")
+        if not (self.scale_pos_weight > 0.0):
+            raise ValueError("scale_pos_weight must be > 0")
+        if self.eval_period < 1:
+            raise ValueError("eval_period must be >= 1")
         if self.deep_layout not in ("auto", "legacy"):
             raise ValueError("deep_layout must be auto|legacy")
         return self
@@ -193,6 +210,32 @@ class Params:
                 raise ValueError(f"unknown parameter {key!r}")
             norm[key] = value
         return cls(**norm).validate()
+
+    @classmethod
+    def from_reference_dict(cls, d: Mapping[str, Any]) -> "Params":
+        """The port's Params for a ``dryad_tpu`` model's params dict (a
+        model file's ``meta.params``): a single-output binary or
+        regression gbdt model.  Parameters outside the slice that only
+        shape training on the reference's device (its histogram backend,
+        chunking, ...) are dropped."""
+        if d.get("objective", "binary") not in OBJECTIVES:
+            raise ValueError(f"objective {d.get('objective')!r} is outside "
+                             "this slice of the port")
+        if int(d.get("num_class", 1)) != 1:
+            raise ValueError("multiclass models are outside this slice "
+                             "(M8)")
+        if d.get("boosting", "gbdt") not in ("gbdt", "goss"):
+            # rf averages and dart rescales at predict time
+            raise ValueError(f"boosting={d.get('boosting')!r} is outside "
+                             "this slice of the port")
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known}).validate()
+
+    def to_dict(self) -> dict[str, Any]:
+        """Every field; each is a field of ``dryad_tpu.config.Params`` of
+        the same name and meaning, so the reference's ``Params.from_dict``
+        loads it."""
+        return dataclasses.asdict(self)
 
 
 # ---- growth-policy helpers, the reference's (dryad_tpu/config.py) ----------

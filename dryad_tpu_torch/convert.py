@@ -10,38 +10,31 @@ does.
 
 from __future__ import annotations
 
-import dataclasses
+from typing import Optional
 
 import numpy as np
 
 from dryad_tpu_torch.booster import Booster
-from dryad_tpu_torch.config import OBJECTIVES, Params
+from dryad_tpu_torch.config import Params
 from dryad_tpu_torch.data.sketch import BinMapper
 
 
 def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
-                           params_dict: dict,
-                           max_depth_seen: int) -> Booster:
-    """The port's Booster for a reference model.  Only what predict reads
-    must be in the slice: a single-output binary or regression gbdt model
-    without categorical splits; training-only parameters are not
-    carried."""
-    if params_dict.get("objective", "binary") not in OBJECTIVES:
-        raise ValueError(f"objective {params_dict.get('objective')!r} is "
-                         "outside this slice of the port")
-    if int(params_dict.get("num_class", 1)) != 1:
-        raise ValueError("multiclass models are outside this slice")
-    if params_dict.get("boosting", "gbdt") not in ("gbdt", "goss"):
-        # rf averages and dart rescales at predict time
-        raise ValueError(f"boosting={params_dict.get('boosting')!r} is "
-                         "outside this slice of the port")
+                           params_dict: dict, max_depth_seen: int,
+                           best_iteration: int = -1,
+                           train_state: Optional[dict] = None) -> Booster:
+    """The port's Booster for a reference model (its ``best_iteration``
+    and ``train_state`` carried too, so it resumes or predicts as the
+    reference would).  Only what predict reads must be in the slice: a
+    single-output binary or regression gbdt model without categorical
+    splits; parameters that only shape the reference's training are not
+    carried.  ``Booster.load`` of a reference model file is the other way
+    across."""
+    params = Params.from_reference_dict(params_dict)
     if mapper_json.get("type", "plain") != "plain":
         raise ValueError("bundled (EFB) mappers are outside this slice")
     if np.asarray(tree_arrays["is_cat"]).any():
         raise ValueError("categorical splits are outside this slice")
-    known = {f.name for f in dataclasses.fields(Params)}
-    kept = {k: v for k, v in params_dict.items() if k in known}
-    params = Params(**kept)
     return Booster(params, BinMapper.from_json_dict(mapper_json),
                    {k: np.asarray(v) for k, v in tree_arrays.items()},
-                   init_score, max_depth_seen)
+                   init_score, max_depth_seen, best_iteration, train_state)

@@ -16,6 +16,7 @@ Binning contract:
 from __future__ import annotations
 
 import dataclasses
+import io
 
 import numpy as np
 
@@ -148,3 +149,38 @@ class BinMapper:
             for f in d["features"]
         ]
         return cls(feats, int(d["max_bins"]))
+
+    def to_bytes(self) -> bytes:
+        """The reference's npz layout (``BinMapper.to_bytes``): a model
+        file's ``mapper`` entry, readable by either package."""
+        buf = io.BytesIO()
+        arrs: dict[str, np.ndarray] = {
+            "max_bins": np.array([self.max_bins], np.int64),
+            "is_cat": self.is_categorical,
+            "n_bins": self.n_bins,
+        }
+        for i, f in enumerate(self.features):
+            arrs[f"edges_{i}"] = f.edges
+            arrs[f"catv_{i}"] = f.cat_values
+            arrs[f"catb_{i}"] = f.cat_bins
+        np.savez_compressed(buf, **arrs)
+        return buf.getvalue()
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "BinMapper":
+        with np.load(io.BytesIO(data)) as z:
+            if "efb_base" in z.files:
+                raise ValueError("bundled (EFB) mappers are outside this "
+                                 "slice of the port (M10)")
+            n = z["is_cat"].shape[0]
+            feats = [
+                FeatureBins(
+                    bool(z["is_cat"][i]),
+                    z[f"edges_{i}"],
+                    z[f"catv_{i}"],
+                    z[f"catb_{i}"],
+                    int(z["n_bins"][i]),
+                )
+                for i in range(n)
+            ]
+            return cls(feats, int(z["max_bins"][0]))

@@ -1,8 +1,9 @@
 """Dense training set: raw features -> frozen sketch -> binned matrix.
 
-The counterpart of ``dryad_tpu.Dataset`` for dense, unweighted data.  The
-binned matrix stays on the host as numpy; the trainer uploads it to its
-device.
+The counterpart of ``dryad_tpu.Dataset`` for dense data with optional
+sample weights.  The binned matrix stays on the host as numpy; the trainer
+uploads it to its device.  Validation sets bin through the training set's
+frozen mapper (``bind``), as predict does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from dryad_tpu_torch.data.sketch import BinMapper, sketch_features
 
 class Dataset:
     def __init__(self, X: np.ndarray, y: Optional[np.ndarray] = None, *,
-                 max_bins: int = 256, mapper: Optional[BinMapper] = None):
+                 weight: Optional[np.ndarray] = None, max_bins: int = 256,
+                 mapper: Optional[BinMapper] = None):
         X = np.asarray(X, np.float32)
         if mapper is None:
             mapper = sketch_features(X, max_bins=max_bins)
@@ -27,7 +29,18 @@ class Dataset:
         self.y = None if y is None else np.ascontiguousarray(y, np.float32)
         if self.y is not None and self.y.shape[0] != self.num_rows:
             raise ValueError("y length mismatch")
+        self.weight = (None if weight is None
+                       else np.ascontiguousarray(weight, np.float32))
+        if self.weight is not None and self.weight.shape[0] != self.num_rows:
+            raise ValueError(f"weight length {self.weight.shape[0]} != "
+                             f"num_rows {self.num_rows}")
         self._has_missing: Optional[bool] = None
+
+    def bind(self, X: np.ndarray, y: Optional[np.ndarray] = None,
+             **kw) -> "Dataset":
+        """Bin new data (validation, test) through this set's frozen
+        mapper."""
+        return Dataset(X, y, mapper=self.mapper, **kw)
 
     @property
     def has_missing(self) -> bool:

@@ -46,35 +46,55 @@ def packed_fallback_reason(feature, threshold, left, right):
     return None
 
 
+def pack_words(feature: torch.Tensor, threshold: torch.Tensor,
+               left: torch.Tensor, right: torch.Tensor,
+               default_left: torch.Tensor,
+               is_cat: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-node traversal fields (..., M) -> (..., M, 2) int64 limbs on
+    their device, unchecked (the caller holds every field within its
+    width).  Leaf fields are zeroed so the packing depends only on
+    traversal content."""
+    feature = feature.to(torch.int64)
+    internal = feature >= 0
+    zero = torch.zeros((), dtype=torch.int64, device=feature.device)
+
+    def field(x):
+        return torch.where(internal, x.to(torch.int64), zero)
+
+    flag = internal.to(torch.int64)
+    dl = (default_left.to(torch.bool) & internal).to(torch.int64)
+    ic = (zero if is_cat is None
+          else (is_cat.to(torch.bool) & internal).to(torch.int64))
+    limb0 = field(left) | (field(right) << PACKED_CHILD_BITS)
+    limb1 = (field(threshold) | (field(feature) << 16) | (dl << 28)
+             | (ic << 29) | (flag << 30))
+    return torch.stack([limb0, limb1], dim=-1)
+
+
 def pack_node_words(feature, threshold, left, right, default_left,
                     is_cat) -> np.ndarray:
-    """Per-node traversal fields (..., M) -> (..., M, 2) int64 limbs.
-    Leaf fields are zeroed so the packing depends only on traversal
-    content."""
+    """``pack_words`` of numpy fields, each checked against its packed
+    width."""
     feature = np.asarray(feature, np.int64)
     internal = feature >= 0
-    fields = {
-        "feature": np.where(internal, feature, 0),
-        "threshold": np.where(internal, np.asarray(threshold, np.int64), 0),
-        "left": np.where(internal, np.asarray(left, np.int64), 0),
-        "right": np.where(internal, np.asarray(right, np.int64), 0),
-    }
+    fields = {"feature": feature, "threshold": np.asarray(threshold),
+              "left": np.asarray(left), "right": np.asarray(right)}
     widths = {"feature": PACKED_FEATURE_BITS,
               "threshold": PACKED_THRESHOLD_BITS,
               "left": PACKED_CHILD_BITS, "right": PACKED_CHILD_BITS}
     for name, arr in fields.items():
+        arr = np.where(internal, arr, 0)
         if arr.size and (int(arr.min()) < 0
                          or int(arr.max()) >= (1 << widths[name])):
             raise ValueError(
                 f"packed predict layout: field {name!r} does not fit "
                 f"{widths[name]} bits (max value {int(arr.max())}); the "
                 "legacy layout is a later slice of the port")
-    dl = np.where(internal & np.asarray(default_left, bool), 1, 0)
-    ic = np.where(internal & np.asarray(is_cat, bool), 1, 0)
-    limb0 = fields["left"] | (fields["right"] << PACKED_CHILD_BITS)
-    limb1 = (fields["threshold"] | (fields["feature"] << 16)
-             | (dl << 28) | (ic << 29) | (np.where(internal, 1, 0) << 30))
-    return np.stack([limb0, limb1], axis=-1).astype(np.int64)
+    t = {k: torch.from_numpy(np.asarray(v, np.int64))
+         for k, v in fields.items()}
+    return pack_words(t["feature"], t["threshold"], t["left"], t["right"],
+                      torch.from_numpy(np.asarray(default_left, bool)),
+                      torch.from_numpy(np.asarray(is_cat, bool))).numpy()
 
 
 def unpack_node_words(words: np.ndarray) -> dict:
@@ -95,10 +115,14 @@ def unpack_node_words(words: np.ndarray) -> dict:
 
 def stage_trees(booster, num_iteration: Optional[int] = None):
     """(words (n_iter, M, 2) int64, value (n_iter, M) f32, init (1,) f32,
-    n_iter) for the traversal.  Categorical splits and models whose fields
-    do not fit the packed words are later slices."""
-    n_iter = (booster.num_iterations if num_iteration is None
-              else min(num_iteration, booster.num_iterations))
+    n_iter) for the traversal.  Without ``num_iteration`` a booster with
+    a best iteration (early stopping) stops there.  Categorical splits and
+    models whose fields do not fit the packed words are later slices."""
+    if num_iteration is None:
+        num_iteration = (booster.best_iteration
+                         if booster.best_iteration > 0
+                         else booster.num_iterations)
+    n_iter = min(num_iteration, booster.num_iterations)
     ta = booster.tree_arrays()
     if ta["is_cat"][:n_iter].any():
         raise NotImplementedError(
@@ -135,15 +159,24 @@ def tree_leaves(words: torch.Tensor, Xb: torch.Tensor,
     return node
 
 
+def add_tree(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
+             score: torch.Tensor, depth_bound: int) -> torch.Tensor:
+    """``score + value[leaf]`` of one tree (words (M, 2), value (M,)) over
+    rows ``Xb``: the fp32 add the boosting loop makes to a valid set's
+    scores when the tree is grown (the counterpart of the reference's
+    ``_apply_valid_jit``)."""
+    return score + value[tree_leaves(words, Xb, depth_bound)]
+
+
 def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
                init: torch.Tensor, depth_bound: int) -> torch.Tensor:
     """Raw scores (N, 1): init plus each tree's leaf value, added in fp32
-    in iteration order (the reference's summation order)."""
-    score = init.to(torch.float32).expand(Xb.shape[0], 1).clone()
+    in iteration order (the reference's summation order, and the
+    boosting loop's, so a resumed run rebuilds its scores bitwise)."""
+    score = init.to(torch.float32).expand(Xb.shape[0]).clone()
     for t in range(words.shape[0]):
-        leaves = tree_leaves(words[t], Xb, depth_bound)
-        score[:, 0] += value[t][leaves]
-    return score
+        score = add_tree(words[t], value[t], Xb, score, depth_bound)
+    return score[:, None]
 
 
 def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,

@@ -211,8 +211,8 @@ def test_leafwise_tree_on_card_matches_cpu(cuda_device, layout):
                deep_layout=layout)
     assert leafwise_layout_supported(p, F, B, 1) == (layout == "auto")
     yt = torch.from_numpy(ds.y)
-    score = torch.full_like(yt, float(Binary.init_score(ds.y)))
-    g, h = Binary.grad_hess(score, yt)
+    score = torch.full_like(yt, float(Binary().init_score(ds.y)))
+    g, h = Binary().grad_hess(score, yt)
     out = {}
     for dev in ("cpu", cuda_device):
         out[str(dev)] = grow_tree_leafwise_batched(
@@ -227,3 +227,40 @@ def test_leafwise_tree_on_card_matches_cpu(cuda_device, layout):
     np.testing.assert_allclose(card["value"].cpu().numpy(),
                                cpu["value"].numpy(), atol=1e-4)
     assert int((cpu["feature"] >= 0).sum()) == 127
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth", ["depthwise", "leafwise"])
+def test_bagged_validated_training_on_card_matches_cpu(cuda_device, growth):
+    """Two bagged, column-sampled trees with a valid set scored on the
+    device (50k Higgs-like rows, 64 bins, depth 6): the card's trees equal
+    the CPU's (integer arrays and covers; values within 1e-4), the evals
+    agree within 1e-6, and the card's eval of its last tree equals the
+    host AUC of its own predict within 1e-5."""
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.metrics import auc
+
+    X, y = datasets.higgs_like(60_000, seed=43)
+    ds = Dataset(X[:50_000], y[:50_000], max_bins=64)
+    dv = ds.bind(X[50_000:], y[50_000:])
+    params = dict(objective="binary", growth=growth, max_depth=6,
+                  num_leaves=40, max_bins=64, num_trees=2, subsample=0.8,
+                  colsample=0.8, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        out[str(dev)] = dt.train(params, ds, [dv], device=dev)
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "cover"):
+        np.testing.assert_array_equal(card.arrays[k], cpu.arrays[k],
+                                      err_msg=k)
+    np.testing.assert_allclose(card.arrays["value"], cpu.arrays["value"],
+                               atol=1e-4)
+    assert (card.arrays["cover"][:, 0] < 0.85 * 50_000).all()
+    hc = card.train_state["eval_history"]["valid_auc"]
+    hp = cpu.train_state["eval_history"]["valid_auc"]
+    np.testing.assert_allclose([v for _, v in hc], [v for _, v in hp],
+                               rtol=0, atol=1e-6)
+    host = auc(y[50_000:], dt.predict(card, X[50_000:], raw_score=True,
+                                      device=cuda_device))
+    assert abs(hc[-1][1] - host) < 1e-5

@@ -88,3 +88,11 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_scan_covers_the_training_loop_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"engine/train.py", "engine/loop_state.py", "metrics/__init__.py",
+            "metrics/device.py", "callbacks.py", "checkpoint.py",
+            "booster.py", "dataset.py"} <= names

@@ -58,8 +58,8 @@ def test_regression_objective_matches_reference():
     rng = np.random.default_rng(4)
     y = rng.normal(size=700).astype(np.float32)
     s = rng.normal(size=700).astype(np.float32)
-    assert Regression.init_score(y) == JRegression().init_score(y)
-    g, h = Regression.grad_hess(torch.from_numpy(s), torch.from_numpy(y))
+    assert Regression().init_score(y) == JRegression().init_score(y)
+    g, h = Regression().grad_hess(torch.from_numpy(s), torch.from_numpy(y))
     jg, jh = JRegression().grad_hess_np(s, y)
     np.testing.assert_array_equal(g.numpy(), jg)
     np.testing.assert_array_equal(h.numpy(), jh)

@@ -129,8 +129,8 @@ def test_objective_and_auc_match_reference():
     rng = np.random.default_rng(1)
     y = (rng.random(500) < 0.3).astype(np.float32)
     s = rng.normal(size=500).astype(np.float32)
-    assert Binary.init_score(y) == JBinary().init_score(y)
-    g, h = Binary.grad_hess(torch.from_numpy(s), torch.from_numpy(y))
+    assert Binary().init_score(y) == JBinary().init_score(y)
+    g, h = Binary().grad_hess(torch.from_numpy(s), torch.from_numpy(y))
     jg, jh = JBinary().grad_hess_np(s, y)
     np.testing.assert_allclose(g.numpy(), jg, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(h.numpy(), jh, rtol=1e-6, atol=1e-7)
@@ -159,7 +159,7 @@ def test_params_aliases_and_slice_limits():
                       ({"growth": "depthwise", "max_depth": 4,
                         "categorical_features": [1]}, "categorical_features"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "bagging_fraction": 0.5}, "subsample"),
+                        "top_rate": 0.5}, "goss_top_rate"),
                       ({"growth": "depthwise", "max_depth": 4,
                         "boosting": "dart"}, "boosting"),
                       ({"growth": "depthwise", "max_depth": 4,
