@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--rows N] [--trees T] [--seed S] [--reps R]
                           [--eps-rows N] [--eps-trees T] [--bag-trees T]
-                          [--bag-legacy-trees T]
+                          [--bag-legacy-trees T] [--cov-default-trees T]
 
 Phases (any failed check exits non-zero):
 
@@ -79,7 +79,35 @@ Phases (any failed check exits non-zero):
    level (P=32); 7 K1 row-mode launches per tree and no other; a second
    run bitwise equal; held-out RMSE falls from tree 1 to the last and ends
    below the label's standard deviation; time per tree, peak memory, one
-   tree profiled.
+   tree profiled;
+17. Covertype-shaped multiclass (``covertype_like(581k + 100k, 54, 7,
+   seed=11)``: 581k training rows, Covertype's size, and 100k held out as
+   the valid set; 256 bins; the acceptance config: depthwise, max_depth 6,
+   63 leaves, 30 iterations of 7 class trees): on the last class tree of
+   a capture iteration (the second, where g and h differ by class), K1 at
+   the root (P=1; its sums are that class's gradient column and no
+   other's) and the last level (P=32) and K2 at
+   level 3 against their plain versions; 7 K1 and 6 K2 launches per tree,
+   7 trees per iteration; a second run bitwise equal; card predict (N, 7)
+   bitwise equal to CPU predict; the trainer's valid scores bitwise equal
+   to predict's; held-out accuracy above 0.55; multi_logloss falling from
+   iteration 1 to the last and its last value within 1e-5 of the host
+   oracle on predict; iterations/s and trees/s with and without the valid
+   set, peak memory, one iteration profiled;
+18. Covertype at the reference's defaults (``{"objective": "multiclass",
+   "num_class": 7}``: leaf-wise, 31 leaves, effective depth 9, wired arm)
+   with ``subsample=0.8``, ``colsample=0.8``, the valid set and early
+   stopping after 5 rounds, ``cov_default_trees`` iterations: 10 K1 and 9
+   K2 launches per tree; the K trees of each iteration get that
+   iteration's bag and feature mask; a run that crashes at iteration 6
+   after checkpoints every 3 resumes bitwise equal to the straight run
+   (trees, evals, best iteration, predict); its model file predicts
+   bitwise; one iteration profiled;
+19. the multiclass fixture (``covertype_like(50_000, 54, 3, seed=43)``, 64
+   bins, depthwise, depth 8, 128 leaves, 3 iterations): on the last class
+   tree of the legacy arm, K3 and K1 row mode against their plain
+   versions; the legacy run's K3 and K1 row-mode launches; wired and
+   legacy trees equal.
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -117,6 +145,11 @@ HOLDOUT_ROWS = 1_000_000
 EPS_ROWS = 400_000
 EPS_HOLDOUT = 100_000
 EPS_FEATURES = 2000
+COV_ROWS = 581_000
+COV_HOLDOUT = 100_000
+COV_ITERATIONS = 30
+COV_FEATURES = 54
+COV_CLASSES = 7
 OUT = "chiprun_out"
 
 
@@ -204,10 +237,10 @@ def bound_ms(nbytes: float, pairs: float) -> dict:
             "updates": 3 * pairs}
 
 
-def capture(dt, params, ds, dev, names):
-    """Train one tree with the named kernel wrappers wrapped; returns each
-    wrapper's calls as (args, kwargs).  ``names`` maps a label to
-    (module, attribute)."""
+def capture(dt, params, ds, dev, names, init=None):
+    """Train one iteration (after ``init``'s, when given) with the named
+    kernel wrappers wrapped; returns each wrapper's calls as (args,
+    kwargs).  ``names`` maps a label to (module, attribute)."""
     calls = {k: [] for k in names}
     real = {k: getattr(m, a) for k, (m, a) in names.items()}
 
@@ -220,7 +253,9 @@ def capture(dt, params, ds, dev, names):
     for k, (m, a) in names.items():
         setattr(m, a, spy(k))
     try:
-        dt.train(dict(params, num_trees=1), ds, device=dev)
+        n = 1 if init is None else init.num_iterations + 1
+        dt.train(dict(params, num_trees=n), ds, device=dev,
+                 init_booster=init)
     finally:
         for k, (m, a) in names.items():
             setattr(m, a, real[k])
@@ -404,10 +439,10 @@ def dev_us(e) -> float:
 
 
 def profile_tree(params, ds, dev, fname: str) -> dict:
-    """One tree of the grower (under iteration 0's bag and feature mask)
-    under torch.profiler: device time by kernel, and the device's busy
-    share of the tree's wall time (measured again without the profiler).
-    The table goes to chiprun_out/<fname>."""
+    """One iteration of the grower, one tree per output (under iteration
+    0's bag and feature mask), under torch.profiler: device time by
+    kernel, and the device's busy share of its wall time (measured again
+    without the profiler).  The table goes to chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -415,18 +450,19 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     from dryad_tpu_torch.config import effective_depth_params
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.loop_state import sample_masks
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.engine.train import binned_to_device, class_grads
     from dryad_tpu_torch.objectives import get_objective
 
     B = ds.mapper.total_bins
     p = effective_depth_params(dt.Params.from_dict(params), ds.num_features,
                                B, ds.num_rows)
     obj = get_objective(p)
+    K = p.num_outputs
     Xb = binned_to_device(ds.X_binned, dev)
     y = torch.from_numpy(ds.y).to(dev)
-    score = torch.full((ds.num_rows,), obj.init_score(ds.y),
-                       dtype=torch.float32, device=dev)
-    g, h = obj.grad_hess(score, y)
+    init = torch.tensor(obj.init_score(ds.y), dtype=torch.float32,
+                        device=dev).reshape(1, K)
+    cols = class_grads(obj, init.expand(ds.num_rows, K).clone(), y, None)
     row_mask, feat_mask = sample_masks(p, 0, ds.num_rows, ds.num_features)
     bag = (torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
            if row_mask is None else torch.from_numpy(row_mask).to(dev))
@@ -434,7 +470,8 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
              if feat_mask is None else torch.from_numpy(feat_mask).to(dev))
 
     def tree():
-        grow_any(p, B, Xb, g, h, bag, fmask)
+        for g, h in cols:
+            grow_any(p, B, Xb, g, h, bag, fmask)
         torch.cuda.synchronize()
 
     tree()
@@ -455,12 +492,13 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     with open(os.path.join(OUT, fname), "w") as f:
         f.write(prof.key_averages(group_by_input_shape=True).table(
             sort_by="self_cuda_time_total", row_limit=80))
-    del Xb, y, score, g, h
+    del Xb, y, cols
     if total_us <= 0:
-        return {"tree_wall_ms": wall_ms, "device_ms": "not measured"}
+        return {"iteration_wall_ms": wall_ms, "device_ms": "not measured"}
     top_k = sorted(kernels, key=dev_us, reverse=True)[:10]
     top_o = sorted(ops, key=dev_us, reverse=True)[:10]
-    return {"tree_wall_ms": wall_ms, "device_ms": total_us / 1e3,
+    return {"iteration_wall_ms": wall_ms, "trees": K,
+            "device_ms": total_us / 1e3,
             "busy_share": total_us / 1e3 / wall_ms,
             "kernels": [[e.key[:60], dev_us(e) / 1e3, e.count]
                         for e in top_k],
@@ -513,12 +551,14 @@ def same_trees(a, b, what: str) -> None:
 
 
 def tree_summary(booster) -> dict:
-    """Time of the first tree, and the mean of the others."""
+    """Time of the first iteration, and the mean of the others; trees/s
+    counts the K trees of each iteration (equal to iterations/s at K=1)."""
     ts = booster.tree_seconds
     rest = ts[1:] or ts
     mean = sum(rest) / len(rest)
-    return {"first_tree_s": ts[0], "mean_tree_s": mean,
-            "trees_per_s": 1.0 / mean}
+    return {"first_iteration_s": ts[0], "mean_iteration_s": mean,
+            "iterations_per_s": 1.0 / mean,
+            "trees_per_s": booster.num_outputs / mean}
 
 
 def train_and_check(dt, params, ds, Xv, yv, dev, want: dict,
@@ -712,17 +752,19 @@ def selection_cost(args, params, ds, dev) -> dict:
             "kernel_launches": sum(e.count for e in kernels)}
 
 
-def leafwise_capture(dt, params, ds, dev, names: dict, what: str) -> dict:
-    """One capture tree of a leaf-wise configuration, with the batched
-    grower and the sequential one watched: the batched grower must run
-    once and the sequential one never."""
+def leafwise_capture(dt, params, ds, dev, names: dict, what: str,
+                     trees: int = 1) -> dict:
+    """One capture iteration (``trees`` trees) of a leaf-wise
+    configuration, with the batched grower and the sequential one watched:
+    the batched grower must run once per tree and the sequential one
+    never."""
     from dryad_tpu_torch.engine import grower, leafwise_fast
 
     calls = capture(dt, params, ds, dev, dict(
         names, batched=(leafwise_fast, "grow_tree_leafwise_batched"),
         sequential=(grower, "grow_tree"),
         select=(leafwise_fast, "select_tree")))
-    check(len(calls["batched"]) == 1 and not calls["sequential"],
+    check(len(calls["batched"]) == trees and not calls["sequential"],
           f"{what}: the batched leaf-wise grower was not the one taken")
     return calls
 
@@ -1017,6 +1059,27 @@ def valid_path_costs(dt, booster, ds, dv, dev, reps: int) -> dict:
             "bag_draw_host_ms": sum(draw) / 3}
 
 
+def spy_valid_scores(engine_train, K: int) -> tuple:
+    """Wrap the loop's ``add_tree`` to keep the last K valid-score
+    columns it returns (the last iteration's K class columns); returns
+    (kept list, restore function)."""
+    kept: list = []
+    real = engine_train.add_tree
+
+    def spy(*args):
+        out = real(*args)
+        kept.append(out)
+        del kept[:-K]
+        return out
+
+    engine_train.add_tree = spy
+
+    def restore():
+        engine_train.add_tree = real
+
+    return kept, restore
+
+
 def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
     """Phase 13: Higgs-10M bagged and validated, depthwise wired."""
     import numpy as np
@@ -1057,14 +1120,8 @@ def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
 
     # the main path: bagged, validated, early stopping on the card's AUC;
     # the trainer's running valid scores are read through add_tree
-    infos, vscore = [], {}
-    real_add = engine_train.add_tree
-
-    def spy_add(*args):
-        vscore["last"] = real_add(*args)
-        return vscore["last"]
-
-    engine_train.add_tree = spy_add
+    infos = []
+    kept, restore = spy_valid_scores(engine_train, 1)
     try:
         torch.cuda.reset_peak_memory_stats()
         from dryad_tpu_torch.engine import cuda_build
@@ -1075,7 +1132,7 @@ def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
         launches = dict(cuda_build.counts)
         peak = torch.cuda.max_memory_allocated()
     finally:
-        engine_train.add_tree = real_add
+        restore()
     n = booster.num_iterations
     check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "bagged")
     curve = [i["valid_auc"] for i in infos]
@@ -1088,7 +1145,7 @@ def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
           "bagged: a second run's evals or best iteration differ")
     raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
                      device=dev)
-    check(np.array_equal(vscore["last"].cpu().numpy(), raw),
+    check(np.array_equal(kept[-1].cpu().numpy(), raw),
           "bagged: the trainer's valid scores differ from predict's")
     host_auc = auc(yv, raw)
     check(abs(curve[-1] - host_auc) <= 1e-5,
@@ -1096,8 +1153,8 @@ def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
     check(curve[-1] > curve[0] and curve[-1] > 0.70,
           f"bagged: AUC {curve[0]} -> {curve[-1]}")
     y_dev = torch.from_numpy(yv).to(dev)
-    eval_ms = time_ms(lambda: auc_device(y_dev, vscore["last"]), a.reps)
-    del vscore, y_dev
+    eval_ms = time_ms(lambda: auc_device(y_dev, kept[-1]), a.reps)
+    del kept, y_dev
     plain = dict(params, early_stopping_rounds=0)
     no_valid = dt.train(plain, ds, device=dev)
     costs = valid_path_costs(dt, booster, ds, dv, dev, a.reps)
@@ -1307,6 +1364,357 @@ def phase_epsilon(dt, a, dev, report) -> tuple:
     return launches, root, level
 
 
+# Covertype's acceptance config (scripts/acceptance.py:61): 7 classes,
+# depthwise, max_depth 6, 63 leaves, learning rate 0.1, 256 bins
+COVERTYPE = {"objective": "multiclass", "num_class": 7, "growth": "depthwise",
+             "max_depth": 6, "num_leaves": 63, "max_bins": 256}
+
+
+def covertype_data(dt) -> tuple:
+    """``covertype_like(581k + 100k, 54, 7, seed=11)``: the first 581k
+    rows train (Covertype's size), the rest are held out and bound as the
+    valid set."""
+    from dryad_tpu_torch import datasets
+
+    t0 = time.perf_counter()
+    X, y = datasets.covertype_like(COV_ROWS + COV_HOLDOUT, COV_FEATURES,
+                                   COV_CLASSES, seed=11)
+    ds = dt.Dataset(X[:COV_ROWS], y[:COV_ROWS], max_bins=256)
+    Xv, yv = X[COV_ROWS:], y[COV_ROWS:]
+    dv = ds.bind(Xv, yv)
+    seconds = time.perf_counter() - t0
+    check(ds.num_features == COV_FEATURES and ds.mapper.total_bins == 256,
+          f"covertype shape {ds.num_features} x {ds.mapper.total_bins} bins")
+    print(f"covertype data: {COV_ROWS} + {COV_HOLDOUT} x {COV_FEATURES}"
+          f", {COV_CLASSES} classes, {seconds:.1f} s", flush=True)
+    return ds, Xv, yv, dv, seconds
+
+
+def class_calls(calls: list, K: int, k: int) -> list:
+    """The calls of class tree ``k`` in a captured iteration of K trees
+    that make the same number of calls each."""
+    n = len(calls) // K
+    return calls[k * n:(k + 1) * n]
+
+
+def phase_covertype(dt, a, ds, Xv, yv, dv, dev, report) -> tuple:
+    """Phase 17: Covertype multiclass, depthwise wired, valid set."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import cuda_build, hist, leafperm
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.metrics import accuracy, multi_logloss
+
+    K, D = COV_CLASSES, COVERTYPE["max_depth"]
+    params = dict(COVERTYPE, num_trees=COV_ITERATIONS)
+    # the capture iteration is the second: at the zero init score every
+    # class has the same h, so only there do g and h tell the class
+    # columns apart; the spy keeps that iteration's columns
+    first = dt.train(dict(params, num_trees=1), ds, device=dev)
+    real_grads, cols = engine_train.class_grads, []
+
+    def spy_grads(*args, **kw):
+        out = real_grads(*args, **kw)
+        cols.extend((g.double().sum(), h.double().sum()) for g, h in out)
+        return out
+
+    engine_train.class_grads = spy_grads
+    try:
+        calls = capture(dt, params, ds, dev,
+                        {"hist": (hist, "hist_tiles"),
+                         "perm": (leafperm, "permute_records")}, init=first)
+    finally:
+        engine_train.class_grads = real_grads
+    del first
+    check(len(calls["hist"]) == K * (D + 1) and len(calls["perm"]) == K * D,
+          f"covertype capture iteration made {len(calls['hist'])} "
+          f"histogram calls and {len(calls['perm'])} row moves")
+    # the last class tree: its g/h are column 6 of the (N, 7) pass
+    k = K - 1
+    hc, pc = (class_calls(calls["hist"], K, k),
+              class_calls(calls["perm"], K, k))
+    root = check_hist(hc[0][0], "covertype hist root", a.reps)
+    level = check_hist(hc[-1][0], "covertype hist level", a.reps)
+    check(root["P"] == 1 and level["P"] == 32,
+          f"covertype K1 P: root {root['P']}, last level {level['P']}")
+    # the root's sums are class k's column, not a strided mix of classes,
+    # and lie far from every other class's
+    check(len(cols) == K, f"covertype capture: {len(cols)} class columns")
+    root_hist = hist.hist_tiles(*hc[0][0])[0].double().sum(-1)[:, 0]
+    sums = torch.tensor([[float(g), float(h)] for g, h in cols],
+                        dtype=torch.float64, device=dev)
+    dist = (root_hist[:2] - sums).abs().amax(1)
+    gap = float(torch.cat([dist[:k], dist[k + 1:]]).min())
+    check(float(dist[k]) <= 1.0
+          and abs(float(root_hist[2]) - ds.num_rows) <= 1.0,
+          f"covertype root of class {k}: sums {root_hist} vs its "
+          f"column's {sums[k]}")
+    check(gap > 100.0, f"covertype root of class {k}: within {gap} of "
+          "another class's column")
+    root["class_gap"] = gap
+    perm = check_perm(pc[3][0], a.reps)
+    print("K1 covertype root: " + json.dumps(root), flush=True)
+    print("K1 covertype level: " + json.dumps(level), flush=True)
+    print("K2 covertype level 3: " + json.dumps(perm), flush=True)
+    del calls, hc, pc
+    torch.cuda.empty_cache()
+
+    # the main path: 30 iterations of 7 trees with the held-out valid set
+    # scored on the card, evals deferred to the end
+    kept, restore = spy_valid_scores(engine_train, K)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_counts()
+        booster = dt.train(params, ds, [dv], device=dev)
+        launches = dict(cuda_build.counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        restore()
+    n = booster.num_iterations
+    check(n == COV_ITERATIONS and booster.num_total_trees == K * n,
+          f"covertype: {booster.num_total_trees} trees in {n} iterations")
+    check_launches(launches, {"hist": (D + 1) * K * n, "perm": D * K * n},
+                   "covertype")
+    vscore = torch.stack(kept, 1).cpu().numpy()
+    del kept
+    same_trees(booster, dt.train(params, ds, [dv], device=dev),
+               "covertype")
+    raw = dt.predict(booster, Xv, raw_score=True, device=dev)
+    check(raw.shape == (len(yv), K) and bool(np.isfinite(raw).all()),
+          f"covertype: predict shape {raw.shape} or finiteness")
+    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+                                         device="cpu")),
+          "covertype: card predict != CPU predict")
+    check(np.array_equal(vscore, raw),
+          "covertype: the trainer's valid scores differ from predict's")
+    curve = [v for _, v in
+             booster.train_state["eval_history"]["valid_multi_logloss"]]
+    check(len(curve) == n and curve[-1] < curve[0],
+          f"covertype: multi_logloss {curve[0]} -> {curve[-1]}")
+    prob = dt.predict(booster, Xv, device=dev)
+    host = multi_logloss(yv, prob)
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"covertype: last valid_multi_logloss {curve[-1]} vs host {host}")
+    acc = accuracy(yv, prob)
+    acc1 = accuracy(yv, dt.predict(booster, Xv, num_iteration=1,
+                                   device=dev))
+    check(acc > 0.55, f"covertype: held-out accuracy {acc} <= 0.55")
+    no_valid = tree_summary(dt.train(params, ds, device=dev))
+    prof = profile_tree(params, ds, dev, "profile_covertype.txt")
+    rep = dict(tree_summary(booster), without_valid=no_valid,
+               peak_bytes=peak, launches=launches,
+               iterations=n, trees=booster.num_total_trees,
+               multi_logloss={"iteration_1": curve[0], "last": curve[-1],
+                              "host_last": host},
+               accuracy={"iteration_1": acc1, "last": acc},
+               profile=prof)
+    print("covertype train: " + json.dumps(rep), flush=True)
+    print("covertype: second run bitwise equal; card predict (N, 7) "
+          "bitwise equal to CPU; valid scores bitwise equal to predict",
+          flush=True)
+    rep.update(hist_root=root, hist_level=level, perm=perm)
+    report["covertype"] = rep
+    return launches, root, level, perm
+
+
+def phase_covertype_defaults(dt, a, ds, Xv, dv, dev, report) -> tuple:
+    """Phase 18: Covertype at the reference's defaults (leaf-wise, 31
+    leaves, effective depth 9, wired arm), bagged, column-sampled,
+    validated, early stopping after 5 rounds; one bag and one feature
+    mask per iteration; crash at iteration 6 after checkpoints every 3,
+    resume bitwise; a model-file round trip."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.checkpoint import Checkpointer
+    from dryad_tpu_torch.config import (
+        effective_depth_params,
+        leafwise_fast_supported,
+    )
+    from dryad_tpu_torch.engine import cuda_build, hist, leafperm
+    from dryad_tpu_torch.engine import leafwise_fast
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.loop_state import sample_masks
+
+    class Crash(RuntimeError):
+        pass
+
+    K, T, crash_at = COV_CLASSES, a.cov_default_trees, 6
+    params = {"objective": "multiclass", "num_class": K, "subsample": 0.8,
+              "colsample": 0.8, "early_stopping_rounds": 5, "num_trees": T}
+    F, B, N = ds.num_features, ds.mapper.total_bins, ds.num_rows
+    p = effective_depth_params(dt.Params.from_dict(params), F, B, N)
+    D = p.max_depth
+    check(D == 9 and p.growth == "leafwise" and p.num_leaves == 31
+          and leafwise_fast_supported(p, F, B, N)
+          and leafwise_fast.leafwise_layout_supported(p, F, B, 1),
+          f"covertype defaults: effective depth {D}, not the batched "
+          "grower's wired arm at 9")
+    calls = leafwise_capture(dt, params, ds, dev,
+                             {"hist": (hist, "hist_tiles"),
+                              "perm": (leafperm, "permute_records")},
+                             "covertype defaults", trees=K)
+    check(len(calls["hist"]) == K * (D + 1)
+          and len(calls["perm"]) == K * D,
+          f"covertype defaults capture iteration made "
+          f"{len(calls['hist'])} histogram calls and "
+          f"{len(calls['perm'])} row moves")
+    del calls
+    torch.cuda.empty_cache()
+
+    # the main path, with the bag and feature mask each class tree gets
+    # watched: the K trees of an iteration share iteration it's draw
+    grows: list = []
+    real_grow = engine_train.grow_any
+
+    def spy_grow(p_, B_, Xb, g, h, bag, fmask, **kw):
+        it = len(grows) // K
+        if len(grows) % K == 0:
+            rm, fm = sample_masks(p, it, N, F)
+            grows.append((torch.equal(bag, torch.from_numpy(rm).to(dev))
+                          and torch.equal(fmask,
+                                          torch.from_numpy(fm).to(dev)),
+                          bag, fmask))
+        else:
+            first = grows[it * K]
+            grows.append((torch.equal(bag, first[1])
+                          and torch.equal(fmask, first[2]), None, None))
+        return real_grow(p_, B_, Xb, g, h, bag, fmask, **kw)
+
+    infos: list = []
+    engine_train.grow_any = spy_grow
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_counts()
+        straight = dt.train(params, ds, [dv], device=dev,
+                            callback=lambda it, info: infos.append(info))
+        launches = dict(cuda_build.counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine_train.grow_any = real_grow
+    n = straight.num_iterations
+    check(n == T, f"covertype defaults: stopped early at {n} of {T}")
+    check(len(grows) == K * n and all(ok for ok, _, _ in grows),
+          "covertype defaults: the K trees of an iteration did not share "
+          "that iteration's bag and feature mask")
+    del grows
+    check_launches(launches, {"hist": (D + 1) * K * n, "perm": D * K * n},
+                   "covertype defaults")
+    curve = [i["valid_multi_logloss"] for i in infos]
+    check(len(curve) == n and curve[-1] < curve[0],
+          f"covertype defaults: multi_logloss {curve[0]} -> {curve[-1]}")
+
+    def crash(it, info):
+        if it == crash_at:
+            raise Crash
+
+    with tempfile.TemporaryDirectory(dir=OUT) as ckdir:
+        try:
+            dt.train(params, ds, [dv], device=dev, checkpoint_dir=ckdir,
+                     checkpoint_every=3, callback=crash)
+            fail("covertype resume: the crash callback did not stop the run")
+        except Crash:
+            pass
+        check(Checkpointer(ckdir).iterations() == [3, 6],
+              "covertype resume: checkpoints are not [3, 6]")
+        r_infos: list = []
+        t0 = time.perf_counter()
+        cuda_build.reset_counts()
+        resumed = dt.train(params, ds, [dv], device=dev,
+                           checkpoint_dir=ckdir, checkpoint_every=3,
+                           resume=True,
+                           callback=lambda it, info: r_infos.append(info))
+        r_launches = dict(cuda_build.counts)
+        resume_s = time.perf_counter() - t0
+        grown = T - crash_at
+        check_launches(r_launches, {"hist": (D + 1) * K * grown,
+                                    "perm": D * K * grown},
+                       "covertype resume")
+        same_trees(straight, resumed, "covertype resume")
+        check(r_infos == infos[crash_at:]
+              and resumed.best_iteration == straight.best_iteration,
+              "covertype resume: evals or best iteration differ from the "
+              "straight run")
+        raw = dt.predict(straight, Xv, raw_score=True, device=dev)
+        check(raw.shape == (len(Xv), K), f"covertype defaults: predict "
+              f"shape {raw.shape}")
+        check(np.array_equal(dt.predict(resumed, Xv, raw_score=True,
+                                        device=dev), raw),
+              "covertype resume: predict differs from the straight run")
+        path = os.path.join(ckdir, "covertype.dryad")
+        resumed.save(path)
+        loaded = dt.Booster.load(path)
+        check(loaded.num_outputs == K
+              and np.array_equal(dt.predict(loaded, Xv, raw_score=True,
+                                            device=dev), raw),
+              "covertype: the loaded model file predicts differently")
+    prof = profile_tree(params, ds, dev, "profile_covertype_defaults.txt")
+    rep = dict(tree_summary(straight), peak_bytes=peak, launches=launches,
+               resume_launches=r_launches, resume_seconds=resume_s,
+               effective_max_depth=D, best_iteration=straight.best_iteration,
+               multi_logloss={"iteration_1": curve[0], "last": curve[-1]},
+               splits_per_tree=float((straight.arrays["feature"] >= 0)
+                                     .sum(1).mean()), profile=prof)
+    print("covertype defaults: " + json.dumps(rep), flush=True)
+    print("covertype defaults: one bag per iteration; resume bitwise equal "
+          "to the straight run (trees, evals, predict); the saved file "
+          "predicts bitwise", flush=True)
+    report["covertype_defaults"] = rep
+    return launches, r_launches
+
+
+def phase_covertype_fixture(dt, a, dev, report) -> tuple:
+    """Phase 19: the multiclass fixture (K=3, 50k rows, 64 bins,
+    depthwise depth 8): K3 and K1 row mode against their plain versions
+    on a class tree of the legacy arm; wired and legacy trees equal."""
+    import numpy as np
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.engine import cuda_build, hist, hist_nat
+
+    K = 3
+    X, y = datasets.covertype_like(50_000, COV_FEATURES, K, seed=43)
+    ds = dt.Dataset(X, y, max_bins=64)
+    base = {"objective": "multiclass", "num_class": K, "num_trees": 3,
+            "num_leaves": 128, "max_bins": 64, "growth": "depthwise",
+            "max_depth": 8}
+    legacy = dict(base, deep_layout="legacy")
+    n_nat, n_rows = legacy_calls(ds.num_rows, ds.num_features, 8, 128)
+    check(n_nat > 0, "the multiclass fixture left the K3 gate")
+    calls = capture(dt, legacy, ds, dev,
+                    {"rows": (hist, "hist_rows"),
+                     "nat": (hist_nat, "build_hist_nat")})
+    check(len(calls["rows"]) == K * n_rows and len(calls["nat"]) == K * n_nat,
+          f"multiclass fixture capture iteration made {len(calls['rows'])} "
+          f"row-mode and {len(calls['nat'])} natural-order calls")
+    nc = class_calls(calls["nat"], K, K - 1)
+    rc = class_calls(calls["rows"], K, K - 1)
+    nat = check_nat(nc[-1], "multiclass fixture nat", a.reps)
+    rows = check_rows(rc[-1][0], "multiclass fixture rows", a.reps)
+    del calls, nc, rc
+    b_w = dt.train(base, ds, device=dev)
+    cuda_build.reset_counts()
+    b_l = dt.train(legacy, ds, device=dev)
+    launches = dict(cuda_build.counts)
+    check_launches(launches, {"nat": n_nat * K * 3,
+                              "hist_rows": n_rows * K * 3},
+                   "multiclass fixture, legacy")
+    for k in ("feature", "threshold", "left", "right", "default_left"):
+        check(np.array_equal(b_w.tree_arrays()[k], b_l.tree_arrays()[k]),
+              f"multiclass fixture, wired vs legacy: {k!r} differs")
+    dv = float(np.abs(b_w.arrays["value"] - b_l.arrays["value"]).max())
+    check(dv <= 1e-5, f"multiclass fixture, wired vs legacy: values differ "
+          f"by {dv}")
+    rep = {"wired_vs_legacy_max_value_diff": dv, "launches": launches,
+           "nat_level": brief(nat), "rows_level": brief(rows)}
+    print("multiclass fixture: " + json.dumps(rep), flush=True)
+    report["covertype_fixture"] = rep
+    return launches, nat, rows
+
+
 # the histogram kernels' launch shape and both bounds
 _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
@@ -1341,6 +1749,7 @@ def main() -> int:
     ap.add_argument("--eps-trees", type=int, default=20)
     ap.add_argument("--bag-trees", type=int, default=20)
     ap.add_argument("--bag-legacy-trees", type=int, default=5)
+    ap.add_argument("--cov-default-trees", type=int, default=10)
     a = ap.parse_args()
 
     import torch
@@ -1355,6 +1764,8 @@ def main() -> int:
     check(min(a.trees, a.eps_trees, a.bag_trees, a.bag_legacy_trees) >= 2,
           "--trees, --eps-trees, --bag-trees and --bag-legacy-trees must "
           "be >= 2 (metrics must move)")
+    check(a.cov_default_trees >= 7, "--cov-default-trees must be >= 7 "
+          "(the resume drill crashes at iteration 6)")
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = smi_line()
@@ -1420,12 +1831,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     e_launches, e_root, e_level = phase_epsilon(dt, a, dev, report)
+    # ---- 17-19. Covertype-shaped multiclass -------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cds, cXv, cyv, cdv, report["covertype_data_seconds"] = covertype_data(dt)
+    c_launches, c_root, c_level, c_perm = phase_covertype(
+        dt, a, cds, cXv, cyv, cdv, dev, report)
+    cd_launches, cr_launches = phase_covertype_defaults(
+        dt, a, cds, cXv, cdv, dev, report)
+    del cds, cXv, cyv, cdv
+    cf_launches, cf_nat, cf_rows = phase_covertype_fixture(dt, a, dev,
+                                                           report)
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
                "bagged_wired": b_launches, "resume": r_launches,
                "bagged_leafwise_default": bl_launches,
-               "epsilon": e_launches}
+               "epsilon": e_launches, "covertype_depthwise": c_launches,
+               "covertype_defaults": cd_launches,
+               "covertype_resume": cr_launches,
+               "covertype_fixture_legacy": cf_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())
@@ -1441,24 +1866,30 @@ def main() -> int:
                      paths("hist"), w_level,
                      {"mode": "layout", "root": brief(root),
                       "leafwise_level": brief(lw_level),
-                      "bagged_root": brief(b_root)}),
+                      "bagged_root": brief(b_root),
+                      "covertype_root": brief(c_root),
+                      "covertype_level": brief(c_level)}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,
                      {"mode": "rows", "leafwise_level": brief(ld_rows),
                       "bagged_leafwise_level": brief(bl_rows),
                       "epsilon_root": brief(e_root),
-                      "epsilon_level": brief(e_level)}),
+                      "epsilon_level": brief(e_level),
+                      "covertype_fixture_level": brief(cf_rows)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
                      paths("perm"), perm,
                      {"leafwise_level": brief(lw_perm),
-                      "bagged_level0": brief(b_perm)}),
+                      "bagged_level0": brief(b_perm),
+                      "covertype_level": brief(c_perm)}),
         kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
                      "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
                      paths("nat"), nat, {"leafwise_level": brief(ld_nat),
                                          "bagged_leafwise_level":
-                                             brief(bl_nat)}),
+                                             brief(bl_nat),
+                                         "covertype_fixture_level":
+                                             brief(cf_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -9,11 +9,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
 
-The port trains binary and regression objectives with the reference's
-growers: leaf-wise (the default; the batched expansion plus selection for
-a finite depth cap, which ``max_depth=-1`` maps to as the reference does,
-else the sequential grower) and depthwise, each on the wired leaf-ordered
-layout or the legacy plan arm; with sample weights, bagging and column
+The port trains binary, multiclass (softmax, K trees per iteration) and
+regression objectives with the reference's growers: leaf-wise (the
+default; the batched expansion plus selection for a finite depth cap,
+which ``max_depth=-1`` maps to as the reference does, else the sequential
+grower) and depthwise, each on the wired leaf-ordered layout or the
+legacy plan arm; with sample weights, bagging and column
 sampling, valid sets scored on the device, early stopping, callbacks,
 checkpoint/resume and warm starts; it saves and loads model files in the
 reference's format, and it predicts.  It imports nothing of ``jax`` or of
@@ -137,14 +138,15 @@ def _check_append_compatible(p: Params, train_set: Dataset,
 def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
             num_iteration: Optional[int] = None, device=None) -> np.ndarray:
     """Predict raw features through the booster's frozen mapper; returns
-    the objective's transform of the scores (probabilities for binary),
-    or raw scores with ``raw_score=True``, shape (N,)."""
+    the objective's transform of the scores (probabilities for binary and
+    multiclass), or raw scores with ``raw_score=True``: shape (N,) for one
+    output, (N, K) for a K-class model."""
     from dryad_tpu_torch.engine.predict import predict_binned
     from dryad_tpu_torch.objectives import get_objective
 
     dev = resolve_device(device)
     Xb = booster.mapper.transform(np.asarray(X, np.float32))
     raw = predict_binned(booster, Xb, device=dev, num_iteration=num_iteration)
-    if raw_score:
-        return raw[:, 0]
-    return get_objective(booster.params).transform_np(raw)[:, 0]
+    out = raw if raw_score else get_objective(booster.params).transform_np(
+        raw)
+    return out if booster.num_outputs > 1 else out[:, 0]

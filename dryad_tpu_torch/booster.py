@@ -1,7 +1,9 @@
 """Trained model of the port.
 
 Holds the same tree arrays as ``dryad_tpu.Booster.tree_arrays()``, shaped
-(num_trees, max_nodes), plus ``init_score``, ``max_depth_seen``, the
+(num_iterations * K, max_nodes) for K outputs (the tree in slot
+``it * K + k`` adds to score column k), plus ``init_score`` (K,),
+``max_depth_seen``, the
 frozen bin mapper, ``best_iteration`` and the loop state a resumed run
 continues from (``train_state``).  A model file is the reference's npz
 format, so a file written by either package loads in the other.
@@ -56,7 +58,7 @@ class Booster:
 
     @property
     def num_outputs(self) -> int:
-        return 1
+        return self.params.num_outputs
 
     @property
     def num_iterations(self) -> int:

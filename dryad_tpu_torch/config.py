@@ -1,8 +1,8 @@
 """Training parameters of the port: the subset of ``dryad_tpu.config.Params``
-that it runs (binary and regression objectives; leaf-wise and depthwise
-growth, on the wired leaf-ordered layout or the legacy plan arm; bagging,
-column sampling, evaluation and early stopping), and the growth-policy
-helpers that pick a grower.
+that it runs (binary, multiclass softmax and regression objectives;
+leaf-wise and depthwise growth, on the wired leaf-ordered layout or the
+legacy plan arm; bagging, column sampling, evaluation and early
+stopping), and the growth-policy helpers that pick a grower.
 
 Defaults and LightGBM-style aliases are the reference's, so
 ``{"objective": "binary"}`` alone trains leaf-wise with 31 leaves and
@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-OBJECTIVES = ("binary", "regression")
+OBJECTIVES = ("binary", "multiclass", "regression")
 GROWTH_POLICIES = ("leafwise", "depthwise")
 
 _PARAM_ALIASES = {
@@ -52,6 +52,9 @@ _OBJECTIVE_ALIASES = {
     "binary_logloss": "binary",
     "logistic": "binary",
     "binary:logistic": "binary",
+    "softmax": "multiclass",
+    "multi:softmax": "multiclass",
+    "multiclassova": "multiclass",
     "l2": "regression",
     "mse": "regression",
     "reg:squarederror": "regression",
@@ -69,7 +72,6 @@ _GROWTH_ALIASES = {
 # values.  Given at these values they change nothing and are accepted; any
 # other value raises.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
-    "num_class": 1,
     "boosting": "gbdt",
     "goss_top_rate": 0.2,
     "goss_other_rate": 0.1,
@@ -99,6 +101,8 @@ class Params:
     """Frozen hyper-parameters for one training run of the port."""
 
     objective: str = "binary"
+    # multiclass: K softmax outputs, K trees per iteration
+    num_class: int = 1
     num_trees: int = 100
     num_leaves: int = 31
     max_depth: int = -1
@@ -143,7 +147,8 @@ class Params:
 
     @property
     def num_outputs(self) -> int:
-        return 1
+        """Score columns, and trees per iteration."""
+        return self.num_class if self.objective == "multiclass" else 1
 
     @property
     def effective_learning_rate(self) -> float:
@@ -154,6 +159,8 @@ class Params:
             raise ValueError(
                 f"objective {self.objective!r} is outside this slice of the "
                 f"port (supported: {OBJECTIVES})")
+        if self.objective == "multiclass" and self.num_class < 2:
+            raise ValueError("multiclass requires num_class >= 2")
         if self.growth not in GROWTH_POLICIES:
             raise ValueError(
                 f"growth must be one of {GROWTH_POLICIES}, got "
@@ -214,16 +221,13 @@ class Params:
     @classmethod
     def from_reference_dict(cls, d: Mapping[str, Any]) -> "Params":
         """The port's Params for a ``dryad_tpu`` model's params dict (a
-        model file's ``meta.params``): a single-output binary or
-        regression gbdt model.  Parameters outside the slice that only
-        shape training on the reference's device (its histogram backend,
-        chunking, ...) are dropped."""
+        model file's ``meta.params``): a binary, multiclass or regression
+        gbdt model.  Parameters outside the slice that only shape training
+        on the reference's device (its histogram backend, chunking, ...)
+        are dropped."""
         if d.get("objective", "binary") not in OBJECTIVES:
             raise ValueError(f"objective {d.get('objective')!r} is outside "
                              "this slice of the port")
-        if int(d.get("num_class", 1)) != 1:
-            raise ValueError("multiclass models are outside this slice "
-                             "(M8)")
         if d.get("boosting", "gbdt") not in ("gbdt", "goss"):
             # rf averages and dart rescales at predict time
             raise ValueError(f"boosting={d.get('boosting')!r} is outside "

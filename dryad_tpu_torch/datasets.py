@@ -1,6 +1,6 @@
-"""Synthetic Higgs- and Epsilon-shaped data, copies of
-``dryad_tpu.datasets.higgs_like`` and ``epsilon_like`` so that both
-packages make the same rows from the same seed."""
+"""Synthetic Higgs-, Covertype- and Epsilon-shaped data, copies of
+``dryad_tpu.datasets.higgs_like``, ``covertype_like`` and ``epsilon_like``
+so that both packages make the same rows from the same seed."""
 
 from __future__ import annotations
 
@@ -27,6 +27,24 @@ def higgs_like(n: int = 100_000, num_features: int = 28, seed: int = 7):
     score = (score - score.mean()) / (score.std() + 1e-9)
     p = 1.0 / (1.0 + np.exp(-1.5 * score))
     y = (rng.uniform(size=n) < p).astype(np.float32)
+    return X, y
+
+
+def covertype_like(n: int = 100_000, num_features: int = 54,
+                   num_class: int = 7, seed: int = 11):
+    """Multiclass task shaped like Covertype (581k x 54, 7 classes); the
+    last ``num_features - 10`` features are sparse 0/1 indicators, like
+    Covertype's soil and wilderness one-hots."""
+    rng = _rng(seed)
+    dense = rng.normal(size=(n, 10)).astype(np.float32)
+    binary = (rng.uniform(size=(n, num_features - 10)) < 0.15).astype(
+        np.float32)
+    X = np.concatenate([dense, binary], axis=1)
+    W = rng.normal(size=(num_features, num_class)).astype(np.float32)
+    logits = X @ W + 0.8 * np.square(dense[:, :1]) @ rng.normal(
+        size=(1, num_class)).astype(np.float32)
+    logits += rng.gumbel(size=(n, num_class)).astype(np.float32)
+    y = np.argmax(logits, axis=1).astype(np.float32)
     return X, y
 
 

@@ -2,8 +2,9 @@
 
 The counterpart of ``dryad_tpu/engine/predict.py``'s packed arm.
 Traversal compares integer bin ids, and the leaf values are added in fp32
-in iteration order, so the raw scores are bitwise those of the reference
-given the same model, on any device.
+in iteration order, each class tree to its own score column, so the raw
+scores are bitwise those of the reference given the same model, on any
+device.
 
 Packed node-word layout (per node, two limbs):
 
@@ -114,31 +115,31 @@ def unpack_node_words(words: np.ndarray) -> dict:
 
 
 def stage_trees(booster, num_iteration: Optional[int] = None):
-    """(words (n_iter, M, 2) int64, value (n_iter, M) f32, init (1,) f32,
-    n_iter) for the traversal.  Without ``num_iteration`` a booster with
-    a best iteration (early stopping) stops there.  Categorical splits and
-    models whose fields do not fit the packed words are later slices."""
+    """(words (n_iter * K, M, 2) int64, value (n_iter * K, M) f32, init
+    (K,) f32, n_iter) for the traversal of the first ``n_iter``
+    iterations' trees, K per iteration.  Without ``num_iteration`` a
+    booster with a best iteration (early stopping) stops there.
+    Categorical splits and models whose fields do not fit the packed words
+    are later slices."""
     if num_iteration is None:
         num_iteration = (booster.best_iteration
                          if booster.best_iteration > 0
                          else booster.num_iterations)
     n_iter = min(num_iteration, booster.num_iterations)
-    ta = booster.tree_arrays()
-    if ta["is_cat"][:n_iter].any():
+    T = n_iter * booster.num_outputs
+    ta = {k: v[:T] for k, v in booster.tree_arrays().items()}
+    if ta["is_cat"].any():
         raise NotImplementedError(
             "categorical splits are outside this slice of the port")
-    reason = packed_fallback_reason(ta["feature"][:n_iter],
-                                    ta["threshold"][:n_iter],
-                                    ta["left"][:n_iter], ta["right"][:n_iter])
+    reason = packed_fallback_reason(ta["feature"], ta["threshold"],
+                                    ta["left"], ta["right"])
     if reason is not None:
         raise NotImplementedError(
             f"packed node words do not fit ({reason}); the legacy "
             "traversal layout is a later slice of the port")
-    words = pack_node_words(ta["feature"][:n_iter], ta["threshold"][:n_iter],
-                            ta["left"][:n_iter], ta["right"][:n_iter],
-                            ta["default_left"][:n_iter],
-                            ta["is_cat"][:n_iter])
-    return (words, np.ascontiguousarray(ta["value"][:n_iter], np.float32),
+    words = pack_node_words(ta["feature"], ta["threshold"], ta["left"],
+                            ta["right"], ta["default_left"], ta["is_cat"])
+    return (words, np.ascontiguousarray(ta["value"], np.float32),
             np.asarray(booster.init_score, np.float32), n_iter)
 
 
@@ -170,19 +171,24 @@ def add_tree(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
 
 def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
                init: torch.Tensor, depth_bound: int) -> torch.Tensor:
-    """Raw scores (N, 1): init plus each tree's leaf value, added in fp32
-    in iteration order (the reference's summation order, and the
-    boosting loop's, so a resumed run rebuilds its scores bitwise)."""
-    score = init.to(torch.float32).expand(Xb.shape[0]).clone()
+    """Raw scores (N, K) for K = ``init.numel()``: init plus each tree's
+    leaf value, tree t adding to column t % K, in fp32 in tree order (the
+    reference's summation order per column, and the boosting loop's, so a
+    resumed run rebuilds its scores bitwise)."""
+    K = init.numel()
+    score = init.to(torch.float32).reshape(1, K).expand(
+        Xb.shape[0], K).clone()
     for t in range(words.shape[0]):
-        score = add_tree(words[t], value[t], Xb, score, depth_bound)
-    return score[:, None]
+        k = t % K
+        score[:, k] = add_tree(words[t], value[t], Xb, score[:, k],
+                               depth_bound)
+    return score
 
 
 def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
                    num_iteration: Optional[int] = None) -> np.ndarray:
-    """Raw scores (N, 1) float32 of pre-binned rows, computed on
-    ``device``."""
+    """Raw scores (N, K) float32 of pre-binned rows (K = the booster's
+    outputs), computed on ``device``."""
     from dryad_tpu_torch.engine.train import binned_to_device
 
     words, value, init, _ = stage_trees(booster, num_iteration)

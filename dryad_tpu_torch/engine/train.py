@@ -1,11 +1,17 @@
-"""Boosting loop for one output, the counterpart of the per-iteration arm
-of ``dryad_tpu/engine/train.py::train_device``.
+"""Boosting loop, the counterpart of the per-iteration arm of
+``dryad_tpu/engine/train.py::train_device``.  Scores are (N, K) for K
+outputs (K classes of a multiclass model, else 1); an iteration grows K
+trees, stored in tree slots ``it * K + k``.
 
 Each iteration: stop if early stopping has run out of patience -> draw the
-row bag and the feature mask (Philox(seed, iteration), on the host) ->
-grad/hess with sample weights -> grow -> ``score += value[row_leaf]`` ->
-add the new tree to every valid set's scores -> evaluate on the device ->
-early-stopping books -> callback -> checkpoint when due.
+row bag and the feature mask (Philox(seed, iteration), on the host), which
+the K trees share -> one grad/hess pass, with sample weights, of the
+pre-iteration score -> for each class k: grow on column k of g and h (its
+own fixed-point shift) -> ``score[:, k] += value[row_leaf]`` -> add the
+new tree to column k of every valid set's scores -> then evaluate on the
+device -> early-stopping books -> callback -> checkpoint when due.
+Iteration counts (``best_iteration``, ``eval_period``, checkpoints,
+``num_iteration``) count iterations; the tree tables count trees.
 
 Evals stay on the device when nothing needs their value mid-run (no early
 stopping, no callback): they are fetched in bulk before each due
@@ -60,6 +66,19 @@ def binned_to_device(X_binned: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(X_binned.astype(np.int32)).to(device)
 
 
+def class_grads(obj, score: torch.Tensor, y: torch.Tensor,
+                weight: Optional[torch.Tensor]) -> list:
+    """One grad/hess pass of the (N, K) score, as K (g, h) pairs of
+    contiguous (N,) columns, one per class tree.  A column of the
+    row-major (N, K) result is strided, and the growers hand raw pointers
+    to the kernels, so each gets its own copy."""
+    if score.shape[1] == 1:
+        return [obj.grad_hess(score[:, 0], y, weight)]
+    g, h = obj.grad_hess(score, y, weight)
+    return [(g[:, k].contiguous(), h[:, k].contiguous())
+            for k in range(score.shape[1])]
+
+
 def _empty_out(T: int, M: int, device) -> dict[str, torch.Tensor]:
     i64 = torch.int64
     return {
@@ -112,8 +131,18 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     # it; the booster keeps the effective params
     p = effective_depth_params(p, F, B, N)
     obj = get_objective(p)
-    T = num_trees if num_trees is not None else p.num_trees
+    K = p.num_outputs
+    n_iters = num_trees if num_trees is not None else p.num_trees
+    T = n_iters * K                   # tree slots
     M = p.max_nodes
+    prev = init_booster
+    if prev is not None:
+        if prev.params.max_nodes != M or prev.num_outputs != K:
+            raise ValueError("init_booster is incompatible: num_leaves/"
+                             "max_depth/num_class must match")
+        if prev.num_total_trees > T:
+            raise ValueError("new num_trees must cover the init_booster's "
+                             "iterations")
     Xb = binned_to_device(data.X_binned, device)
     y = torch.from_numpy(data.y).to(device)
     weight = (None if data.weight is None
@@ -125,7 +154,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         # fresh rows must not re-derive it from their labels
         init = np.asarray(init_booster.init_score, np.float32).reshape(-1)
     init_t = torch.from_numpy(init).to(device)
-    score = init_t.expand(N).clone()
+    score = init_t.reshape(1, K).expand(N, K).clone()
     learn_missing = data.has_missing
     # a static bound at or above every tree's depth; traversal is exact for
     # any such bound
@@ -137,22 +166,15 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     start_iter = 0
     max_depth_prev = 0
     replay = None
-    if init_booster is not None:
-        prev = init_booster
-        if prev.params.max_nodes != M or prev.num_outputs != 1:
-            raise ValueError("init_booster is incompatible: num_leaves/"
-                             "max_depth/num_class must match")
-        if prev.num_total_trees > T:
-            raise ValueError("new num_trees must cover the init_booster's "
-                             "iterations")
+    if prev is not None:
         words, value, _, n_prev = stage_trees(prev, prev.num_iterations)
         replay = (torch.from_numpy(words).to(device),
                   torch.from_numpy(value).to(device),
                   max(prev.max_depth_seen, 1))
-        score = accumulate(*replay[:2], Xb, init_t, replay[2])[:, 0]
+        score = accumulate(*replay[:2], Xb, init_t, replay[2])
         ta = prev.tree_arrays()
         for key in TREE_KEYS:
-            out[key][:n_prev] = torch.from_numpy(ta[key]).to(
+            out[key][:n_prev * K] = torch.from_numpy(ta[key]).to(
                 device=device, dtype=out[key].dtype)
         start_iter = n_prev
         max_depth_prev = prev.max_depth_seen
@@ -160,7 +182,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     # ---- valid sets: scored on the device, the first drives early
     # stopping ---------------------------------------------------------------
     valids = normalize_valids(valid)
-    evaluators = [make_evaluator(p.objective, p.metric, vds, device)
+    evaluators = [make_evaluator(p.objective, p.metric, vds, device, K)
                   for _, vds in valids]
     if valids and (F > (1 << PACKED_FEATURE_BITS)
                    or M > (1 << PACKED_CHILD_BITS)):
@@ -178,9 +200,10 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                         init_booster.train_state["eval_history"].items()}
     vXbs = [binned_to_device(v.X_binned, device) for _, v in valids]
     if replay is None:
-        vscores = [init_t.expand(v.num_rows).clone() for _, v in valids]
+        vscores = [init_t.reshape(1, K).expand(v.num_rows, K).clone()
+                   for _, v in valids]
     else:
-        vscores = [accumulate(*replay[:2], vXb, init_t, replay[2])[:, 0]
+        vscores = [accumulate(*replay[:2], vXb, init_t, replay[2])
                    for vXb in vXbs]
     best_iteration, best_value, stale = -1, None, 0
     if init_booster is not None:
@@ -213,12 +236,12 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     ones_feat = torch.ones(F, dtype=torch.bool, device=device)
     cuda = device.type == "cuda"
     tree_seconds = []
-    for it in range(start_iter, T):
+    for it in range(start_iter, n_iters):
         # a checkpoint taken at the early-stop boundary restores stale >=
         # rounds; growing past it would diverge from the stopped run
         if (valids and p.early_stopping_rounds
                 and stale >= p.early_stopping_rounds):
-            T = it
+            n_iters = it
             break
         t0 = time.perf_counter()
         row_mask, feat_mask = sample_masks(p, it, N, F)
@@ -226,25 +249,27 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                else torch.from_numpy(row_mask).to(device))
         fmask = (ones_feat if feat_mask is None
                  else torch.from_numpy(feat_mask).to(device))
-        g, h = obj.grad_hess(score, y, weight)
-        tree = grow_any(p, B, Xb, g, h, bag, fmask,
-                        learn_missing=learn_missing)
-        score = score + tree["value"][tree["row_leaf"]]
-        for key in TREE_KEYS:
-            out[key][it] = tree[key]
-        out["max_depth"][it] = tree["max_depth"]
-        if valids:
-            words = pack_words(tree["feature"], tree["threshold"],
-                               tree["left"], tree["right"],
-                               tree["default_left"])
-            vscores = [add_tree(words, tree["value"], vXb, vs, depth_bound)
-                       for vXb, vs in zip(vXbs, vscores)]
+        for k, (g, h) in enumerate(class_grads(obj, score, y, weight)):
+            t = it * K + k
+            tree = grow_any(p, B, Xb, g, h, bag, fmask,
+                            learn_missing=learn_missing)
+            score[:, k] = score[:, k] + tree["value"][tree["row_leaf"]]
+            for key in TREE_KEYS:
+                out[key][t] = tree[key]
+            out["max_depth"][t] = tree["max_depth"]
+            if valids:
+                words = pack_words(tree["feature"], tree["threshold"],
+                                   tree["left"], tree["right"],
+                                   tree["default_left"])
+                for vXb, vs in zip(vXbs, vscores):
+                    vs[:, k] = add_tree(words, tree["value"], vXb, vs[:, k],
+                                        depth_bound)
 
         info: dict = {"iteration": it}
         stop = False
         # evaluate every eval_period-th iteration and always the last, so
         # the tail is never unscored
-        if valids and ((it + 1) % p.eval_period == 0 or it + 1 == T):
+        if valids and ((it + 1) % p.eval_period == 0 or it + 1 == n_iters):
             vals_dev = [fn(vs) for vs, (_, _, fn) in zip(vscores,
                                                          evaluators)]
             if not sync_eval:
@@ -266,7 +291,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             callback(it, info)
         if checkpointer is not None and checkpointer.due(it + 1):
             flush_deferred()
-            ckpt = _materialize(p, data.mapper, out, it + 1, init,
+            ckpt = _materialize(p, data.mapper, out, (it + 1) * K, init,
                                 max_depth_prev, best_iteration, best_value,
                                 stale)
             if eval_history is not None:
@@ -277,12 +302,12 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             torch.cuda.synchronize(device)
         tree_seconds.append(time.perf_counter() - t0)
         if stop:
-            T = it + 1
+            n_iters = it + 1
             break
 
     flush_deferred()
-    booster = _materialize(p, data.mapper, out, T, init, max_depth_prev,
-                           best_iteration, best_value, stale)
+    booster = _materialize(p, data.mapper, out, n_iters * K, init,
+                           max_depth_prev, best_iteration, best_value, stale)
     if eval_history is not None:
         booster.train_state["eval_history"] = eval_history
     booster.tree_seconds = tree_seconds

@@ -43,6 +43,15 @@ def binary_logloss(y_true: np.ndarray, y_prob: np.ndarray) -> float:
     return float(-(y * np.log(p) + (1 - y) * np.log(1 - p)).mean())
 
 
+def multi_logloss(y_true: np.ndarray, y_prob: np.ndarray) -> float:
+    """Mean negative log probability of the label's class ((N, K)
+    probabilities, clipped to [eps, 1] and renormalised)."""
+    y = np.asarray(y_true).astype(np.int64)
+    p = np.clip(np.asarray(y_prob, np.float64), _EPS, 1.0)
+    p = p / p.sum(axis=1, keepdims=True)
+    return float(-np.log(p[np.arange(y.size), y]).mean())
+
+
 def accuracy(y_true: np.ndarray, y_prob: np.ndarray) -> float:
     """Fraction of rows whose argmax class is the label ((N, K) scores)."""
     y = np.asarray(y_true).astype(np.int64)

@@ -14,12 +14,12 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.metrics import HIGHER_BETTER, resolve_metric
+from dryad_tpu_torch.objectives import row_sum, softmax
 
 _EPS = 1e-15
 
 # metrics of the reference that need a later slice of the port
-_LATER_SLICE = {"multi_logloss": "M8 (multiclass)",
-                "poisson_deviance": "M9 (the remaining objectives)",
+_LATER_SLICE = {"poisson_deviance": "M9 (the remaining objectives)",
                 "ndcg": "M9 (ranking)"}
 
 
@@ -63,10 +63,23 @@ def binary_logloss_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.clamp(loss, max=float(np.float32(-np.log(_EPS)))).mean()
 
 
+def multi_logloss_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Softmax of the (N, K) raw scores (``jax.nn.softmax``'s op order, as
+    ``objectives.Multiclass``), clipped to [eps, 1] and renormalised; the
+    mean negative log probability of the label's class."""
+    p = torch.clamp(softmax(s), _EPS, 1.0)
+    p = p / row_sum(p)
+    py = p.gather(1, y.to(torch.int64)[:, None])[:, 0]
+    return -torch.log(py).mean()
+
+
 def error_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Misclassification fraction of binary raw scores (class 1 iff the
-    score is above 0)."""
-    pred = (s > 0).to(torch.int32)
+    """Misclassification fraction: of binary raw scores (class 1 iff the
+    score is above 0), or of (N, K) scores by their argmax."""
+    if s.ndim == 1:
+        pred = (s > 0).to(torch.int32)
+    else:
+        pred = torch.argmax(s, dim=1).to(torch.int32)
     return 1.0 - (pred == y.to(torch.int32)).to(torch.float32).mean()
 
 
@@ -85,33 +98,51 @@ def mae_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 _DEVICE_FN = {"auc": auc_device, "binary_logloss": binary_logloss_device,
-              "error": error_device, "rmse": rmse_device,
-              "mse": mse_device, "mae": mae_device}
+              "multi_logloss": multi_logloss_device, "error": error_device,
+              "rmse": rmse_device, "mse": mse_device, "mae": mae_device}
 
 
-def _check_metric(name: str) -> None:
+# metrics of (N, K) scores; the others take one score per row
+_MULTI_OUTPUT = ("multi_logloss", "error", "accuracy")
+
+
+def _check_metric(name: str, num_outputs: int) -> None:
+    """Raise ``ValueError`` for a metric the port cannot compute on
+    ``num_outputs`` score columns."""
     if name in _LATER_SLICE:
         raise ValueError(f"metric {name!r} needs a later slice of the port: "
                          f"{_LATER_SLICE[name]}")
     if name not in HIGHER_BETTER:
         raise ValueError(f"unknown metric {name!r}")
+    if num_outputs > 1 and name not in _MULTI_OUTPUT:
+        raise ValueError(f"metric {name!r} takes one score per row, not "
+                         f"{num_outputs} columns")
+    if num_outputs == 1 and name == "multi_logloss":
+        raise ValueError("metric 'multi_logloss' takes (N, K) multiclass "
+                         "scores")
 
 
 def eval_value(name: str, y: torch.Tensor,
                raw_score: torch.Tensor) -> torch.Tensor:
-    """The metric ``name`` of single-output raw scores ((N,) or (N, 1))."""
-    _check_metric(name)
-    s = raw_score[:, 0] if raw_score.ndim == 2 else raw_score
+    """The metric ``name`` of raw scores: (N,) or (N, 1) for one output,
+    (N, K) for multiclass.  A metric that has no meaning for the scores'
+    shape raises ``ValueError``."""
+    s = raw_score
+    if s.ndim == 2 and s.shape[1] == 1:
+        s = s[:, 0]
+    _check_metric(name, s.shape[1] if s.ndim == 2 else 1)
     if name == "accuracy":
         return 1.0 - error_device(y, s)
     return _DEVICE_FN[name](y, s)
 
 
-def make_evaluator(objective: str, metric: str, valid_ds, device):
+def make_evaluator(objective: str, metric: str, valid_ds, device,
+                   num_outputs: int = 1):
     """(name, higher_better, fn): ``fn(vscore) -> 0-d fp32 tensor`` on
-    ``device``.  The valid set's labels upload once."""
+    ``device`` for scores of ``num_outputs`` columns.  The valid set's
+    labels upload once."""
     name = resolve_metric(objective, metric)
-    _check_metric(name)
+    _check_metric(name, num_outputs)
     y = torch.from_numpy(np.asarray(valid_ds.y, np.float32)).to(device)
 
     def fn(vscore: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@
   0-tree append predicts bitwise as the model; a 3-tree append equals the
   reference's append of the same model (integer arrays equal, values
   within 1e-4, as in the training tests).
+* Multiclass (K=3 trees per iteration): resume, an ``init_booster``
+  continuation and an ``init_model`` append equal the straight run bit for
+  bit; model files cross both ways and predict (N, K) bitwise.
 """
 
 import json
@@ -23,7 +26,7 @@ import numpy as np
 import pytest
 
 import dryad_tpu
-from dryad_tpu.datasets import higgs_like
+from dryad_tpu.datasets import covertype_like, higgs_like
 
 import dryad_tpu_torch as dt
 from dryad_tpu_torch.checkpoint import Checkpointer
@@ -274,3 +277,96 @@ def test_warm_start_append(tmp_path):
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
     np.testing.assert_allclose(got["value"], ref["value"], atol=1e-4)
     np.testing.assert_array_equal(ta.init_score, m.init_score)
+
+
+MC = dict(objective="multiclass", num_class=3, num_trees=8, num_leaves=7,
+          max_depth=3, max_bins=32, subsample=0.8, colsample=0.8, seed=3,
+          min_data_in_leaf=5, learning_rate=0.5)
+
+
+@pytest.fixture(scope="module")
+def mc_data():
+    X, y = covertype_like(2600, 20, 3, seed=21)
+    ds = dt.Dataset(X[:2000], y[:2000], max_bins=32)
+    return X, y, ds, ds.bind(X[2000:], y[2000:])
+
+
+@pytest.mark.parametrize("growth", ["leafwise", "depthwise"])
+def test_multiclass_kill_and_resume_bit_identical(tmp_path, mc_data,
+                                                  growth):
+    X, y, ds, dv = mc_data
+    params = dict(MC, growth=growth, early_stopping_rounds=20)
+    infos_full = []
+    full = dt.train(params, ds, [dv], device="cpu",
+                    callback=lambda it, info: infos_full.append(info))
+    assert full.num_total_trees == 24 and full.num_outputs == 3
+    ckdir = str(tmp_path / growth)
+    with pytest.raises(Crash):
+        dt.train(params, ds, [dv], device="cpu", checkpoint_dir=ckdir,
+                 checkpoint_every=2, callback=_crash_at(5))
+    latest, it = Checkpointer(ckdir).latest()
+    assert it == 4 and latest.num_total_trees == 12
+    infos_res = []
+    resumed = dt.train(params, ds, [dv], device="cpu", checkpoint_dir=ckdir,
+                       checkpoint_every=2, resume=True,
+                       callback=lambda it, info: infos_res.append(info))
+    _bitwise(full, resumed)
+    assert infos_res == infos_full[4:]
+    assert resumed.train_state == full.train_state
+    raw = dt.predict(full, X, raw_score=True, device="cpu")
+    assert raw.shape == (2600, 3)
+    np.testing.assert_array_equal(
+        raw, dt.predict(resumed, X, raw_score=True, device="cpu"))
+
+
+def test_multiclass_continuations_bit_identical(mc_data):
+    """``init_booster`` (total count) and ``init_model`` (append) from a
+    3-iteration model on the same rows equal the straight 8-iteration
+    run."""
+    X, y, ds, _ = mc_data
+    full = dt.train(MC, ds, device="cpu")
+    head = dt.train(dict(MC, num_trees=3), ds, device="cpu")
+    assert head.num_total_trees == 9
+    cont = dt.train(MC, ds, init_booster=head, device="cpu")
+    _bitwise(full, cont)
+    app = dt.train(dict(MC, num_trees=5), ds, init_model=head,
+                   device="cpu")
+    _bitwise(full, app)
+    np.testing.assert_array_equal(
+        dt.predict(app, X, raw_score=True, device="cpu"),
+        dt.predict(full, X, raw_score=True, device="cpu"))
+
+
+def test_multiclass_model_files_cross_both_ways(tmp_path, mc_data):
+    X, y, ds, dv = mc_data
+    b = dt.train(dict(MC, early_stopping_rounds=2), ds, [dv], device="cpu")
+    path = str(tmp_path / "port_mc.dryad")
+    b.save(path)
+    jb = dryad_tpu.Booster.load(path)
+    assert jb.num_outputs == 3 and jb.params.num_class == 3
+    assert jb.num_iterations == b.num_iterations
+    assert jb.best_iteration == b.best_iteration > 0
+    for n_iter in (None, 2):
+        want = jb.predict(X, raw_score=True, num_iteration=n_iter)
+        assert want.shape == (2600, 3)
+        np.testing.assert_array_equal(
+            want, dt.predict(b, X, raw_score=True, num_iteration=n_iter,
+                             device="cpu"))
+    np.testing.assert_array_equal(jb.predict(X),
+                                  dt.predict(b, X, device="cpu"))
+    b2 = dt.Booster.load(path)
+    _bitwise(b, b2)
+    assert b2.params == b.params
+
+    # and the reference's multiclass file in the port
+    jds = dryad_tpu.Dataset(X[:2000], y[:2000], max_bins=32)
+    jm = dryad_tpu.train(dict(MC, num_trees=4), jds, backend="cpu")
+    path = str(tmp_path / "ref_mc.dryad")
+    jm.save(path)
+    m = dt.Booster.load(path)
+    assert m.num_outputs == 3 and m.num_total_trees == 12
+    for n_iter in (None, 3):
+        np.testing.assert_array_equal(
+            dt.predict(m, X, raw_score=True, num_iteration=n_iter,
+                       device="cpu"),
+            jm.predict(X, raw_score=True, num_iteration=n_iter))

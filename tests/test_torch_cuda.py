@@ -12,7 +12,8 @@ rounded once); each kernel twice and K2 against the numpy oracle bitwise;
 K1's two modes and K3 bitwise equal on the same rows; a tree grown on the
 card vs on the CPU, depthwise or leaf-wise, on either arm: integer arrays
 (row_leaf included) equal and leaf values within 1e-4 (the split scan's
-fp32 prefix sums may round differently on the two devices).
+fp32 prefix sums may round differently on the two devices); multiclass
+training on the card vs the CPU as its test states.
 """
 
 import numpy as np
@@ -264,3 +265,40 @@ def test_bagged_validated_training_on_card_matches_cpu(cuda_device, growth):
     host = auc(y[50_000:], dt.predict(card, X[50_000:], raw_score=True,
                                       device=cuda_device))
     assert abs(hc[-1][1] - host) < 1e-5
+
+
+@pytest.mark.cuda
+def test_multiclass_training_on_card_matches_cpu(cuda_device):
+    """Two iterations of K=3 class trees (50k Covertype-like rows, 64
+    bins, depth 6, bagged and column-sampled, a valid set scored with
+    multi_logloss): the card's trees equal the CPU's (integer arrays; leaf
+    values within 1e-4; covers within 1e-5 relative, since the card's exp
+    may round g/h differently), the evals agree within 1e-6, and the
+    card's (N, 3) raw predict equals the CPU's predict of the same model
+    bit for bit."""
+    import dryad_tpu_torch as dt
+
+    X, y = datasets.covertype_like(60_000, 54, 3, seed=43)
+    ds = Dataset(X[:50_000], y[:50_000], max_bins=64)
+    dv = ds.bind(X[50_000:], y[50_000:])
+    params = dict(objective="multiclass", num_class=3, growth="depthwise",
+                  max_depth=6, num_leaves=40, max_bins=64, num_trees=2,
+                  subsample=0.8, colsample=0.8, seed=3)
+    cpu = dt.train(params, ds, [dv], device="cpu")
+    card = dt.train(params, ds, [dv], device=cuda_device)
+    assert card.num_total_trees == 6
+    for k in ("feature", "threshold", "left", "right", "default_left"):
+        np.testing.assert_array_equal(card.arrays[k], cpu.arrays[k],
+                                      err_msg=k)
+    np.testing.assert_allclose(card.arrays["value"], cpu.arrays["value"],
+                               atol=1e-4)
+    np.testing.assert_allclose(card.arrays["cover"], cpu.arrays["cover"],
+                               rtol=1e-5)
+    hc = card.train_state["eval_history"]["valid_multi_logloss"]
+    hp = cpu.train_state["eval_history"]["valid_multi_logloss"]
+    np.testing.assert_allclose([v for _, v in hc], [v for _, v in hp],
+                               rtol=0, atol=1e-6)
+    raw = dt.predict(card, X[50_000:], raw_score=True, device=cuda_device)
+    assert raw.shape == (10_000, 3)
+    np.testing.assert_array_equal(
+        raw, dt.predict(card, X[50_000:], raw_score=True, device="cpu"))

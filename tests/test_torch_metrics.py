@@ -133,15 +133,24 @@ def test_make_evaluator_names_defaults_and_later_slices():
                                       ("regression", "", "rmse", False),
                                       ("binary", "logloss", "binary_logloss",
                                        False),
-                                      ("regression", "l1", "mae", False)):
-        name, hb, fn = D.make_evaluator(obj, metric, ds, "cpu")
+                                      ("regression", "l1", "mae", False),
+                                      ("multiclass", "", "multi_logloss",
+                                       False),
+                                      ("multiclass", "multi_error", "error",
+                                       False)):
+        K = 3 if obj == "multiclass" else 1
+        name, hb, fn = D.make_evaluator(obj, metric, ds, "cpu", K)
         assert (name, hb) == (want, higher)
-        v = fn(torch.zeros(50, 1))
+        v = fn(torch.zeros(50, K))
         assert v.ndim == 0 and v.dtype == torch.float32
-    for metric, slice_ in (("multi_logloss", "M8"), ("ndcg", "M9"),
-                           ("poisson_deviance", "M9")):
+    for metric, slice_ in (("ndcg", "M9"), ("poisson_deviance", "M9")):
         with pytest.raises(ValueError, match=slice_):
             D.make_evaluator("binary", metric, ds, "cpu")
+    # multi_logloss needs K score columns, one-score metrics one
+    with pytest.raises(ValueError, match="multi_logloss"):
+        D.make_evaluator("binary", "multi_logloss", ds, "cpu")
+    with pytest.raises(ValueError, match="one score per row"):
+        D.make_evaluator("multiclass", "auc", ds, "cpu", 3)
     with pytest.raises(ValueError, match="unknown metric"):
         D.make_evaluator("binary", "bogus", ds, "cpu")
 
