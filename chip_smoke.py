@@ -107,7 +107,33 @@ Phases (any failed check exits non-zero):
    bins, depthwise, depth 8, 128 leaves, 3 iterations): on the last class
    tree of the legacy arm, K3 and K1 row mode against their plain
    versions; the legacy run's K3 and K1 row-mode launches; wired and
-   legacy trees equal.
+   legacy trees equal;
+20. MSLR-WEB30K LambdaMART (``mslr_like(18,919 + 6,306 queries, (5, 234)
+   documents, 136 features, seed=17)``: the train queries of one fold and
+   the next 6,306 as the valid set; the acceptance config: leaf-wise, 31
+   leaves, max_depth 10, 50 trees, 256 bins, NDCG@10 every iteration).
+   145-byte records refuse the wired layout, so the batched grower's
+   legacy arm: on a capture tree K3 (level 3, P=8) and K1 row mode (root
+   and level 9, P=512) against their plain versions; 4 K3 and 7 K1
+   row-mode launches per tree (from ``leafwise_fast.phase_plan`` and the
+   K3 gate); a second run bitwise equal; card predict bitwise equal to CPU
+   predict; the trainer's valid scores bitwise equal to predict's; NDCG@10
+   rising from iteration 1 and above the zero-score NDCG, its last value
+   within 1e-5 of the host oracle; the lambda pass on tree 25's scores
+   twice bitwise and within rtol 1e-5 / atol 1e-6 of the CPU's;
+   iterations/s, the lambda pass's and one NDCG eval's device ms, one
+   iteration profiled (K3 and K1 row mode device ms, busy share), peak
+   memory;
+21. l1, huber, fair, quantile (alpha 0.9) and poisson on phase 16's binned
+   Epsilon matrix (no second binning; poisson labels drawn from the
+   regression labels with a seeded generator), depthwise, max_depth 6, 63
+   leaves, 10 trees each: 7 K1 row-mode launches per tree; g/h on the card
+   bitwise equal to the CPU's (poisson within 2 ulps); the first tree's
+   renewed leaves (l1, huber, quantile) equal numpy's type-1 quantiles of
+   their in-bag residuals; the held-out loss (mae, rmse, pinball at 0.9,
+   poisson deviance) falls from tree 1 to 10; the device poisson deviance
+   within 1e-5 of the host's; a quantile run crashed at tree 6 resumes
+   bitwise equal to the straight run; the renewal's device ms per tree.
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -1361,7 +1387,7 @@ def phase_epsilon(dt, a, dev, report) -> tuple:
     print("epsilon profile: " + json.dumps(prof), flush=True)
     rep["profile"] = prof
     report["epsilon"] = rep
-    return launches, root, level
+    return launches, root, level, ds, Xv_b, yv
 
 
 # Covertype's acceptance config (scripts/acceptance.py:61): 7 classes,
@@ -1715,6 +1741,455 @@ def phase_covertype_fixture(dt, a, dev, report) -> tuple:
     return launches, nat, rows
 
 
+# MSLR-WEB30K's LambdaMART acceptance config (scripts/acceptance.py:84):
+# leaf-wise, 31 leaves, max_depth 10, 50 trees, 256 bins, NDCG@10 of the
+# valid set every iteration.  MSLR-WEB30K holds 31,531 queries of ~120
+# documents, 136 features, relevance 0-4; a fold trains on 3/5 of its
+# queries (18,919) and validates on 1/5 (6,306)
+MSLR = {"objective": "lambdarank", "num_trees": 50, "num_leaves": 31,
+        "max_depth": 10, "max_bins": 256}
+MSLR_TRAIN_QUERIES = 18_919
+MSLR_VALID_QUERIES = 6_306
+MSLR_DOCS = (5, 234)
+MSLR_FEATURES = 136
+
+
+def leafwise_legacy_calls(n_rows: int, n_features: int,
+                          depth: int) -> tuple[int, int]:
+    """(K3, K1 row-mode) launches of one tree of the batched leaf-wise
+    grower's legacy arm on u8 bins: K3 for the narrow levels when the
+    natural-order gate admits the matrix, K1 row mode for the root and the
+    full-width levels (``leafwise_fast.phase_plan``)."""
+    from dryad_tpu_torch.engine import hist_nat, leafwise_fast
+
+    d_switch, p_narrow, _ = leafwise_fast.phase_plan(depth)
+    nat_live = (hist_nat.nat_gate_admits(n_rows, n_features, 1)
+                and p_narrow <= hist_nat.NAT_SLOTS)
+    n_nat = d_switch if nat_live else 0
+    return n_nat, 1 + depth - n_nat
+
+
+def kernel_device_ms(prof, names: tuple) -> dict:
+    """Device ms and launches of the kernels whose names start with each
+    of ``names`` in a profile."""
+    import torch
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if e.key.startswith(n):
+                ms, k = out.get(n, (0.0, 0))
+                out[n] = (ms + dev_us(e) / 1e3, k + e.count)
+    return {n: {"device_ms": ms, "launches": k}
+            for n, (ms, k) in out.items()}
+
+
+def profile_ranking(p, ds, dev, fname: str) -> dict:
+    """One LambdaMART iteration (the lambda pass at the zero init score,
+    then one tree) under torch.profiler: device time by kernel, K3's and
+    K1 row mode's device ms, and the device's busy share of the
+    iteration's wall time (measured again without the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dryad_tpu_torch.engine.grower import grow_any
+    from dryad_tpu_torch.engine.lambdarank import (
+        PaddingPlan,
+        grad_hess_ranking,
+    )
+    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.objectives import get_objective
+
+    B, N, F = ds.mapper.total_bins, ds.num_rows, ds.num_features
+    obj = get_objective(p)
+    Xb = binned_to_device(ds.X_binned, dev)
+    y = torch.from_numpy(ds.y).to(dev)
+    plan = PaddingPlan(ds.query_offsets, dev)
+    score = torch.zeros(N, dtype=torch.float32, device=dev)
+    bag = torch.ones(N, dtype=torch.bool, device=dev)
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+
+    def iteration():
+        g, h = grad_hess_ranking(obj, score, y, None, plan)
+        grow_any(p, B, Xb, g, h, bag, fmask)
+        torch.cuda.synchronize()
+
+    iteration()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        iteration()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        iteration()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(dev_us(e) for e in kernels)
+    with open(os.path.join(OUT, fname), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=80))
+    del Xb, y, plan
+    if total_us <= 0:
+        return {"iteration_wall_ms": wall_ms, "device_ms": "not measured"}
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"iteration_wall_ms": wall_ms, "device_ms": total_us / 1e3,
+            "busy_share": total_us / 1e3 / wall_ms,
+            "by_kernel": kernel_device_ms(prof, ("nat_kernel",
+                                                 "hist_rows_kernel")),
+            "kernels": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
+
+
+def mslr_data(dt) -> tuple:
+    """``mslr_like(18,919 + 6,306 queries, (5, 234) documents, 136
+    features, seed=17)``: the first 18,919 queries train, the next 6,306
+    are the valid set, bound through the train set's mapper with their
+    groups."""
+    from dryad_tpu_torch import datasets
+
+    t0 = time.perf_counter()
+    X, y, group = datasets.mslr_like(MSLR_TRAIN_QUERIES + MSLR_VALID_QUERIES,
+                                     docs_per_query=MSLR_DOCS,
+                                     num_features=MSLR_FEATURES, seed=17)
+    t_gen = time.perf_counter() - t0
+    n = int(group[:MSLR_TRAIN_QUERIES].sum())
+    ds = dt.Dataset(X[:n], y[:n], group=group[:MSLR_TRAIN_QUERIES],
+                    max_bins=256)
+    Xv, yv = X[n:], y[n:]
+    dv = ds.bind(Xv, yv, group=group[MSLR_TRAIN_QUERIES:])
+    seconds = time.perf_counter() - t0
+    check(ds.num_features == MSLR_FEATURES and ds.mapper.total_bins == 256,
+          f"mslr shape {ds.num_features} x {ds.mapper.total_bins} bins")
+    print(f"mslr data: {MSLR_TRAIN_QUERIES} + {MSLR_VALID_QUERIES} queries, "
+          f"{n} + {len(yv)} documents x {MSLR_FEATURES}, generated in "
+          f"{t_gen:.1f} s, binned by {seconds:.1f} s", flush=True)
+    print("mslr: the one known difference from MSLR-WEB30K: the "
+          f"generator's query sizes are uniform in {list(MSLR_DOCS)}, the "
+          "real set's are skewed (up to 1,251 documents)", flush=True)
+    return ds, dv, Xv, yv, t_gen, seconds
+
+
+def phase_mslr(dt, a, dev, report) -> tuple:
+    """Phase 20: MSLR-WEB30K LambdaMART at full width, leaf-wise depth 10
+    on the legacy arm (145-byte records refuse the wired layout)."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.config import (
+        effective_depth_params,
+        leafwise_fast_supported,
+    )
+    from dryad_tpu_torch.engine import cuda_build, hist, hist_nat
+    from dryad_tpu_torch.engine import leafwise_fast
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.lambdarank import (
+        PaddingPlan,
+        grad_hess_ranking,
+    )
+    from dryad_tpu_torch.engine.predict import predict_binned
+    from dryad_tpu_torch.metrics import ndcg_at_k
+    from dryad_tpu_torch.metrics.device import make_evaluator
+    from dryad_tpu_torch.objectives import get_objective
+
+    ds, dv, Xv, yv, t_gen, t_data = mslr_data(dt)
+    F, B, N = ds.num_features, ds.mapper.total_bins, ds.num_rows
+    D, T = MSLR["max_depth"], MSLR["num_trees"]
+    p = effective_depth_params(dt.Params.from_dict(MSLR), F, B, N)
+    check(p.max_depth == D and leafwise_fast_supported(p, F, B, N)
+          and not leafwise_fast.leafwise_layout_supported(p, F, B, 1),
+          "mslr: not the batched leaf-wise grower's legacy arm at depth 10")
+    n_nat, n_rows = leafwise_legacy_calls(N, F, D)
+    check((n_nat, n_rows) == (4, 7), f"mslr: {n_nat} K3 + {n_rows} K1 "
+          "row-mode launches per tree, want 4 + 7 (the 309 MB matrix "
+          "passes the K3 gate)")
+    calls = leafwise_capture(dt, MSLR, ds, dev,
+                             {"rows": (hist, "hist_rows"),
+                              "nat": (hist_nat, "build_hist_nat")}, "mslr")
+    check(len(calls["rows"]) == n_rows and len(calls["nat"]) == n_nat,
+          f"mslr capture tree made {len(calls['rows'])} row-mode and "
+          f"{len(calls['nat'])} natural-order calls")
+    nat = check_nat(calls["nat"][-1], "mslr nat level 3", a.reps)
+    root = check_rows(calls["rows"][0][0], "mslr rows root", a.reps)
+    rows = check_rows(calls["rows"][-1][0], "mslr rows level 9", a.reps)
+    check(nat["P"] == 8 and root["P"] == 1 and rows["P"] == 512,
+          f"mslr P: K3 {nat['P']}, K1 root {root['P']}, level 9 "
+          f"{rows['P']}")
+    print("K3 mslr level 3: " + json.dumps(nat), flush=True)
+    print("K1 rows mslr root: " + json.dumps(root), flush=True)
+    print("K1 rows mslr level 9: " + json.dumps(rows), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+    # the main path: 50 trees, the valid set's NDCG@10 every iteration
+    kept, restore = spy_valid_scores(engine_train, 1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_counts()
+        booster = dt.train(MSLR, ds, [dv], device=dev)
+        launches = dict(cuda_build.counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        restore()
+    n = booster.num_iterations
+    check(n == T, f"mslr: {n} trees, want {T}")
+    check_launches(launches, {"nat": n_nat * T, "hist_rows": n_rows * T},
+                   "mslr")
+    vscore = kept[-1].cpu().numpy()
+    del kept
+    same_trees(booster, dt.train(MSLR, ds, [dv], device=dev), "mslr")
+    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+                     device=dev)
+    check(raw.shape == (len(yv),) and bool(np.isfinite(raw).all()),
+          f"mslr: predict shape {raw.shape} or finiteness")
+    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+                                         num_iteration=n, device="cpu")),
+          "mslr: card predict != CPU predict")
+    check(np.array_equal(vscore, raw),
+          "mslr: the trainer's valid scores differ from predict's")
+    curve = [v for _, v in booster.train_state["eval_history"]["valid_ndcg"]]
+    qoff_v = dv.query_offsets
+    zero = ndcg_at_k(yv, np.zeros_like(yv), qoff_v, 10)
+    host = ndcg_at_k(yv, raw, qoff_v, 10)
+    check(len(curve) == n and curve[-1] > curve[0] and curve[-1] > zero,
+          f"mslr: NDCG@10 {curve[0]} -> {curve[-1]} (zero scores {zero})")
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"mslr: last valid NDCG@10 {curve[-1]} vs host {host}")
+    print("mslr: second run bitwise equal; card predict bitwise equal to "
+          "CPU; valid scores bitwise equal to predict", flush=True)
+
+    # the lambda pass on one iteration's scores (tree 25's): card twice,
+    # bitwise, and against the same function on the CPU
+    obj = get_objective(booster.params)
+    s_mid = predict_binned(booster, ds.X_binned, device=dev,
+                           num_iteration=T // 2)[:, 0]
+    s_d = torch.from_numpy(s_mid).to(dev)
+    y_d = torch.from_numpy(ds.y).to(dev)
+    plan = PaddingPlan(ds.query_offsets, dev)
+    pair_grid = {"queries": plan.Q, "S": plan.S}
+    g1, h1 = grad_hess_ranking(obj, s_d, y_d, None, plan)
+    g2, h2 = grad_hess_ranking(obj, s_d, y_d, None, plan)
+    sync()
+    check(torch.equal(g1, g2) and torch.equal(h1, h2),
+          "mslr: two lambda passes differ")
+    t0 = time.perf_counter()
+    gc_, hc_ = grad_hess_ranking(obj, torch.from_numpy(s_mid),
+                                 torch.from_numpy(ds.y), None,
+                                 PaddingPlan(ds.query_offsets, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    lam_err = {}
+    for name, dev_v, cpu_v in (("g", g1, gc_), ("h", h1, hc_)):
+        d = dev_v.cpu().double() - cpu_v.double()
+        lam_err[name] = float(d.abs().max())
+        ok = bool((d.abs() <= 1e-6 + 1e-5 * cpu_v.double().abs()).all())
+        check(ok, f"mslr: the card's lambda pass {name} differs from the "
+              f"CPU's beyond rtol 1e-5 / atol 1e-6 (max abs {lam_err[name]})")
+    lam_ms = time_ms(lambda: grad_hess_ranking(obj, s_d, y_d, None, plan),
+                     3)
+    _, _, fn = make_evaluator("lambdarank", "ndcg", dv, dev)
+    v_d = torch.from_numpy(raw).to(dev)
+    ndcg_ms = time_ms(lambda: fn(v_d), a.reps)
+    del g1, h1, g2, h2, s_d, y_d, plan, v_d
+    torch.cuda.empty_cache()
+    prof = profile_ranking(booster.params, ds, dev, "profile_mslr.txt")
+    rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
+               launches_per_tree={"nat": n_nat, "hist_rows": n_rows},
+               ndcg10={"iteration_1": curve[0], "last": curve[-1],
+                       "host_last": host, "zero_scores": zero},
+               lambda_pass={"device_ms": lam_ms, "cpu_s": cpu_s,
+                            "max_abs_err_vs_cpu": lam_err, **pair_grid},
+               ndcg_device_ms=ndcg_ms, data_seconds=t_data, gen_seconds=t_gen,
+               rows=N, valid_rows=len(yv),
+               splits_per_tree=float((booster.arrays["feature"] >= 0)
+                                     .sum(1).mean()), profile=prof)
+    print("mslr train: " + json.dumps(rep), flush=True)
+    rep.update(nat_level=nat, rows_root=root, rows_level=rows)
+    report["mslr"] = rep
+    return launches, nat, root, rows
+
+
+ROBUST = ("l1", "huber", "fair", "quantile", "poisson")
+ROBUST_TREES = 10
+
+
+def pinball(y, s, alpha: float) -> float:
+    """Mean pinball loss at level ``alpha``, in float64 on the host."""
+    import numpy as np
+
+    d = y.astype(np.float64) - s.astype(np.float64)
+    return float(np.mean(np.maximum(alpha * d, (alpha - 1.0) * d)))
+
+
+def phase_robust(dt, a, eds, Xv_b, yv, dev, report) -> tuple:
+    """Phase 21: l1, huber, fair, quantile (alpha 0.9) and poisson on phase
+    16's binned Epsilon matrix (no second binning): depthwise, max_depth 6,
+    63 leaves, 10 trees each."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.checkpoint import Checkpointer
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.predict import predict_binned
+    from dryad_tpu_torch.metrics import mae, poisson_deviance, rmse
+    from dryad_tpu_torch.metrics.device import poisson_deviance_device
+    from dryad_tpu_torch.objectives import get_objective
+
+    class Crash(RuntimeError):
+        pass
+
+    T = ROBUST_TREES
+    base = {"growth": "depthwise", "max_depth": 6, "num_leaves": 63,
+            "max_bins": 256, "num_trees": T}
+    N, F = eds.num_rows, eds.num_features
+    # at 400k rows the matrix is past the K3 gate: K1 row mode only
+    n_nat, n_rows = legacy_calls(N, F, 6, 63)
+    per_run = {"hist_rows": n_rows * T, "nat": n_nat * T}
+    rng = np.random.Generator(np.random.Philox(21))
+    std = float(np.std(eds.y))
+    y_pois = rng.poisson(np.exp(np.clip(eds.y / std, -3, 3))).astype(
+        np.float32)
+    yv_pois = rng.poisson(np.exp(np.clip(yv / std, -3, 3))).astype(
+        np.float32)
+    pds = dt.Dataset.from_binned(eds.X_binned, eds.mapper, y_pois)
+    losses = {"l1": lambda yy, s: mae(yy, s),
+              "huber": lambda yy, s: rmse(yy, s),
+              "fair": lambda yy, s: rmse(yy, s),
+              "quantile": lambda yy, s: pinball(yy, s, 0.9),
+              "poisson": lambda yy, s: poisson_deviance(yy, s)}
+    out: dict = {}
+    total = {}
+    for objective in ROBUST:
+        params = dict(base, objective=objective,
+                      **({"alpha": 0.9} if objective == "quantile" else {}))
+        ds = pds if objective == "poisson" else eds
+        lab_v = yv_pois if objective == "poisson" else yv
+        renewals: list = []
+        real_renew = engine_train.renew_values
+
+        def spy_renew(*args):
+            res = real_renew(*args)
+            if not renewals:
+                # score_k is a view of the score the loop then updates
+                renewals.append(([x.clone() if torch.is_tensor(x) else x
+                                  for x in args], res))
+            return res
+
+        engine_train.renew_values = spy_renew
+        try:
+            booster, launches, peak = train_counted(dt, params, ds, dev)
+        finally:
+            engine_train.renew_values = real_renew
+        check(booster.num_iterations == T, f"{objective}: "
+              f"{booster.num_iterations} trees")
+        check_launches(launches, per_run, objective)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        raw1 = predict_binned(booster, Xv_b, device=dev, num_iteration=1)[:, 0]
+        raw = predict_binned(booster, Xv_b, device=dev)[:, 0]
+        l1_, lT = losses[objective](lab_v, raw1), losses[objective](lab_v, raw)
+        check(lT < l1_, f"{objective}: held-out loss {l1_} -> {lT} did not "
+              "fall")
+        rep = {"loss_tree_1": l1_, "loss_last": lT, "launches": launches,
+               "peak_bytes": peak, **tree_summary(booster)}
+
+        # g/h on the card vs the CPU, at the trained scores of the rows
+        obj = get_objective(booster.params)
+        s_tr = predict_binned(booster, ds.X_binned, device=dev)[:, 0]
+        gd, hd = obj.grad_hess(torch.from_numpy(s_tr).to(dev),
+                               torch.from_numpy(ds.y).to(dev))
+        gc_, hc_ = obj.grad_hess(torch.from_numpy(s_tr),
+                                 torch.from_numpy(ds.y))
+        gd, hd = gd.cpu().numpy(), hd.cpu().numpy()
+        gc_, hc_ = gc_.numpy(), hc_.numpy()
+        if objective == "poisson":
+            # 2 ulps of the larger of the result and its exp term
+            def ulps(e, r):
+                return np.spacing(np.maximum(np.abs(e), np.abs(r))
+                                  .astype(np.float32))
+            e_g = np.exp(s_tr.astype(np.float64))
+            e_h = np.exp(s_tr.astype(np.float64)
+                         + np.float32(booster.params.poisson_max_delta_step))
+            ok = (bool((np.abs(gd - gc_) <= 2 * ulps(e_g, gc_)).all())
+                  and bool((np.abs(hd - hc_) <= 2 * ulps(e_h, hc_)).all()))
+            dev_pd = float(poisson_deviance_device(
+                torch.from_numpy(lab_v).to(dev),
+                torch.from_numpy(raw).to(dev)))
+            check(abs(dev_pd - lT) <= 1e-5, f"poisson: device deviance "
+                  f"{dev_pd} vs host {lT}")
+            rep["poisson_deviance_device"] = dev_pd
+        else:
+            ok = np.array_equal(gd, gc_) and np.array_equal(hd, hc_)
+        check(ok, f"{objective}: g/h on the card differ from the CPU's")
+        rep["grad_hess_max_abs_err"] = float(max(np.abs(gd - gc_).max(),
+                                                 np.abs(hd - hc_).max()))
+
+        if renewals:
+            # tree 1's renewed leaves vs a numpy type-1 quantile of each
+            # leaf's in-bag residuals, times the learning rate
+            args, res = renewals[0]
+            value, feature, leaves, y_t, score_k, bag, alpha, lr, M = args
+            r = (y_t.cpu().numpy() - score_k.cpu().numpy()).astype(
+                np.float32)
+            lv = leaves.cpu().numpy()
+            inbag = bag.cpu().numpy()
+            got = res.cpu().numpy()
+            feat = feature.cpu().numpy()
+            n_leaves = 0
+            for m in range(M):
+                rs = np.sort(r[(lv == m) & inbag])
+                if feat[m] >= 0 or rs.size == 0:
+                    continue
+                kf = np.ceil(np.float32(alpha) * np.float32(rs.size))
+                kidx = min(max(int(kf) - 1, 0), rs.size - 1)
+                expect = np.float32(rs[kidx]) * np.float32(lr)
+                check(got[m] == expect, f"{objective}: renewed leaf {m} "
+                      f"{got[m]} != numpy quantile {expect}")
+                n_leaves += 1
+            rep["renewed_leaves_checked"] = n_leaves
+            rep["renewal_ms"] = time_ms(lambda: real_renew(*args), a.reps)
+        print(f"robust {objective}: " + json.dumps(rep), flush=True)
+        out[objective] = rep
+
+    # quantile crash at tree 6 of 10, resumed from its checkpoint
+    params = dict(base, objective="quantile", alpha=0.9)
+    straight = dt.train(params, eds, device=dev)
+
+    def crash(it, info):
+        if it == 6:
+            raise Crash
+
+    with tempfile.TemporaryDirectory(dir=OUT) as ckdir:
+        try:
+            dt.train(params, eds, device=dev, checkpoint_dir=ckdir,
+                     checkpoint_every=3, callback=crash)
+            fail("robust resume: the crash callback did not stop the run")
+        except Crash:
+            pass
+        check(Checkpointer(ckdir).iterations() == [3, 6],
+              "robust resume: checkpoints are not [3, 6]")
+        cuda_build.reset_counts()
+        resumed = dt.train(params, eds, device=dev, checkpoint_dir=ckdir,
+                           checkpoint_every=3, resume=True)
+        r_launches = dict(cuda_build.counts)
+    check_launches(r_launches, {"hist_rows": n_rows * (T - 6),
+                                "nat": n_nat * (T - 6)}, "robust resume")
+    same_trees(straight, resumed, "quantile resume")
+    check(np.array_equal(predict_binned(straight, Xv_b, device=dev),
+                         predict_binned(resumed, Xv_b, device=dev)),
+          "quantile resume: predict differs from the straight run")
+    out["quantile_resume"] = {"launches": r_launches}
+    print("robust: g/h bitwise equal to the CPU (poisson within 2 ulps); "
+          "renewed leaves equal numpy's quantiles; held-out losses fell; "
+          "quantile resume bitwise equal to the straight run", flush=True)
+    for k, v in r_launches.items():
+        total[k] = total.get(k, 0) + v
+    report["robust"] = out
+    return total
+
+
 # the histogram kernels' launch shape and both bounds
 _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
@@ -1767,6 +2242,15 @@ def main() -> int:
     check(a.cov_default_trees >= 7, "--cov-default-trees must be >= 7 "
           "(the resume drill crashes at iteration 6)")
     t_start = time.perf_counter()
+    # wall seconds of each group of phases, keyed by its phase numbers
+    phase_seconds: dict = {}
+    t_mark = [t_start]
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[label] = now - t_mark[0]
+        t_mark[0] = now
+
     dev = torch.device("cuda")
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -1787,6 +2271,7 @@ def main() -> int:
     report["sass_atomics"] = sass_atomics()
     print("SASS atomics: " + json.dumps(report["sass_atomics"]), flush=True)
 
+    mark("1")
     # ---- 2. Higgs data ----------------------------------------------------
     if a.rows < HEADLINE_ROWS:
         print(f"rows cut to {a.rows} from the headline {HEADLINE_ROWS}",
@@ -1803,21 +2288,27 @@ def main() -> int:
           f"{ds.mapper.total_bins} bins, {report['data_seconds']:.1f} s",
           flush=True)
 
+    mark("2")
     # ---- 3-6. the wired path ----------------------------------------------
     w_params, w_booster, w_launches, w_level = phase_wired(
         dt, a, ds, Xv, yv, dev, report)
+    mark("3-6")
     # ---- 7. wired vs legacy, tie-free fixture -----------------------------
     phase_fixture(dt, dev, report)
+    mark("7")
     # ---- 8-9. the legacy plan arm at the headline config ------------------
     l_launches, nat, rows = phase_legacy(dt, a, ds, Xv, yv, dev, w_params,
                                          w_booster, report)
+    mark("8-9")
     # ---- 10-11. leaf-wise growth at Higgs-10M, wired and default depth ---
     lw_launches, lw_level, lw_perm = phase_leafwise_wired(
         dt, a, ds, Xv, yv, dev, report)
     ld_launches, ld_nat, ld_rows = phase_leafwise_default(
         dt, a, ds, Xv, yv, dev, report)
+    mark("10-11")
     # ---- 12. the leaf-wise fixture ----------------------------------------
     phase_leafwise_fixture(dt, dev, report)
+    mark("12")
     # ---- 13-15. the training loop: bagged and validated, resume, bagged
     # legacy arm -----------------------------------------------------------
     bag_params, dv, b_launches, b_root, b_perm = phase_bagged(
@@ -1826,11 +2317,14 @@ def main() -> int:
     del dv
     bl_launches, bl_nat, bl_rows = phase_bagged_legacy(dt, a, ds, Xv, yv,
                                                        dev, report)
+    mark("13-15")
     # ---- 16. Epsilon-shaped regression, the Higgs tensors freed -----------
     del ds, Xv, yv, w_booster
     gc.collect()
     torch.cuda.empty_cache()
-    e_launches, e_root, e_level = phase_epsilon(dt, a, dev, report)
+    e_launches, e_root, e_level, eds, eXv_b, eyv = phase_epsilon(
+        dt, a, dev, report)
+    mark("16")
     # ---- 17-19. Covertype-shaped multiclass -------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -1842,6 +2336,18 @@ def main() -> int:
     del cds, cXv, cyv, cdv
     cf_launches, cf_nat, cf_rows = phase_covertype_fixture(dt, a, dev,
                                                            report)
+    mark("17-19")
+    # ---- 20. MSLR-WEB30K LambdaMART --------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_launches, m_nat, m_root, m_rows = phase_mslr(dt, a, dev, report)
+    mark("20")
+    # ---- 21. the robust family on phase 16's Epsilon matrix --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rb_launches = phase_robust(dt, a, eds, eXv_b, eyv, dev, report)
+    del eds, eXv_b, eyv
+    mark("21")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -1850,7 +2356,8 @@ def main() -> int:
                "epsilon": e_launches, "covertype_depthwise": c_launches,
                "covertype_defaults": cd_launches,
                "covertype_resume": cr_launches,
-               "covertype_fixture_legacy": cf_launches}
+               "covertype_fixture_legacy": cf_launches,
+               "mslr": m_launches, "robust_epsilon": rb_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())
@@ -1876,7 +2383,9 @@ def main() -> int:
                       "bagged_leafwise_level": brief(bl_rows),
                       "epsilon_root": brief(e_root),
                       "epsilon_level": brief(e_level),
-                      "covertype_fixture_level": brief(cf_rows)}),
+                      "covertype_fixture_level": brief(cf_rows),
+                      "mslr_root": brief(m_root),
+                      "mslr_level": brief(m_rows)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
                      paths("perm"), perm,
@@ -1889,10 +2398,13 @@ def main() -> int:
                                          "bagged_leafwise_level":
                                              brief(bl_nat),
                                          "covertype_fixture_level":
-                                             brief(cf_nat)}),
+                                             brief(cf_nat),
+                                         "mslr_level": brief(m_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
+    report["phase_seconds"] = phase_seconds
+    print("phase seconds: " + json.dumps(phase_seconds), flush=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"chip_smoke: all phases passed in {report['seconds']:.1f} s",

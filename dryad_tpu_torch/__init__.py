@@ -9,12 +9,14 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
 
-The port trains binary, multiclass (softmax, K trees per iteration) and
-regression objectives with the reference's growers: leaf-wise (the
-default; the batched expansion plus selection for a finite depth cap,
-which ``max_depth=-1`` maps to as the reference does, else the sequential
-grower) and depthwise, each on the wired leaf-ordered layout or the
-legacy plan arm; with sample weights, bagging and column
+The port trains the reference's nine objectives (binary, multiclass
+softmax with K trees per iteration, regression, l1, huber, fair, quantile
+and poisson with the L1 family's leaf renewal, and lambdarank on query
+groups, ``Dataset(X, y, group=...)``) with the reference's growers:
+leaf-wise (the default; the batched expansion plus selection for a
+finite depth cap, which ``max_depth=-1`` maps to as the reference does,
+else the sequential grower) and depthwise, each on the wired leaf-ordered
+layout or the legacy plan arm; with sample weights, bagging and column
 sampling, valid sets scored on the device, early stopping, callbacks,
 checkpoint/resume and warm starts; it saves and loads model files in the
 reference's format, and it predicts.  It imports nothing of ``jax`` or of
@@ -139,8 +141,8 @@ def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
             num_iteration: Optional[int] = None, device=None) -> np.ndarray:
     """Predict raw features through the booster's frozen mapper; returns
     the objective's transform of the scores (probabilities for binary and
-    multiclass), or raw scores with ``raw_score=True``: shape (N,) for one
-    output, (N, K) for a K-class model."""
+    multiclass, rates for poisson), or raw scores with ``raw_score=True``:
+    shape (N,) for one output, (N, K) for a K-class model."""
     from dryad_tpu_torch.engine.predict import predict_binned
     from dryad_tpu_torch.objectives import get_objective
 

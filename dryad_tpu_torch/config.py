@@ -1,8 +1,10 @@
 """Training parameters of the port: the subset of ``dryad_tpu.config.Params``
-that it runs (binary, multiclass softmax and regression objectives;
-leaf-wise and depthwise growth, on the wired leaf-ordered layout or the
-legacy plan arm; bagging, column sampling, evaluation and early
-stopping), and the growth-policy helpers that pick a grower.
+that it runs (the reference's nine objectives: binary, multiclass
+softmax, regression, the robust and count family l1, huber, fair,
+quantile and poisson, and lambdarank ranking; leaf-wise and depthwise
+growth, on the wired leaf-ordered layout or the legacy plan arm;
+bagging, column sampling, evaluation and early stopping), and the
+growth-policy helpers that pick a grower.
 
 Defaults and LightGBM-style aliases are the reference's, so
 ``{"objective": "binary"}`` alone trains leaf-wise with 31 leaves and
@@ -18,7 +20,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-OBJECTIVES = ("binary", "multiclass", "regression")
+OBJECTIVES = ("binary", "multiclass", "regression", "lambdarank",
+              "l1", "huber", "fair", "quantile", "poisson")
 GROWTH_POLICIES = ("leafwise", "depthwise")
 
 _PARAM_ALIASES = {
@@ -58,6 +61,13 @@ _OBJECTIVE_ALIASES = {
     "l2": "regression",
     "mse": "regression",
     "reg:squarederror": "regression",
+    "mae": "l1",
+    "regression_l1": "l1",
+    "reg:absoluteerror": "l1",
+    "reg:quantileerror": "quantile",
+    "count:poisson": "poisson",
+    "lambdamart": "lambdarank",
+    "rank:ndcg": "lambdarank",
 }
 
 _GROWTH_ALIASES = {
@@ -80,12 +90,6 @@ _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "max_drop": 50,
     "categorical_features": (),
     "monotone_constraints": (),
-    "alpha": 0.9,
-    "fair_c": 1.0,
-    "poisson_max_delta_step": 0.7,
-    "sigmoid": 1.0,
-    "ndcg_at": 10,
-    "lambdarank_truncation": 30,
     "hist_backend": "auto",
     "predict_layout": "auto",
     "hist_reduce": "auto",
@@ -131,6 +135,17 @@ class Params:
     eval_period: int = 1
     # binary: multiply the positive class's grad/hess (imbalanced data)
     scale_pos_weight: float = 1.0
+    # the robust and count family (LightGBM conventions): ``alpha`` is the
+    # Huber delta and the quantile level, ``fair_c`` the Fair-loss scale,
+    # ``poisson_max_delta_step`` the Poisson hessian stabiliser
+    alpha: float = 0.9
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    # LambdaMART: the pairwise sigmoid's sigma, the NDCG eval cut-off, and
+    # the lambda pass's truncation to pairs that touch the top k
+    sigmoid: float = 1.0
+    ndcg_at: int = 10
+    lambdarank_truncation: int = 30
     hist_subtraction: bool = True
     deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
 
@@ -184,6 +199,15 @@ class Params:
             raise ValueError("subsample/colsample must be in (0, 1]")
         if not (self.scale_pos_weight > 0.0):
             raise ValueError("scale_pos_weight must be > 0")
+        if self.objective == "quantile" and not (0.0 < self.alpha < 1.0):
+            raise ValueError("quantile objective needs alpha in (0, 1)")
+        if self.objective == "huber" and not (self.alpha > 0.0):
+            raise ValueError("huber objective needs alpha (delta) > 0")
+        if self.objective == "fair" and not (self.fair_c > 0.0):
+            raise ValueError("fair objective needs fair_c > 0")
+        if (self.objective == "poisson"
+                and not (self.poisson_max_delta_step >= 0.0)):
+            raise ValueError("poisson_max_delta_step must be >= 0")
         if self.eval_period < 1:
             raise ValueError("eval_period must be >= 1")
         if self.deep_layout not in ("auto", "legacy"):
@@ -221,8 +245,8 @@ class Params:
     @classmethod
     def from_reference_dict(cls, d: Mapping[str, Any]) -> "Params":
         """The port's Params for a ``dryad_tpu`` model's params dict (a
-        model file's ``meta.params``): a binary, multiclass or regression
-        gbdt model.  Parameters outside the slice that only shape training
+        model file's ``meta.params``): a gbdt model of any of the nine
+        objectives.  Parameters outside the slice that only shape training
         on the reference's device (its histogram backend, chunking, ...)
         are dropped."""
         if d.get("objective", "binary") not in OBJECTIVES:

@@ -26,10 +26,10 @@ def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
     """The port's Booster for a reference model (its ``best_iteration``
     and ``train_state`` carried too, so it resumes or predicts as the
     reference would).  Only what predict reads must be in the slice: a
-    binary, multiclass (K outputs, K trees per iteration) or regression
-    gbdt model without categorical splits; parameters that only shape the
-    reference's training are not carried.  ``Booster.load`` of a reference model file is the other way
-    across."""
+    gbdt model of any of the nine objectives (K outputs and K trees per
+    iteration for multiclass) without categorical splits; parameters that
+    only shape the reference's training are not carried.  ``Booster.load``
+    of a reference model file is the other way across."""
     params = Params.from_reference_dict(params_dict)
     if mapper_json.get("type", "plain") != "plain":
         raise ValueError("bundled (EFB) mappers are outside this slice")

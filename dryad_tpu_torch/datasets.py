@@ -1,6 +1,7 @@
-"""Synthetic Higgs-, Covertype- and Epsilon-shaped data, copies of
-``dryad_tpu.datasets.higgs_like``, ``covertype_like`` and ``epsilon_like``
-so that both packages make the same rows from the same seed."""
+"""Synthetic Higgs-, Covertype-, Epsilon- and MSLR-shaped data, copies of
+``dryad_tpu.datasets.higgs_like``, ``covertype_like``, ``epsilon_like``
+and ``mslr_like`` so that both packages make the same rows from the same
+seed."""
 
 from __future__ import annotations
 
@@ -57,3 +58,24 @@ def epsilon_like(n: int = 50_000, num_features: int = 2000, seed: int = 13):
     y = (X @ w + 0.5 * np.sin(X[:, 0]) * X[:, 1]
          + rng.normal(size=n).astype(np.float32) * 0.1)
     return X, y.astype(np.float32)
+
+
+def mslr_like(num_queries: int = 1000,
+              docs_per_query: tuple[int, int] = (5, 120),
+              num_features: int = 136, seed: int = 17):
+    """LambdaMART ranking task shaped like MSLR-WEB30K: returns (X, y,
+    group) with graded relevance labels 0-4 and query sizes drawn uniform
+    in ``docs_per_query``."""
+    rng = _rng(seed)
+    group = rng.integers(docs_per_query[0], docs_per_query[1] + 1,
+                         size=num_queries)
+    n = int(group.sum())
+    X = rng.normal(size=(n, num_features)).astype(np.float32)
+    w = rng.normal(size=num_features).astype(np.float32) * 0.3
+    # per-query bias, so relevance is only meaningful within a query
+    qbias = np.repeat(rng.normal(size=num_queries).astype(np.float32), group)
+    score = X @ w + qbias + rng.normal(size=n).astype(np.float32) * 0.7
+    # graded relevance 0..4 by global quantiles of the score
+    qs = np.quantile(score, [0.5, 0.75, 0.9, 0.97])
+    y = np.digitize(score, qs).astype(np.float32)
+    return X, y, group.astype(np.int64)

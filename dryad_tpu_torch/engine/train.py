@@ -6,17 +6,21 @@ trees, stored in tree slots ``it * K + k``.
 Each iteration: stop if early stopping has run out of patience -> draw the
 row bag and the feature mask (Philox(seed, iteration), on the host), which
 the K trees share -> one grad/hess pass, with sample weights, of the
-pre-iteration score -> for each class k: grow on column k of g and h (its
-own fixed-point shift) -> ``score[:, k] += value[row_leaf]`` -> add the
-new tree to column k of every valid set's scores -> then evaluate on the
-device -> early-stopping books -> callback -> checkpoint when due.
+pre-iteration score (for lambdarank the padded per-query lambda pass,
+``engine/lambdarank.py``, on a plan built once per run) -> for each class
+k: grow on column k of g and h (its own fixed-point shift) -> for the L1
+family, renew the leaf values to quantiles of the in-bag residuals
+against the pre-update score (``renew_values``) -> ``score[:, k] +=
+value[row_leaf]`` -> add the new tree to column k of every valid set's
+scores -> then evaluate on the device -> early-stopping books -> callback
+-> checkpoint when due.
 Iteration counts (``best_iteration``, ``eval_period``, checkpoints,
 ``num_iteration``) count iterations; the tree tables count trees.
 
 Evals stay on the device when nothing needs their value mid-run (no early
-stopping, no callback): they are fetched in bulk before each due
-checkpoint and at the end.  Otherwise each eval fetches one scalar per
-valid set, in one transfer.
+stopping, no callback, no evaluator that scores on the host): they are
+fetched in bulk before each due checkpoint and at the end.  Otherwise
+each eval fetches one scalar per valid set, in one transfer.
 
 Resume and warm start (``init_booster``) prefill the tree tables and
 rebuild the train and valid scores by replaying the trees in fp32 tree
@@ -38,6 +42,7 @@ from dryad_tpu_torch.booster import CAT_WORDS, Booster
 from dryad_tpu_torch.config import Params, effective_depth_params
 from dryad_tpu_torch.dataset import Dataset
 from dryad_tpu_torch.engine.grower import grow_any
+from dryad_tpu_torch.engine.lambdarank import PaddingPlan, grad_hess_ranking
 from dryad_tpu_torch.engine.loop_state import (
     normalize_valids,
     sample_masks,
@@ -52,7 +57,7 @@ from dryad_tpu_torch.engine.predict import (
     stage_trees,
 )
 from dryad_tpu_torch.metrics.device import make_evaluator
-from dryad_tpu_torch.objectives import get_objective
+from dryad_tpu_torch.objectives import get_objective, renew_alpha
 
 TREE_KEYS = ("feature", "threshold", "left", "right", "value", "gain",
              "default_left", "cover")
@@ -77,6 +82,42 @@ def class_grads(obj, score: torch.Tensor, y: torch.Tensor,
     g, h = obj.grad_hess(score, y, weight)
     return [(g[:, k].contiguous(), h[:, k].contiguous())
             for k in range(score.shape[1])]
+
+
+def renew_values(value: torch.Tensor, feature: torch.Tensor,
+                 leaves: torch.Tensor, y: torch.Tensor,
+                 score_k: torch.Tensor, bag: torch.Tensor, alpha: float,
+                 lr: float, M: int) -> torch.Tensor:
+    """Post-growth leaf renewal (``objectives.renew_alpha``): each leaf's
+    Newton value becomes the type-1 alpha-quantile of its in-bag residuals
+    ``y - score_k`` (the pre-update score), times the learning rate: the
+    order statistic at ``clip(ceil(f32(alpha) f32(cnt)) - 1, 0, cnt - 1)``,
+    a pure selection, on leaves with ``cnt > 0``.
+
+    The reference's stable two-key sort (leaf id, then residual; out-of-bag
+    rows take the sentinel id M and sink to the tail) is one stable sort
+    of int64 keys ``leaf << 32 | ordered bits of the residual``, the bits
+    mapped so that their unsigned order is the float order.  As in
+    ``lax.sort``, -0.0 and +0.0 compare equal (the key takes +0.0 for
+    both) and keep their row order, so the selection is the reference's
+    bit for bit, the sign of a zero included."""
+    n = y.shape[0]
+    r = y - score_k
+    lv = torch.where(bag, leaves.to(torch.int64), M)
+    rk = torch.where(r == 0, 0.0, r)
+    u = rk.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    key_s, order = torch.sort((lv << 32) | u, stable=True)
+    lv_s, r_s = key_s >> 32, r[order]
+    bounds = torch.searchsorted(
+        lv_s, torch.arange(M + 1, dtype=torch.int64, device=lv.device))
+    cnt = bounds[1:] - bounds[:-1]
+    kf = torch.ceil(float(np.float32(alpha)) * cnt.to(torch.float32))
+    kidx = torch.clamp(kf.to(torch.int64) - 1, min=torch.zeros_like(cnt),
+                       max=torch.clamp(cnt - 1, min=0))
+    sel = torch.clamp(bounds[:-1] + kidx, 0, n - 1)
+    stat = r_s[sel] * float(np.float32(lr))
+    return torch.where((feature < 0) & (cnt > 0), stat, value)
 
 
 def _empty_out(T: int, M: int, device) -> dict[str, torch.Tensor]:
@@ -155,6 +196,20 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         init = np.asarray(init_booster.init_score, np.float32).reshape(-1)
     init_t = torch.from_numpy(init).to(device)
     score = init_t.reshape(1, K).expand(N, K).clone()
+    if p.objective == "lambdarank":
+        if data.query_offsets is None:
+            raise ValueError("lambdarank requires query groups "
+                             "(Dataset(..., group=...))")
+        # the loop-invariant scatter plan of the lambda pass
+        plan = PaddingPlan(data.query_offsets, device)
+
+        def grads(score):
+            return [grad_hess_ranking(obj, score[:, 0], y, weight, plan)]
+    else:
+        def grads(score):
+            return class_grads(obj, score, y, weight)
+    # L1-family leaf renewal; the whole gate lives in renew_alpha
+    renew_a = renew_alpha(p, weighted=data.weight is not None)
     learn_missing = data.has_missing
     # a static bound at or above every tree's depth; traversal is exact for
     # any such bound
@@ -182,15 +237,17 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     # ---- valid sets: scored on the device, the first drives early
     # stopping ---------------------------------------------------------------
     valids = normalize_valids(valid)
-    evaluators = [make_evaluator(p.objective, p.metric, vds, device, K)
-                  for _, vds in valids]
+    evaluators = [make_evaluator(p.objective, p.metric, vds, device, K,
+                                 p.ndcg_at) for _, vds in valids]
     if valids and (F > (1 << PACKED_FEATURE_BITS)
                    or M > (1 << PACKED_CHILD_BITS)):
         raise NotImplementedError(
             "valid sets are scored through packed node words; more than "
             f"{1 << PACKED_FEATURE_BITS} features or {1 << PACKED_CHILD_BITS}"
             " nodes need the legacy traversal layout, a later slice")
-    sync_eval = bool(p.early_stopping_rounds) or callback is not None
+    # a host-scored eval fetches the scores anyway: nothing to defer
+    sync_eval = (bool(p.early_stopping_rounds) or callback is not None
+                 or any(fn.host_only for _, _, fn in evaluators))
     deferred: list[tuple[int, list[torch.Tensor]]] = []
     eval_history: Optional[dict[str, list]] = None
     if init_booster is not None and init_booster.train_state.get(
@@ -249,10 +306,16 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                else torch.from_numpy(row_mask).to(device))
         fmask = (ones_feat if feat_mask is None
                  else torch.from_numpy(feat_mask).to(device))
-        for k, (g, h) in enumerate(class_grads(obj, score, y, weight)):
+        for k, (g, h) in enumerate(grads(score)):
             t = it * K + k
             tree = grow_any(p, B, Xb, g, h, bag, fmask,
                             learn_missing=learn_missing)
+            if renew_a is not None:
+                # before the score update, the tree table and the valid
+                # scores, so all three carry the renewed values
+                tree["value"] = renew_values(
+                    tree["value"], tree["feature"], tree["row_leaf"], y,
+                    score[:, k], bag, renew_a, p.effective_learning_rate, M)
             score[:, k] = score[:, k] + tree["value"][tree["row_leaf"]]
             for key in TREE_KEYS:
                 out[key][t] = tree[key]

@@ -74,6 +74,46 @@ def mae(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     return float(np.mean(np.abs(d)))
 
 
+def poisson_deviance(y_true: np.ndarray, raw_score: np.ndarray) -> float:
+    """Mean Poisson deviance of raw (log-rate) scores, mu = exp(raw); the
+    y log(y / mu) term drops for y == 0 (its limit).  The 1e-30 clamp is
+    ``metrics.device.poisson_deviance_device``'s, so both evaluate one
+    formula."""
+    y = np.asarray(y_true, np.float64)
+    mu = np.exp(np.asarray(raw_score, np.float64))
+    ylog = np.where(y > 0, y * np.log(np.maximum(y, 1e-30) / mu), 0.0)
+    return float(np.mean(2.0 * (ylog - (y - mu))))
+
+
+def dcg_at_k(rels: np.ndarray, k: int) -> float:
+    """DCG of the first k relevances in the given order: gain 2^rel - 1,
+    discount 1 / log2(rank + 2)."""
+    rels = np.asarray(rels, np.float64)[:k]
+    if rels.size == 0:
+        return 0.0
+    gains = np.power(2.0, rels) - 1.0
+    discounts = 1.0 / np.log2(np.arange(2, rels.size + 2))
+    return float((gains * discounts).sum())
+
+
+def ndcg_at_k(y_true: np.ndarray, y_score: np.ndarray,
+              query_offsets: np.ndarray, k: int = 10) -> float:
+    """Mean NDCG@k over queries, each ranked by a stable mergesort of
+    -score; a query whose ideal DCG is 0 counts as 1.0 (the LightGBM
+    convention)."""
+    y_true = np.asarray(y_true, np.float64)
+    y_score = np.asarray(y_score, np.float64)
+    total, nq = 0.0, 0
+    for q in range(query_offsets.size - 1):
+        a, b = int(query_offsets[q]), int(query_offsets[q + 1])
+        rels = y_true[a:b]
+        order = np.argsort(-y_score[a:b], kind="mergesort")
+        idcg = dcg_at_k(np.sort(rels)[::-1], k)
+        total += 1.0 if idcg == 0.0 else dcg_at_k(rels[order], k) / idcg
+        nq += 1
+    return float(total / max(nq, 1))
+
+
 _METRIC_ALIASES = {"l2": "mse", "l2_root": "rmse", "l1": "mae",
                    "logloss": "binary_logloss", "binary_error": "error",
                    "multi_error": "error"}

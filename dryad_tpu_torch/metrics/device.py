@@ -3,7 +3,9 @@
 
 An eval returns a 0-d fp32 tensor on the valid set's device, so the
 boosting loop fetches one scalar per eval, or nothing until a checkpoint
-or the end of training when nothing needs the value mid-run.  The numpy
+or the end of training when nothing needs the value mid-run.  The one
+exception is NDCG on skewed query sizes, whose padded (Q, S) view would
+dwarf the data: it is scored on the host (``make_evaluator``).  The numpy
 functions in ``dryad_tpu_torch.metrics`` are the oracles: device sums are
 fp32 reductions (~1e-6 relative at 1M rows).
 """
@@ -13,14 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dryad_tpu_torch.metrics import HIGHER_BETTER, resolve_metric
+from dryad_tpu_torch.metrics import HIGHER_BETTER, ndcg_at_k, resolve_metric
 from dryad_tpu_torch.objectives import row_sum, softmax
 
 _EPS = 1e-15
-
-# metrics of the reference that need a later slice of the port
-_LATER_SLICE = {"poisson_deviance": "M9 (the remaining objectives)",
-                "ndcg": "M9 (ranking)"}
 
 
 def auc_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -97,9 +95,55 @@ def mae_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return (y - s).abs().mean()
 
 
+def poisson_deviance_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Mean Poisson deviance of raw log-rate scores, a mirror of
+    ``metrics.poisson_deviance`` with its 1e-30 clamp."""
+    mu = torch.exp(s)
+    ylog = torch.where(y > 0, y * torch.log(torch.clamp(y, min=1e-30) / mu),
+                       0.0)
+    return (2.0 * (ylog - (y - mu))).mean()
+
+
+def _pad_queries(query_offsets: np.ndarray) -> tuple[np.ndarray, int]:
+    """(Q, S) row ids of each query's documents, S the largest query's
+    size (no rounding); a padding slot holds N, one past the last row.
+    Returns (ids int64, N)."""
+    qoff = np.asarray(query_offsets, np.int64)
+    sizes = np.diff(qoff)
+    Q, S, N = sizes.size, int(sizes.max(initial=1)), int(qoff[-1])
+    col = np.arange(S, dtype=np.int64)[None, :]
+    ids = np.where(col < sizes[:, None], qoff[:-1, None] + col, N)
+    return ids, N
+
+
+def ndcg_device(y: torch.Tensor, s: torch.Tensor, qids: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Mean NDCG@k over the padded (Q, S) query views of ``qids``
+    (``_pad_queries``), a mirror of ``metrics.ndcg_at_k`` with its
+    conventions: a stable sort by -score, and a query whose ideal DCG is 0
+    counts as 1.0.  Padding slots take relevance 0 and score -inf, so they
+    rank last."""
+    Q, S = qids.shape
+    n = y.shape[0]
+    idx = torch.clamp(qids, max=n - 1)
+    pad = qids >= n
+    rel = torch.where(pad, 0.0, y[idx])
+    sc = torch.where(pad, float("-inf"), s[idx])
+    pos = torch.arange(S, dtype=torch.float32, device=s.device)[None, :]
+    order = torch.argsort(-sc, dim=1, stable=True)
+    rel_by_score = torch.gather(rel, 1, order)
+    rel_ideal = torch.sort(rel, dim=1, descending=True).values
+    topk = (pos < k) & (pos < (~pad).sum(dim=1)[:, None])
+    disc = torch.where(topk, 1.0 / torch.log2(pos + 2.0), 0.0)
+    dcg = ((torch.exp2(rel_by_score) - 1.0) * disc).sum(dim=1)
+    idcg = ((torch.exp2(rel_ideal) - 1.0) * disc).sum(dim=1)
+    return torch.where(idcg == 0.0, 1.0, dcg / idcg).mean()
+
+
 _DEVICE_FN = {"auc": auc_device, "binary_logloss": binary_logloss_device,
               "multi_logloss": multi_logloss_device, "error": error_device,
-              "rmse": rmse_device, "mse": mse_device, "mae": mae_device}
+              "rmse": rmse_device, "mse": mse_device, "mae": mae_device,
+              "poisson_deviance": poisson_deviance_device}
 
 
 # metrics of (N, K) scores; the others take one score per row
@@ -109,9 +153,6 @@ _MULTI_OUTPUT = ("multi_logloss", "error", "accuracy")
 def _check_metric(name: str, num_outputs: int) -> None:
     """Raise ``ValueError`` for a metric the port cannot compute on
     ``num_outputs`` score columns."""
-    if name in _LATER_SLICE:
-        raise ValueError(f"metric {name!r} needs a later slice of the port: "
-                         f"{_LATER_SLICE[name]}")
     if name not in HIGHER_BETTER:
         raise ValueError(f"unknown metric {name!r}")
     if num_outputs > 1 and name not in _MULTI_OUTPUT:
@@ -122,30 +163,61 @@ def _check_metric(name: str, num_outputs: int) -> None:
                          "scores")
 
 
-def eval_value(name: str, y: torch.Tensor,
-               raw_score: torch.Tensor) -> torch.Tensor:
+def eval_value(name: str, y: torch.Tensor, raw_score: torch.Tensor,
+               qids: torch.Tensor | None = None,
+               ndcg_at: int = 10) -> torch.Tensor:
     """The metric ``name`` of raw scores: (N,) or (N, 1) for one output,
-    (N, K) for multiclass.  A metric that has no meaning for the scores'
-    shape raises ``ValueError``."""
+    (N, K) for multiclass; ``ndcg`` also takes the (Q, S) query plan
+    ``qids`` of ``_pad_queries`` and its cut-off.  A metric that has no
+    meaning for the scores' shape raises ``ValueError``."""
     s = raw_score
     if s.ndim == 2 and s.shape[1] == 1:
         s = s[:, 0]
     _check_metric(name, s.shape[1] if s.ndim == 2 else 1)
     if name == "accuracy":
         return 1.0 - error_device(y, s)
+    if name == "ndcg":
+        return ndcg_device(y, s, qids, ndcg_at)
     return _DEVICE_FN[name](y, s)
 
 
 def make_evaluator(objective: str, metric: str, valid_ds, device,
-                   num_outputs: int = 1):
+                   num_outputs: int = 1, ndcg_at: int = 10):
     """(name, higher_better, fn): ``fn(vscore) -> 0-d fp32 tensor`` on
     ``device`` for scores of ``num_outputs`` columns.  The valid set's
-    labels upload once."""
+    labels, and for ``ndcg`` its (Q, S) query plan, upload once.
+
+    ``fn.host_only`` is True for NDCG whose padded view is much larger
+    than the data (``Q * S > max(8 N, 2^24)``, e.g. 100k tiny queries and
+    one huge one): it fetches the scores and evaluates ``ndcg_at_k`` on
+    the host, one fetch per eval, so the loop evaluates it synchronously."""
     name = resolve_metric(objective, metric)
     _check_metric(name, num_outputs)
+    qids = None
+    if name == "ndcg":
+        qoff = valid_ds.query_offsets
+        if qoff is None:
+            raise ValueError("ndcg requires query groups on the validation "
+                             "set (Dataset(..., group=...))")
+        sizes = np.diff(qoff)
+        Q, S, N = sizes.size, int(sizes.max(initial=1)), int(qoff[-1])
+        if Q * S > max(8 * N, 1 << 24):
+            y_np = np.asarray(valid_ds.y, np.float32)
+
+            def fn_host(vscore: torch.Tensor) -> torch.Tensor:
+                s = vscore.cpu().numpy()
+                if s.ndim == 2:
+                    s = s[:, 0]
+                return torch.tensor(ndcg_at_k(y_np, s, qoff, ndcg_at),
+                                    dtype=torch.float32, device=device)
+
+            fn_host.host_only = True
+            return name, HIGHER_BETTER[name], fn_host
+        qids = torch.from_numpy(_pad_queries(qoff)[0]).to(device)
     y = torch.from_numpy(np.asarray(valid_ds.y, np.float32)).to(device)
 
     def fn(vscore: torch.Tensor) -> torch.Tensor:
-        return eval_value(name, y, vscore)
+        return eval_value(name, y, vscore, qids, ndcg_at)
 
+    fn.host_only = False
     return name, HIGHER_BETTER[name], fn

@@ -17,6 +17,9 @@
 * Multiclass (K=3 trees per iteration): resume, an ``init_booster``
   continuation and an ``init_model`` append equal the straight run bit for
   bit; model files cross both ways and predict (N, K) bitwise.
+* Lambdarank and quantile models (with their objectives' params) cross
+  both ways, through model files and ``booster_from_reference``, and
+  predict bitwise.
 """
 
 import json
@@ -26,7 +29,7 @@ import numpy as np
 import pytest
 
 import dryad_tpu
-from dryad_tpu.datasets import covertype_like, higgs_like
+from dryad_tpu.datasets import covertype_like, higgs_like, mslr_like
 
 import dryad_tpu_torch as dt
 from dryad_tpu_torch.checkpoint import Checkpointer
@@ -370,3 +373,39 @@ def test_multiclass_model_files_cross_both_ways(tmp_path, mc_data):
             dt.predict(m, X, raw_score=True, num_iteration=n_iter,
                        device="cpu"),
             jm.predict(X, raw_score=True, num_iteration=n_iter))
+
+
+@pytest.mark.parametrize("objective", ["lambdarank", "quantile"])
+def test_ranking_and_quantile_model_files_cross_both_ways(tmp_path,
+                                                          objective):
+    X, y, group = mslr_like(30, (5, 20), 6, seed=4)
+    extra = ({"sigmoid": 2.0, "lambdarank_truncation": 10, "ndcg_at": 5}
+             if objective == "lambdarank" else {"alpha": 0.3})
+    params = dict(objective=objective, num_trees=4, num_leaves=6,
+                  max_bins=16, **extra)
+    kw = {"group": group} if objective == "lambdarank" else {}
+    b = dt.train(params, dt.Dataset(X, y, max_bins=16, **kw), device="cpu")
+    jb = dryad_tpu.train(params, dryad_tpu.Dataset(X, y, max_bins=16, **kw),
+                         backend="cpu")
+    for model, saver in ((b, "port"), (jb, "ref")):
+        path = str(tmp_path / f"{saver}.dryad")
+        model.save(path)
+        in_port, in_ref = dt.Booster.load(path), dryad_tpu.Booster.load(path)
+        for k, v in extra.items():
+            assert getattr(in_port.params, k) == getattr(in_ref.params, k) \
+                == v
+        assert in_port.params.objective == in_ref.params.objective \
+            == objective
+        want = in_ref.predict(X, raw_score=True)
+        np.testing.assert_array_equal(
+            dt.predict(in_port, X, raw_score=True, device="cpu"), want)
+        np.testing.assert_array_equal(dt.predict(in_port, X, device="cpu"),
+                                      in_ref.predict(X))
+    c = booster_from_reference(
+        jb.tree_arrays(), jb.mapper.to_json_dict(), jb.init_score,
+        jb.params.to_dict(), jb.max_depth_seen)
+    assert c.params.alpha == jb.params.alpha
+    assert c.params.sigmoid == jb.params.sigmoid
+    np.testing.assert_array_equal(
+        dt.predict(c, X, raw_score=True, device="cpu"),
+        jb.predict(X, raw_score=True))

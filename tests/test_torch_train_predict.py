@@ -163,7 +163,7 @@ def test_params_aliases_and_slice_limits():
                       ({"growth": "depthwise", "max_depth": 4,
                         "boosting": "dart"}, "boosting"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "objective": "lambdarank"}, "objective"),
+                        "objective": "tweedie"}, "objective"),
                       ({"growth": "depthwise", "max_depth": 4,
                         "colsampel": 0.5}, "colsampel")):
         with pytest.raises(ValueError, match=name):
