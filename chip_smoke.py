@@ -133,7 +133,35 @@ Phases (any failed check exits non-zero):
    their in-bag residuals; the held-out loss (mae, rmse, pinball at 0.9,
    poisson deviance) falls from tree 1 to 10; the device poisson deviance
    within 1e-5 of the host's; a quantile run crashed at tree 6 resumes
-   bitwise equal to the straight run; the renewal's device ms per tree.
+   bitwise equal to the straight run; the renewal's device ms per tree;
+22. Criteo, CSR ingest and categorical splits (``criteo_like(10M + 1M,
+   seed=19)`` drawn once: 13 dense and 26 categorical features of
+   cardinality 1000; the first 10M (``CRITEO_ROWS``, cut from the public
+   set's 45.8M for the time limit) train through ``Dataset(None, y,
+   csr=..., categorical_features=...)``, the last 1M, sliced from the same
+   CSR triple, bind through the train mapper as the valid set; the
+   acceptance config: depthwise, max_depth 6, 63 leaves, 30 trees, 256
+   bins, AUC every iteration): the mapper holds 26 categorical features
+   and the config takes the wired arm; the first 200k rows densified bin
+   bitwise as ``bin_csr`` binned them; on a capture tree K1 (root, last
+   level) and K2 (level 3) against their plain versions, and the last
+   level's categorical scan and route timed with and without their
+   categorical arms; 7 K1 and 6 K2 launches per tree; at least one
+   categorical split; a second run bitwise equal; card predict of the 1M
+   valid rows bitwise equal to CPU predict; the trainer's valid scores
+   bitwise equal to predict's; AUC rising from tree 1 to 30, above 0.60,
+   its last value within 1e-5 of the host's; set-up seconds by step
+   (generation, sketch, binning, bundling plan), trees/s with and without
+   the valid set, peak memory, one tree profiled;
+23. Criteo fixtures: ``criteo_like(50_000, seed=43)``, 64 bins, depthwise
+   depth 6, 10 trees: wired and legacy trees equal, and K3 and K1 row mode
+   of the legacy run against their plain versions; at the reference's
+   defaults with the categorical features (leaf-wise, depth 9, wired) the
+   batched grower equals the sequential one on a tree; a bundled (EFB)
+   CSR fixture with a categorical bundle and missing values: card trees
+   equal CPU trees, card predict bitwise equal to CPU predict, a model
+   file saved on the card loads and predicts bitwise, and its mapper
+   bytes equal the CPU run's file's.
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -476,7 +504,11 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     from dryad_tpu_torch.config import effective_depth_params
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.loop_state import sample_masks
-    from dryad_tpu_torch.engine.train import binned_to_device, class_grads
+    from dryad_tpu_torch.engine.train import (
+        binned_to_device,
+        class_grads,
+        feature_kinds,
+    )
     from dryad_tpu_torch.objectives import get_objective
 
     B = ds.mapper.total_bins
@@ -495,9 +527,14 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
     fmask = (torch.ones(ds.num_features, dtype=torch.bool, device=dev)
              if feat_mask is None else torch.from_numpy(feat_mask).to(dev))
 
+    is_cat_feat, bundled_mask = feature_kinds(ds.mapper, ds.has_missing,
+                                              dev)
+
     def tree():
         for g, h in cols:
-            grow_any(p, B, Xb, g, h, bag, fmask)
+            grow_any(p, B, Xb, g, h, bag, fmask,
+                     learn_missing=ds.has_missing, is_cat_feat=is_cat_feat,
+                     bundled_mask=bundled_mask)
         torch.cuda.synchronize()
 
     tree()
@@ -2190,6 +2227,384 @@ def phase_robust(dt, a, eds, Xv_b, yv, dev, report) -> tuple:
     return total
 
 
+# Criteo's acceptance config (scripts/acceptance.py:94-102): binary,
+# depthwise, max_depth 6, 63 leaves, 30 trees, 256 bins, its 26
+# categorical features, AUC of the valid set every iteration.  The public
+# Criteo Display Advertising Challenge set holds 45,840,617 rows of 13
+# dense and 26 categorical features; the phase trains on 10M criteo_like
+# rows, a cut made for the script's time limit only
+CRITEO = {"objective": "binary", "num_trees": 30, "num_leaves": 63,
+          "max_depth": 6, "growth": "depthwise", "max_bins": 256,
+          "metric": "auc"}
+CRITEO_ROWS = 10_000_000
+CRITEO_HOLDOUT = 1_000_000
+CRITEO_PUBLIC_ROWS = 45_840_617
+_INT_TREE_KEYS = ("feature", "threshold", "left", "right", "default_left",
+                  "is_cat", "cat_bitset", "cover")
+
+
+def csr_rows(csr, start: int, stop: int) -> tuple:
+    """Rows [start, stop) of a CSR triple, as a CSR triple (views)."""
+    indptr, indices, values, F = csr
+    lo, hi = indptr[start], indptr[stop]
+    return indptr[start:stop + 1] - lo, indices[lo:hi], values[lo:hi], F
+
+
+def densify(csr):
+    """The dense float matrix of a CSR triple (absent entries 0.0)."""
+    import numpy as np
+
+    indptr, indices, values, F = csr
+    n = indptr.shape[0] - 1
+    X = np.zeros((n, F), np.float32)
+    X[np.repeat(np.arange(n), np.diff(indptr)), indices] = values
+    return X
+
+
+def criteo_data(dt, rows: int, holdout: int) -> tuple:
+    """``criteo_like(rows + holdout, seed=19)``, drawn once: the first
+    ``rows`` train, the rest, sliced from the same CSR triple, are the
+    valid set bound through the train mapper.  Returns (ds, dv, csr,
+    cat_ids, set-up seconds by step)."""
+    from dryad_tpu_torch import dataset as dsmod
+    from dryad_tpu_torch import datasets
+
+    secs: dict = {}
+    t0 = time.perf_counter()
+    csr, y, cat_ids = datasets.criteo_like(rows + holdout, seed=19)
+    secs["generate"] = time.perf_counter() - t0
+    steps = {"_sketch_csr": "sketch", "bin_csr": "bin",
+             "plan_bundles": "bundle_plan"}
+    real = {k: getattr(dsmod, k) for k in steps}
+
+    def timed(k):
+        def f(*args, **kw):
+            t1 = time.perf_counter()
+            out = real[k](*args, **kw)
+            secs[steps[k]] = time.perf_counter() - t1
+            return out
+        return f
+
+    for k in steps:
+        setattr(dsmod, k, timed(k))
+    try:
+        ds = dt.Dataset(None, y[:rows], csr=csr_rows(csr, 0, rows),
+                        categorical_features=cat_ids, max_bins=256)
+    finally:
+        for k in steps:
+            setattr(dsmod, k, real[k])
+    t0 = time.perf_counter()
+    dv = ds.bind(None, y[rows:], csr=csr_rows(csr, rows, rows + holdout))
+    secs["bind_valid"] = time.perf_counter() - t0
+    return ds, dv, csr, cat_ids, secs
+
+
+def phase_criteo(dt, a, dev, report) -> tuple:
+    """Phase 22: Criteo, CSR ingest and categorical splits, full width,
+    depthwise on the wired arm, the held-out rows as the valid set."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.config import Params
+    from dryad_tpu_torch.engine import (
+        cuda_build,
+        hist,
+        leafperm,
+        levelwise,
+    )
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.predict import predict_binned
+    from dryad_tpu_torch.metrics import auc
+
+    rows, D = CRITEO_ROWS, CRITEO["max_depth"]
+    print(f"criteo reduced: {CRITEO_PUBLIC_ROWS} rows of the public Criteo "
+          f"Display Advertising Challenge set cut to {rows} training rows "
+          f"(+ {CRITEO_HOLDOUT} held out) for the time limit; widths kept "
+          "(13 dense + 26 categorical, 256 bins)", flush=True)
+    ds, dv, csr, cat_ids, setup = criteo_data(dt, rows, CRITEO_HOLDOUT)
+    F, B = ds.num_features, ds.mapper.total_bins
+    n_cat = int(ds.mapper.is_categorical.sum())
+    check(n_cat == 26 and F == 39 and B == 256,
+          f"criteo mapper: {n_cat} categorical of {F} features, {B} bins")
+    n_bundles = len(getattr(ds.mapper, "bundles", []))
+    print(f"criteo data: {rows} + {CRITEO_HOLDOUT} x {F} ({n_cat} "
+          f"categorical, {n_bundles} bundles), {csr[1].size} stored "
+          f"entries; set-up s {json.dumps(setup)}", flush=True)
+    # the CSR binning equals the dense binning of the same rows
+    n_chk = min(200_000, rows)
+    dense = densify(csr_rows(csr, 0, n_chk))
+    check(np.array_equal(ds.mapper.transform(dense), ds.X_binned[:n_chk]),
+          "criteo: bin_csr differs from bin_matrix on the densified rows")
+    del dense, csr
+    params = dict(CRITEO, categorical_features=list(cat_ids))
+    p = Params.from_dict(params)
+    check(levelwise.deep_layout_supported(p, F, B, 1),
+          "criteo: the config left the wired arm")
+
+    # one capture tree: K1 at the root and the last level, K2 at level 3,
+    # the categorical scan and route of the last level
+    calls = capture(dt, params, ds, dev,
+                    {"hist": (hist, "hist_tiles"),
+                     "perm": (leafperm, "permute_records"),
+                     "scan": (levelwise, "find_best_split"),
+                     "route": (levelwise, "packed_route")})
+    check(len(calls["hist"]) == D + 1 and len(calls["perm"]) == D,
+          f"criteo capture tree made {len(calls['hist'])} histogram calls "
+          f"and {len(calls['perm'])} row moves")
+    root = check_hist(calls["hist"][0][0], "criteo hist root", a.reps)
+    level = check_hist(calls["hist"][-1][0], "criteo hist level", a.reps)
+    perm = check_perm(calls["perm"][3][0], a.reps)
+    print("K1 criteo root: " + json.dumps(root), flush=True)
+    print("K1 criteo level: " + json.dumps(level), flush=True)
+    print("K2 criteo level 3: " + json.dumps(perm), flush=True)
+    # the last level's scan over 2P children, with and without the
+    # categorical arm; its natural-order route of every row, with and
+    # without the membership gather (the layout's route reads records
+    # freed after its level, so it is not replayed)
+    sa, skw = calls["scan"][-1]
+    scan = {"candidates": int(sa[0].shape[0]),
+            "cat_ms": time_ms(lambda: levelwise.find_best_split(*sa, **skw),
+                              a.reps),
+            "numeric_ms": time_ms(lambda: levelwise.find_best_split(
+                *sa, **dict(skw, is_cat_feat=None)), a.reps)}
+    ra = calls["route"][-2][0]
+    check(ra[3] is not None and ra[0].dim() == 1,
+          "criteo: the natural-order route has no categorical arm")
+    route = {"rows": int(ra[0].numel()),
+             "cat_ms": time_ms(lambda: levelwise.packed_route(*ra), a.reps),
+             "numeric_ms": time_ms(lambda: levelwise.packed_route(
+                 *ra[:3], None), a.reps)}
+    print("criteo last level: scan " + json.dumps(scan) + "; route "
+          + json.dumps(route), flush=True)
+    del calls, sa, skw, ra
+    torch.cuda.empty_cache()
+
+    # the main path: 30 trees with the valid set scored on the card
+    kept, restore = spy_valid_scores(engine_train, 1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_counts()
+        booster = dt.train(params, ds, [dv], device=dev)
+        launches = dict(cuda_build.counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        restore()
+    n = booster.num_iterations
+    check(n == CRITEO["num_trees"], f"criteo: {n} trees")
+    check_launches(launches, {"hist": (D + 1) * n, "perm": D * n}, "criteo")
+    vscore = kept[0].cpu().numpy()
+    del kept
+    cat_splits = int(booster.arrays["is_cat"].sum())
+    check(cat_splits > 0, "criteo: no categorical split in the model")
+    same_trees(booster, dt.train(params, ds, [dv], device=dev), "criteo")
+    raw = predict_binned(booster, dv.X_binned, device=dev)[:, 0]
+    check(raw.shape == (CRITEO_HOLDOUT,) and bool(np.isfinite(raw).all()),
+          "criteo: predict shape or finiteness")
+    check(np.array_equal(raw, predict_binned(booster, dv.X_binned,
+                                             device=torch.device("cpu"))[:, 0]),
+          "criteo: card predict != CPU predict")
+    check(np.array_equal(vscore, raw),
+          "criteo: the trainer's valid scores differ from predict's")
+    curve = [v for _, v in booster.train_state["eval_history"]["valid_auc"]]
+    host = auc(dv.y, raw)
+    check(len(curve) == n and curve[-1] > curve[0],
+          f"criteo: valid AUC {curve[0]} -> {curve[-1]}")
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"criteo: last valid AUC {curve[-1]} vs host {host}")
+    check(host > 0.60, f"criteo: held-out AUC {host} <= 0.60")
+    no_valid = tree_summary(dt.train(params, ds, device=dev))
+    prof = profile_tree(params, ds, dev, "profile_criteo.txt")
+    rep = dict(tree_summary(booster), without_valid=no_valid,
+               peak_bytes=peak, launches=launches, cat_splits=cat_splits,
+               auc={"tree_1": curve[0], "last": curve[-1],
+                    "host_last": host},
+               setup_seconds=setup, scan=scan, route=route, profile=prof,
+               reduced={"rows": rows, "from": CRITEO_PUBLIC_ROWS})
+    print("criteo train: " + json.dumps(rep), flush=True)
+    print("criteo: second run bitwise equal; card predict bitwise equal to "
+          "CPU; valid scores bitwise equal to predict", flush=True)
+    rep.update(hist_root=root, hist_level=level, perm=perm)
+    report["criteo"] = rep
+    return launches, root, level, perm
+
+
+def efb_csr(n: int = 20_000, seed: int = 61) -> tuple:
+    """A CSR fixture that bundles: 3 dense numeric columns (NaN in 5% of
+    the first), 4 groups of 5 mutually exclusive one-hot columns, and 4
+    groups of 6 mutually exclusive sparse categorical columns of values
+    1-5.  Returns (csr, y, categorical ids)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dense, oh, oh_lv, cg, cg_per = 3, 4, 5, 4, 6
+    F = n_dense + oh * oh_lv + cg * cg_per
+    cat0 = n_dense + oh * oh_lv
+    present = np.zeros((n, F), bool)
+    vals = np.zeros((n, F), np.float32)
+    present[:, :n_dense] = True
+    vals[:, :n_dense] = rng.normal(size=(n, n_dense))
+    vals[rng.random(n) < 0.05, 0] = np.nan
+    hot = rng.integers(0, oh_lv, size=(n, oh))
+    for gi in range(oh):
+        present[np.arange(n), n_dense + gi * oh_lv + hot[:, gi]] = True
+    vals[:, n_dense:cat0] = 1.0
+    pick = rng.integers(0, cg_per, size=(n, cg))
+    for gi in range(cg):
+        present[np.arange(n), cat0 + gi * cg_per + pick[:, gi]] = True
+    vals[:, cat0:] = rng.integers(1, 6, size=(n, cg * cg_per))
+    w = rng.normal(size=cg * cg_per)
+    logit = (np.nan_to_num(vals[:, 0]) + (hot[:, 0] == 2) * 1.5
+             - (hot[:, 1] >= 3) + 0.3 * (vals[:, cat0:]
+                                         * present[:, cat0:]) @ w)
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    r, c = np.nonzero(present)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=n))])
+    return ((indptr.astype(np.int64), c.astype(np.int64), vals[r, c], F), y,
+            tuple(range(cat0, F)))
+
+
+def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
+    """Phase 23: wired = legacy with categoricals (K3 and K1 row mode
+    against their plain versions), leaf-wise batched = sequential with
+    categoricals, and the bundled (EFB) fixture card against CPU with a
+    model-file round trip."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.config import Params, effective_depth_params
+    from dryad_tpu_torch.data.bundling import BundledMapper
+    from dryad_tpu_torch.engine import (
+        cuda_build,
+        grower,
+        hist,
+        hist_nat,
+        leafwise_fast,
+    )
+    from dryad_tpu_torch.engine.predict import predict_binned
+    from dryad_tpu_torch.engine.train import feature_kinds
+    from dryad_tpu_torch.objectives import Binary
+
+    cpu = torch.device("cpu")
+    csr, y, cat_ids = datasets.criteo_like(50_000, seed=43)
+    ds = dt.Dataset(None, y, csr=csr, categorical_features=cat_ids,
+                    max_bins=64)
+    F, B = ds.num_features, ds.mapper.total_bins
+    base = {"objective": "binary", "num_trees": 10, "num_leaves": 63,
+            "max_bins": 64, "growth": "depthwise", "max_depth": 6,
+            "categorical_features": list(cat_ids)}
+    legacy = dict(base, deep_layout="legacy")
+    n_nat, n_rows = legacy_calls(ds.num_rows, F, 6, 63)
+    check(n_nat > 0, "the criteo fixture left the K3 gate")
+    calls = capture(dt, legacy, ds, dev,
+                    {"rows": (hist, "hist_rows"),
+                     "nat": (hist_nat, "build_hist_nat")})
+    check(len(calls["rows"]) == n_rows and len(calls["nat"]) == n_nat,
+          f"criteo fixture capture tree made {len(calls['rows'])} row-mode "
+          f"and {len(calls['nat'])} natural-order calls")
+    nat = check_nat(calls["nat"][-1], "criteo fixture nat", a.reps)
+    rows = check_rows(calls["rows"][-1][0], "criteo fixture rows", a.reps)
+    del calls
+    b_w = dt.train(base, ds, device=dev)
+    cuda_build.reset_counts()
+    b_l = dt.train(legacy, ds, device=dev)
+    launches = dict(cuda_build.counts)
+    check_launches(launches, {"nat": n_nat * 10, "hist_rows": n_rows * 10},
+                   "criteo fixture, legacy")
+    for k in _INT_TREE_KEYS:
+        check(np.array_equal(b_w.tree_arrays()[k], b_l.tree_arrays()[k]),
+              f"criteo fixture, wired vs legacy: {k!r} differs")
+    dv = float(np.abs(b_w.arrays["value"] - b_l.arrays["value"]).max())
+    check(dv <= 1e-5, f"criteo fixture, wired vs legacy: values differ by "
+          f"{dv}")
+    check(bool(b_w.arrays["is_cat"].any()),
+          "criteo fixture: no categorical split")
+
+    # leaf-wise at the reference's defaults with categoricals: depth 9,
+    # wired; one tree of the batched grower against the sequential one
+    lw = {"objective": "binary", "categorical_features": list(cat_ids)}
+    p = effective_depth_params(Params.from_dict(lw), F, B, ds.num_rows)
+    check(p.max_depth == 9 and leafwise_fast.leafwise_layout_supported(
+        p, F, B, 1), f"criteo fixture leaf-wise: depth {p.max_depth}, not "
+        "the wired arm at 9")
+    yt = torch.from_numpy(ds.y).to(dev)
+    g, h = Binary().grad_hess(
+        torch.full_like(yt, float(Binary().init_score(ds.y))), yt)
+    is_cat_feat, _ = feature_kinds(ds.mapper, False, dev)
+    args = (p, B, torch.from_numpy(ds.X_binned).to(dev), g, h,
+            torch.ones(ds.num_rows, dtype=torch.bool, device=dev),
+            torch.ones(F, dtype=torch.bool, device=dev))
+    bat = leafwise_fast.grow_tree_leafwise_batched(
+        *args, is_cat_feat=is_cat_feat)
+    seq = grower.grow_tree(*args, is_cat_feat=is_cat_feat)
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "is_cat", "cat_bitset", "row_leaf", "max_depth", "value",
+              "cover"):
+        check(torch.equal(bat[k], seq[k]),
+              f"criteo fixture, batched vs sequential: {k!r} differs")
+    check(bool(bat["is_cat"].any()), "criteo fixture leaf-wise: no "
+          "categorical split")
+    b_d = dt.train(dict(lw, num_trees=3), ds, device=dev)
+    check(b_d.params.max_depth == 9 and bool(b_d.arrays["is_cat"].any()),
+          "criteo fixture leaf-wise: the defaults run")
+
+    # EFB: a bundled mapper with a categorical bundle, card against CPU
+    ecsr, ey, ecat = efb_csr()
+    eds = dt.Dataset(None, ey, csr=ecsr, categorical_features=ecat,
+                     max_bins=64)
+    m = eds.mapper
+    check(isinstance(m, BundledMapper) and eds.has_missing
+          and any(m.base.is_categorical[b[0]] for b in m.bundles),
+          "EFB fixture: no categorical bundle, or no missing values")
+    ep = {"objective": "binary", "num_trees": 10, "num_leaves": 15,
+          "max_bins": 64}
+    b_card = dt.train(ep, eds, device=dev)
+    b_cpu = dt.train(ep, eds, device=cpu)
+    for k in _INT_TREE_KEYS:
+        check(np.array_equal(b_card.tree_arrays()[k], b_cpu.tree_arrays()[k]),
+              f"EFB fixture, card vs CPU: {k!r} differs")
+    ev = float(np.abs(b_card.arrays["value"] - b_cpu.arrays["value"]).max())
+    check(ev <= 1e-4, f"EFB fixture, card vs CPU: values differ by {ev}")
+    used = set(b_card.arrays["feature"][b_card.arrays["is_cat"]].tolist())
+    check(any(f < len(m.bundles) for f in used),
+          "EFB fixture: no subset split on a categorical bundle")
+    Xd = densify(ecsr)
+    raw = dt.predict(b_card, Xd, raw_score=True, device=dev)
+    check(np.array_equal(raw, dt.predict(b_card, Xd, raw_score=True,
+                                         device=cpu)),
+          "EFB fixture: card predict != CPU predict")
+    check(np.array_equal(raw, predict_binned(b_card, eds.X_binned,
+                                             device=dev)[:, 0]),
+          "EFB fixture: raw-row predict != binned predict")
+    with tempfile.TemporaryDirectory() as d:
+        path_card, path_cpu = os.path.join(d, "card.dryad"), os.path.join(
+            d, "cpu.dryad")
+        b_card.save(path_card)
+        b_cpu.save(path_cpu)
+        loaded = dt.Booster.load(path_card)
+        with np.load(path_card) as zc, np.load(path_cpu) as zp:
+            same_mapper = bytes(zc["mapper"]) == bytes(zp["mapper"])
+    check(isinstance(loaded.mapper, BundledMapper)
+          and np.array_equal(raw, dt.predict(loaded, Xd, raw_score=True,
+                                             device=dev)),
+          "EFB fixture: the loaded model file predicts differently")
+    check(same_mapper, "EFB fixture: card and CPU model files' mapper "
+          "bytes differ")
+    rep = {"wired_vs_legacy_max_value_diff": dv, "launches": launches,
+           "cat_splits_depthwise": int(b_w.arrays["is_cat"].sum()),
+           "leafwise": {"max_depth": p.max_depth,
+                        "cat_splits_tree_1": int(bat["is_cat"].sum())},
+           "efb": {"features": eds.num_features, "base_features": ecsr[3],
+                   "bundles": m.bundles, "card_vs_cpu_max_value_diff": ev,
+                   "cat_splits": int(b_card.arrays["is_cat"].sum())},
+           "nat_level": brief(nat), "rows_level": brief(rows)}
+    print("criteo fixtures: " + json.dumps(rep), flush=True)
+    report["criteo_fixtures"] = rep
+    return launches, nat, rows
+
+
 # the histogram kernels' launch shape and both bounds
 _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
@@ -2348,6 +2763,17 @@ def main() -> int:
     rb_launches = phase_robust(dt, a, eds, eXv_b, eyv, dev, report)
     del eds, eXv_b, eyv
     mark("21")
+    # ---- 22-23. Criteo: CSR ingest, categorical splits, bundling --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ct_launches, ct_root, ct_level, ct_perm = phase_criteo(dt, a, dev,
+                                                           report)
+    mark("22")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctf_launches, ctf_nat, ctf_rows = phase_criteo_fixtures(dt, a, dev,
+                                                            report)
+    mark("23")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -2357,7 +2783,8 @@ def main() -> int:
                "covertype_defaults": cd_launches,
                "covertype_resume": cr_launches,
                "covertype_fixture_legacy": cf_launches,
-               "mslr": m_launches, "robust_epsilon": rb_launches}
+               "mslr": m_launches, "robust_epsilon": rb_launches,
+               "criteo": ct_launches, "criteo_fixture_legacy": ctf_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())
@@ -2375,7 +2802,9 @@ def main() -> int:
                       "leafwise_level": brief(lw_level),
                       "bagged_root": brief(b_root),
                       "covertype_root": brief(c_root),
-                      "covertype_level": brief(c_level)}),
+                      "covertype_level": brief(c_level),
+                      "criteo_root": brief(ct_root),
+                      "criteo_level": brief(ct_level)}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,
@@ -2385,13 +2814,15 @@ def main() -> int:
                       "epsilon_level": brief(e_level),
                       "covertype_fixture_level": brief(cf_rows),
                       "mslr_root": brief(m_root),
-                      "mslr_level": brief(m_rows)}),
+                      "mslr_level": brief(m_rows),
+                      "criteo_fixture_level": brief(ctf_rows)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
                      paths("perm"), perm,
                      {"leafwise_level": brief(lw_perm),
                       "bagged_level0": brief(b_perm),
-                      "covertype_level": brief(c_perm)}),
+                      "covertype_level": brief(c_perm),
+                      "criteo_level": brief(ct_perm)}),
         kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
                      "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
                      paths("nat"), nat, {"leafwise_level": brief(ld_nat),
@@ -2399,7 +2830,9 @@ def main() -> int:
                                              brief(bl_nat),
                                          "covertype_fixture_level":
                                              brief(cf_nat),
-                                         "mslr_level": brief(m_nat)}),
+                                         "mslr_level": brief(m_nat),
+                                         "criteo_fixture_level":
+                                             brief(ctf_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

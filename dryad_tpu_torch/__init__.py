@@ -5,6 +5,12 @@
     booster = dryad.train({"objective": "binary"}, ds)
     p = dryad.predict(booster, X_test)
 
+    # sparse rows with categorical features (Criteo-shaped)
+    ds = dryad.Dataset(None, y, csr=(indptr, indices, values, F),
+                       categorical_features=cat_ids)
+    booster = dryad.train({"objective": "binary",
+                           "categorical_features": cat_ids}, ds)
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
@@ -12,7 +18,10 @@ the CPU every kernel runs its plain PyTorch version.
 The port trains the reference's nine objectives (binary, multiclass
 softmax with K trees per iteration, regression, l1, huber, fair, quantile
 and poisson with the L1 family's leaf renewal, and lambdarank on query
-groups, ``Dataset(X, y, group=...)``) with the reference's growers:
+groups, ``Dataset(X, y, group=...)``), on dense or CSR rows
+(``Dataset(None, y, csr=...)``, with exclusive feature bundling) and with
+categorical features (sorted-subset splits, node bitsets), with the
+reference's growers:
 leaf-wise (the default; the batched expansion plus selection for a
 finite depth cap, which ``max_depth=-1`` maps to as the reference does,
 else the sequential grower) and depthwise, each on the wired leaf-ordered

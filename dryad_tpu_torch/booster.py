@@ -4,7 +4,7 @@ Holds the same tree arrays as ``dryad_tpu.Booster.tree_arrays()``, shaped
 (num_iterations * K, max_nodes) for K outputs (the tree in slot
 ``it * K + k`` adds to score column k), plus ``init_score`` (K,),
 ``max_depth_seen``, the
-frozen bin mapper, ``best_iteration`` and the loop state a resumed run
+frozen bin mapper (plain, or bundled for EFB), ``best_iteration`` and the loop state a resumed run
 continues from (``train_state``).  A model file is the reference's npz
 format, so a file written by either package loads in the other.
 """

@@ -3,7 +3,8 @@ that it runs (the reference's nine objectives: binary, multiclass
 softmax, regression, the robust and count family l1, huber, fair,
 quantile and poisson, and lambdarank ranking; leaf-wise and depthwise
 growth, on the wired leaf-ordered layout or the legacy plan arm;
-bagging, column sampling, evaluation and early stopping), and the
+categorical features; bagging, column sampling, evaluation and early
+stopping), and the
 growth-policy helpers that pick a grower.
 
 Defaults and LightGBM-style aliases are the reference's, so
@@ -88,7 +89,6 @@ _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "drop_rate": 0.1,
     "skip_drop": 0.5,
     "max_drop": 50,
-    "categorical_features": (),
     "monotone_constraints": (),
     "hist_backend": "auto",
     "predict_layout": "auto",
@@ -112,6 +112,9 @@ class Params:
     max_depth: int = -1
     learning_rate: float = 0.1
     max_bins: int = 256
+    # categorical features' ids; the Dataset's mapper decides what the
+    # grower treats as categorical, this list what the mapper was asked for
+    categorical_features: tuple[int, ...] = ()
     lambda_l2: float = 1.0
     min_child_weight: float = 1e-3
     min_data_in_leaf: int = 20
@@ -184,6 +187,9 @@ class Params:
             raise ValueError("unbounded_depth must be auto|exact")
         if not (2 <= self.max_bins <= 65536):
             raise ValueError("max_bins must be in [2, 65536]")
+        if self.categorical_features and self.max_bins > 256:
+            raise ValueError("categorical splits support max_bins <= 256 "
+                             "(bitset width)")
         if self.min_data_in_leaf < 1:
             raise ValueError("min_data_in_leaf must be >= 1")
         if self.num_leaves < 2:
@@ -227,6 +233,8 @@ class Params:
                 value = _OBJECTIVE_ALIASES.get(value, value)
             if key == "growth" and isinstance(value, str):
                 value = _GROWTH_ALIASES.get(value, value)
+            if key == "categorical_features":
+                value = tuple(int(v) for v in value)
             if key in _OUTSIDE_SLICE_DEFAULTS:
                 default = _OUTSIDE_SLICE_DEFAULTS[key]
                 if isinstance(default, tuple):
@@ -257,7 +265,11 @@ class Params:
             raise ValueError(f"boosting={d.get('boosting')!r} is outside "
                              "this slice of the port")
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known}).validate()
+        kw = {k: v for k, v in d.items() if k in known}
+        if "categorical_features" in kw:
+            kw["categorical_features"] = tuple(
+                int(v) for v in kw["categorical_features"])
+        return cls(**kw).validate()
 
     def to_dict(self) -> dict[str, Any]:
         """Every field; each is a field of ``dryad_tpu.config.Params`` of

@@ -16,7 +16,7 @@ import numpy as np
 
 from dryad_tpu_torch.booster import Booster
 from dryad_tpu_torch.config import Params
-from dryad_tpu_torch.data.sketch import BinMapper
+from dryad_tpu_torch.data.bundling import mapper_from_json_dict
 
 
 def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
@@ -27,14 +27,11 @@ def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
     and ``train_state`` carried too, so it resumes or predicts as the
     reference would).  Only what predict reads must be in the slice: a
     gbdt model of any of the nine objectives (K outputs and K trees per
-    iteration for multiclass) without categorical splits; parameters that
-    only shape the reference's training are not carried.  ``Booster.load``
-    of a reference model file is the other way across."""
+    iteration for multiclass), with categorical splits and a plain or
+    bundled (EFB) mapper; parameters that only shape the reference's
+    training are not carried.  ``Booster.load`` of a reference model file
+    is the other way across."""
     params = Params.from_reference_dict(params_dict)
-    if mapper_json.get("type", "plain") != "plain":
-        raise ValueError("bundled (EFB) mappers are outside this slice")
-    if np.asarray(tree_arrays["is_cat"]).any():
-        raise ValueError("categorical splits are outside this slice")
-    return Booster(params, BinMapper.from_json_dict(mapper_json),
+    return Booster(params, mapper_from_json_dict(mapper_json),
                    {k: np.asarray(v) for k, v in tree_arrays.items()},
                    init_score, max_depth_seen, best_iteration, train_state)

@@ -10,7 +10,11 @@ Binning contract:
 * bin id 0 is always the missing (NaN) bin;
 * numerical feature with ascending float32 edges ``e``:
   ``bin(x) = 1 + searchsorted(e, x, side='left')``;
-* a split at (feature f, threshold bin t) sends ``bin <= t`` left.
+* categorical feature: categories ranked by (count desc, value asc); rank
+  r maps to bin r + 1, at most ``max_bins - 2`` of them; a category beyond
+  the vocabulary, or unseen at predict, maps to the overflow (last) bin;
+* a numerical split at (feature f, threshold bin t) sends ``bin <= t``
+  left; a categorical split sends its node's set of bins left.
 
 Sketching and binning go feature by feature, in blocks of ``_BLOCK``
 columns copied contiguous and spread over a few threads: numpy's sorts
@@ -24,6 +28,7 @@ import dataclasses
 import io
 import os
 from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
 
 import numpy as np
 
@@ -88,12 +93,39 @@ def _sketch_numerical_np(col: np.ndarray, max_bins: int) -> FeatureBins:
     )
 
 
-def sketch_features(X: np.ndarray, max_bins: int = 256) -> "BinMapper":
+def _sketch_categorical(col: np.ndarray, max_bins: int) -> FeatureBins:
+    finite = col[np.isfinite(col)]
+    vals, counts = np.unique(finite, return_counts=True)
+    # rank by (count desc, value asc)
+    order = np.lexsort((vals, -counts))
+    # bin 0 is missing and the last bin the overflow
+    n_kept = int(min(vals.size, max_bins - 2))
+    kept = vals[order[:n_kept]]
+    bins = np.arange(1, n_kept + 1, dtype=np.int32)
+    # stored sorted by value for the searchsorted lookup
+    sort_idx = np.argsort(kept, kind="stable")
+    return FeatureBins(True, np.empty(0, np.float32),
+                       kept[sort_idx].astype(np.float32),
+                       bins[sort_idx].astype(np.int32), n_kept + 2)
+
+
+def sketch_column(col: np.ndarray, max_bins: int,
+                  categorical: bool) -> FeatureBins:
+    """One feature's recipe from its raw values."""
+    return (_sketch_categorical(col, max_bins) if categorical
+            else _sketch_numerical_np(col, max_bins))
+
+
+def sketch_features(X: np.ndarray, max_bins: int = 256,
+                    categorical_features: Sequence[int] = ()
+                    ) -> "BinMapper":
     """Build the frozen per-feature bin mapper from dense training data."""
     X = np.asarray(X, dtype=np.float32)
     if X.ndim != 2:
         raise ValueError(f"X must be 2-D, got shape {X.shape}")
-    feats = _by_feature(X, lambda f, col: _sketch_numerical_np(col, max_bins))
+    cats = frozenset(int(c) for c in categorical_features)
+    feats = _by_feature(
+        X, lambda f, col: sketch_column(col, max_bins, f in cats))
     return BinMapper(feats, max_bins)
 
 
@@ -126,12 +158,19 @@ class BinMapper:
 
     def transform_column(self, col: np.ndarray, f: int) -> np.ndarray:
         fb = self.features[f]
-        if fb.is_categorical:
-            raise ValueError(
-                f"feature {f} is categorical: categorical features are "
-                "outside this slice of the port")
         col = np.asarray(col, np.float32)
-        out = (1 + np.searchsorted(fb.edges, col, side="left")).astype(np.int32)
+        if fb.is_categorical:
+            if fb.cat_values.size:
+                idx = np.minimum(np.searchsorted(fb.cat_values, col),
+                                 fb.cat_values.size - 1)
+                hit = fb.cat_values[idx] == col
+                out = np.where(hit, fb.cat_bins[idx],
+                               fb.overflow_bin).astype(np.int32)
+            else:
+                out = np.full(col.shape, fb.overflow_bin, np.int32)
+        else:
+            out = (1 + np.searchsorted(fb.edges, col, side="left")).astype(
+                np.int32)
         out[np.isnan(col)] = MISSING_BIN
         return out
 
@@ -204,8 +243,10 @@ class BinMapper:
     def from_bytes(cls, data: bytes) -> "BinMapper":
         with np.load(io.BytesIO(data)) as z:
             if "efb_base" in z.files:
-                raise ValueError("bundled (EFB) mappers are outside this "
-                                 "slice of the port (M10)")
+                # a bundled (EFB) mapper's container
+                from dryad_tpu_torch.data.bundling import BundledMapper
+
+                return BundledMapper.from_bytes(data)
             n = z["is_cat"].shape[0]
             feats = [
                 FeatureBins(

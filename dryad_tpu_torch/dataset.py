@@ -1,32 +1,69 @@
-"""Dense training set: raw features -> frozen sketch -> binned matrix.
+"""Training set: raw features -> frozen sketch -> binned matrix.
 
-The counterpart of ``dryad_tpu.Dataset`` for dense data with optional
-sample weights and, for ranking, query groups (``group[i]`` rows in query
-i, consecutive, the LightGBM convention).  The binned matrix stays on the
-host as numpy; the trainer uploads it to its device.  Validation sets bin
-through the training set's frozen mapper (``bind``), as predict does.
+The counterpart of ``dryad_tpu.Dataset``: dense ``X`` or a CSR triple
+(``csr=(indptr, indices, values, F)``, where absent entries are 0.0),
+optional categorical features, sample weights and, for ranking, query
+groups (``group[i]`` rows in query i, consecutive, the LightGBM
+convention).  CSR ingest folds strictly exclusive sparse columns into
+bundles (EFB, ``bundle=True``).  The binned matrix stays on the host as
+numpy; the trainer uploads it to its device.  Validation sets bin through
+the training set's frozen mapper (``bind``), as predict does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import numpy as np
 
-from dryad_tpu_torch.data.binning import bin_matrix
-from dryad_tpu_torch.data.sketch import BinMapper, sketch_features
+from dryad_tpu_torch.data.binning import bin_csr, bin_matrix, column_order
+from dryad_tpu_torch.data.bundling import BundledMapper, plan_bundles
+from dryad_tpu_torch.data.sketch import (
+    _MAX_THREADS,
+    BinMapper,
+    sketch_column,
+    sketch_features,
+)
 
 
 class Dataset:
-    def __init__(self, X: np.ndarray, y: Optional[np.ndarray] = None, *,
+    def __init__(self, X: Optional[np.ndarray] = None,
+                 y: Optional[np.ndarray] = None, *,
                  weight: Optional[np.ndarray] = None,
-                 group: Optional[np.ndarray] = None, max_bins: int = 256,
-                 mapper: Optional[BinMapper] = None):
-        X = np.asarray(X, np.float32)
-        if mapper is None:
-            mapper = sketch_features(X, max_bins=max_bins)
+                 group: Optional[np.ndarray] = None,
+                 categorical_features: Sequence[int] = (),
+                 max_bins: int = 256, mapper=None,
+                 csr: Optional[tuple] = None, bundle: bool = True):
+        if (X is None) == (csr is None):
+            raise ValueError("provide exactly one of X (dense) or "
+                             "csr=(indptr, indices, values, num_features)")
+        self.categorical_features = tuple(int(c) for c in
+                                          categorical_features)
+        if csr is not None:
+            indptr, indices, values, num_features = csr
+            if mapper is None:
+                base = _sketch_csr(indptr, indices, values, num_features,
+                                   max_bins, self.categorical_features)
+                Xb0 = bin_csr(indptr, indices, values, num_features, base)
+                plan = plan_bundles(Xb0, base, max_bins) if bundle else []
+                mapper = BundledMapper(base, plan) if plan else base
+                self.X_binned = mapper.fold(Xb0) if plan else Xb0
+            elif isinstance(mapper, BundledMapper):
+                self.X_binned = mapper.fold(bin_csr(
+                    indptr, indices, values, num_features, mapper.base))
+            else:
+                self.X_binned = bin_csr(indptr, indices, values,
+                                        num_features, mapper)
+        else:
+            X = np.asarray(X, np.float32)
+            if mapper is None:
+                mapper = sketch_features(
+                    X, max_bins=max_bins,
+                    categorical_features=self.categorical_features)
+            self.X_binned = bin_matrix(X, mapper)
         self.mapper = mapper
-        self.X_binned = bin_matrix(X, mapper)
         self.num_rows, self.num_features = self.X_binned.shape
         self._attach_targets(y, weight, group)
 
@@ -48,25 +85,29 @@ class Dataset:
         self._has_missing: Optional[bool] = None
 
     @classmethod
-    def from_binned(cls, X_binned: np.ndarray, mapper: BinMapper,
+    def from_binned(cls, X_binned: np.ndarray, mapper,
                     y: Optional[np.ndarray] = None, *,
                     weight: Optional[np.ndarray] = None,
-                    group: Optional[np.ndarray] = None) -> "Dataset":
+                    group: Optional[np.ndarray] = None,
+                    categorical_features: Sequence[int] = ()) -> "Dataset":
         """A Dataset over an already-binned matrix (shared, not copied),
         with the same checks of labels, weights and groups as
         ``__init__``: new labels for rows binned once."""
         ds = cls.__new__(cls)
+        ds.categorical_features = tuple(int(c) for c in categorical_features)
         ds.mapper = mapper
         ds.X_binned = X_binned
         ds.num_rows, ds.num_features = X_binned.shape
         ds._attach_targets(y, weight, group)
         return ds
 
-    def bind(self, X: np.ndarray, y: Optional[np.ndarray] = None,
-             **kw) -> "Dataset":
+    def bind(self, X: Optional[np.ndarray] = None,
+             y: Optional[np.ndarray] = None, **kw) -> "Dataset":
         """Bin new data (validation, test) through this set's frozen
-        mapper; ``weight=`` and ``group=`` pass through."""
-        return Dataset(X, y, mapper=self.mapper, **kw)
+        mapper, dense ``X`` or ``csr=``; ``weight=`` and ``group=`` pass
+        through."""
+        return Dataset(X, y, mapper=self.mapper,
+                       categorical_features=self.categorical_features, **kw)
 
     @property
     def query_offsets(self) -> Optional[np.ndarray]:
@@ -78,8 +119,43 @@ class Dataset:
     @property
     def has_missing(self) -> bool:
         """True when any numerical column holds missing (bin 0) rows: the
-        grower then scans splits in both missing directions."""
+        grower then scans splits in both missing directions.  Categorical
+        columns learn the missing direction through membership, and a
+        bundle column's bin 0 means "every member at its default", so
+        neither counts."""
         if self._has_missing is None:
             zero_cols = (self.X_binned == 0).any(axis=0)
-            self._has_missing = bool((zero_cols & ~self.mapper.is_categorical).any())
+            eligible = ~self.mapper.is_categorical
+            bundled = getattr(self.mapper, "bundled_mask", None)
+            if bundled is not None:
+                eligible &= ~bundled
+            self._has_missing = bool((zero_cols & eligible).any())
         return self._has_missing
+
+
+def _sketch_csr(indptr, indices, values, num_features: int, max_bins: int,
+                categorical_features: Sequence[int]) -> BinMapper:
+    """The mapper of a CSR matrix: each feature is sketched from its
+    explicit values plus its implicit zeros, joined as an exact count (they
+    dominate Criteo-shaped data).  Features are sketched on a thread pool;
+    each depends on its own values alone."""
+    n = indptr.shape[0] - 1
+    cols = np.asarray(indices)
+    vals_s = np.asarray(values, np.float32)[column_order(cols, num_features)]
+    bounds = np.concatenate(
+        [[0], np.cumsum(np.bincount(cols, minlength=num_features))])
+    cats = frozenset(int(c) for c in categorical_features)
+
+    def feature(f: int):
+        explicit = vals_s[bounds[f]:bounds[f + 1]]
+        col = np.concatenate([explicit, np.zeros(n - explicit.size,
+                                                 np.float32)])
+        return sketch_column(col, max_bins, f in cats)
+
+    threads = min(_MAX_THREADS, os.cpu_count() or 1, num_features)
+    if threads <= 1:
+        feats = [feature(f) for f in range(num_features)]
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            feats = list(pool.map(feature, range(num_features)))
+    return BinMapper(feats, max_bins)

@@ -1,7 +1,7 @@
-"""Synthetic Higgs-, Covertype-, Epsilon- and MSLR-shaped data, copies of
-``dryad_tpu.datasets.higgs_like``, ``covertype_like``, ``epsilon_like``
-and ``mslr_like`` so that both packages make the same rows from the same
-seed."""
+"""Synthetic Higgs-, Covertype-, Epsilon-, MSLR- and Criteo-shaped data,
+copies of ``dryad_tpu.datasets.higgs_like``, ``covertype_like``,
+``epsilon_like``, ``mslr_like`` and ``criteo_like`` so that both packages
+make the same rows from the same seed."""
 
 from __future__ import annotations
 
@@ -79,3 +79,39 @@ def mslr_like(num_queries: int = 1000,
     qs = np.quantile(score, [0.5, 0.75, 0.9, 0.97])
     y = np.digitize(score, qs).astype(np.float32)
     return X, y, group.astype(np.int64)
+
+
+def criteo_like(n: int = 200_000, num_dense: int = 13, num_cat: int = 26,
+                cat_cardinality: int = 1000, density: float = 0.7,
+                seed: int = 19):
+    """Sparse CTR task shaped like Criteo (13 dense + 26 categorical
+    features).  Returns the CSR triple with its width, ``(indptr, indices,
+    values, F)``, the labels and the categorical feature ids.  Dense slots
+    are present with probability ``density``; categorical values are
+    skewed (Zipf-like) integer ids."""
+    rng = _rng(seed)
+    F = num_dense + num_cat
+    present = rng.uniform(size=(n, F)) < density
+    present[:, num_dense:] |= rng.uniform(size=(n, num_cat)) < 0.5
+    dense_vals = np.log1p(rng.exponential(scale=3.0, size=(n, num_dense))
+                          ).astype(np.float32)
+    cat_vals = (rng.zipf(a=1.3, size=(n, num_cat))
+                % cat_cardinality).astype(np.float32)
+    allvals = np.concatenate([dense_vals, cat_vals], axis=1)
+    w_d = rng.normal(size=num_dense).astype(np.float32)
+    cat_w = rng.normal(size=(num_cat, cat_cardinality)).astype(
+        np.float32) * 0.5
+    logit = (dense_vals * present[:, :num_dense]) @ w_d - 1.0
+    for j in range(num_cat):
+        logit += np.where(present[:, num_dense + j],
+                          cat_w[j, cat_vals[:, j].astype(np.int64)], 0.0)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.float32)
+
+    rows, cols = np.nonzero(present)
+    values = allvals[rows, cols]
+    counts = np.bincount(rows, minlength=n)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    cat_ids = tuple(range(num_dense, F))
+    return ((indptr, cols.astype(np.int64), values.astype(np.float32), F),
+            y, cat_ids)

@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 
+from dryad_tpu_torch.booster import CAT_WORDS
 from dryad_tpu_torch.config import MAX_FAST_DEPTH, leafwise_fast_supported
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import tile_plan
@@ -35,22 +36,26 @@ from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
 
 
 def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
-             learn_missing=False):
-    """Route to the grower for the growth policy (module doc)."""
+             learn_missing=False, is_cat_feat=None, bundled_mask=None):
+    """Route to the grower for the growth policy (module doc).
+    ``is_cat_feat`` (F,) bool is given when any feature is categorical
+    (the reference's static ``has_cat``); ``bundled_mask`` (F,) bool marks
+    EFB bundle columns when the missing-right plane is scanned."""
     p = params
+    kw = {"learn_missing": learn_missing, "is_cat_feat": is_cat_feat,
+          "bundled_mask": bundled_mask}
     if p.growth == "depthwise" and p.max_depth > 0:
         from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 
         return grow_tree_levelwise(p, total_bins, Xb, g, h, bag_mask,
-                                   feat_mask, learn_missing=learn_missing)
+                                   feat_mask, **kw)
     if p.growth == "leafwise":
         from dryad_tpu_torch.engine import leafwise_fast
 
         if leafwise_fast_supported(p, Xb.shape[1], int(total_bins),
                                    Xb.shape[0]):
             return leafwise_fast.grow_tree_leafwise_batched(
-                p, total_bins, Xb, g, h, bag_mask, feat_mask,
-                learn_missing=learn_missing)
+                p, total_bins, Xb, g, h, bag_mask, feat_mask, **kw)
         if p.max_depth > 0 and p.hist_subtraction:
             # a visible, specific reason; hist_subtraction=False is a
             # deliberate choice and does not warn
@@ -61,13 +66,44 @@ def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
             warnings.warn(
                 f"batched leaf-wise grower unavailable: {reason} — "
                 "falling back to the sequential grower", stacklevel=2)
-    return grow_tree(p, total_bins, Xb, g, h, bag_mask, feat_mask,
-                     learn_missing=learn_missing)
+    return grow_tree(p, total_bins, Xb, g, h, bag_mask, feat_mask, **kw)
 
 
 def root_stats(hist0: torch.Tensor):
     """Leaf totals = feature-0 histogram sums (the reference's contract)."""
     return hist0[0, 0].sum(), hist0[1, 0].sum(), hist0[2, 0].sum()
+
+
+def pack_cat_bitset(cat_mask_nodes: torch.Tensor) -> torch.Tensor:
+    """(M, B) bool membership masks -> (M, CAT_WORDS) node bitsets, bin b
+    at word ``b >> 5``, bit ``b & 31`` (the reference's layout).  The
+    uint32 words are held in int64, bit 31 included."""
+    M, B = cat_mask_nodes.shape
+    width = CAT_WORDS * 32
+    catm = torch.nn.functional.pad(cat_mask_nodes, (0, max(width - B, 0)))
+    bits = catm[:, :width].reshape(M, CAT_WORDS, 32).to(torch.int64)
+    return (bits << torch.arange(32, device=bits.device)).sum(2)
+
+
+def finish_cat_fields(tree: dict, is_cat_feat, cat_nodes) -> dict:
+    """Give a grown tree its categorical fields: a categorical split node
+    stores threshold 0, default_left True, ``is_cat`` and the bitset of
+    its left set (its row of ``cat_nodes`` (M, B) bool); every other node
+    an empty bitset."""
+    feature = tree["feature"]
+    M = feature.shape[0]
+    if is_cat_feat is None:
+        tree["is_cat"] = torch.zeros(M, dtype=torch.bool,
+                                     device=feature.device)
+        tree["cat_bitset"] = torch.zeros((M, CAT_WORDS), dtype=torch.int64,
+                                         device=feature.device)
+        return tree
+    cat = is_cat_feat[torch.clamp(feature, min=0)] & (feature >= 0)
+    tree["is_cat"] = cat
+    tree["threshold"] = torch.where(cat, 0, tree["threshold"])
+    tree["default_left"] = tree["default_left"] | cat
+    tree["cat_bitset"] = pack_cat_bitset(cat_nodes & cat[:, None])
+    return tree
 
 
 def finalize_leaf_values(p, M: int, slot_node, slot_G, slot_H,
@@ -82,8 +118,8 @@ def finalize_leaf_values(p, M: int, slot_node, slot_G, slot_H,
 
 def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
               h: torch.Tensor, bag_mask: torch.Tensor,
-              feat_mask: torch.Tensor, *,
-              learn_missing: bool = False) -> dict[str, Any]:
+              feat_mask: torch.Tensor, *, learn_missing: bool = False,
+              is_cat_feat=None, bundled_mask=None) -> dict[str, Any]:
     """Grow one tree with the sequential slot machine (module doc)."""
     p = params
     N, F = Xb.shape
@@ -112,7 +148,8 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
             min_child_weight=p.min_child_weight,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
-            allow=allow, learn_missing=learn_missing)
+            allow=allow, learn_missing=learn_missing,
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
 
     row_slot = torch.zeros(N, dtype=i64, device=dev)
     hist0 = hist_of(torch.ones(N, dtype=torch.bool, device=dev))
@@ -138,7 +175,10 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
           "g_left": slots(0.0, f32, root["g_left"]),
           "h_left": slots(0.0, f32, root["h_left"]),
           "c_left": slots(0.0, f32, root["c_left"]),
-          "default_left": slots(True, torch.bool, root["default_left"])}
+          "default_left": slots(True, torch.bool, root["default_left"]),
+          "cat_mask": torch.zeros((L + 1,) + root["cat_mask"].shape[1:],
+                                  dtype=torch.bool, device=dev)}
+    sp["cat_mask"][0] = root["cat_mask"][0]
     hists = torch.zeros((L + 1, 3, F, B), dtype=f32, device=dev)
     hists[0] = hist0[0]
 
@@ -151,6 +191,8 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
     cover = torch.zeros(M + 1, dtype=f32, device=dev)
     cover[0] = C0[0]
     node_dleft = torch.ones(M + 1, dtype=torch.bool, device=dev)
+    cat_nodes = torch.zeros((M + 1,) + root["cat_mask"].shape[1:],
+                            dtype=torch.bool, device=dev)
     num_nodes = torch.ones(1, dtype=i64, device=dev)
     max_depth = torch.zeros(1, dtype=i64, device=dev)
     ar2 = torch.arange(2, dtype=i64, device=dev)
@@ -177,6 +219,12 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         go_left = bins_f <= thr
         if learn_missing:
             go_left &= dl | (bins_f > 0)
+        if is_cat_feat is not None:
+            # a categorical split sends its set of bins left
+            catm = sp["cat_mask"][s][0]
+            go_left = torch.where(is_cat_feat[torch.clamp(sf, min=0)],
+                                  catm[torch.clamp(bins_f, max=B - 1)],
+                                  go_left)
         new_r = right_slot[k:k + 1]
         row_slot = torch.where(ok & (row_slot == s) & ~go_left, new_r,
                                row_slot)
@@ -191,6 +239,7 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         left[pi] = ids[:1]
         right[pi] = ids[1:]
         node_dleft[pi] = dl
+        cat_nodes[pi] = sp["cat_mask"][s]
         cover[torch.where(ok, ids, M)] = torch.cat([CL, CR])
 
         # the smaller child's histogram directly, the larger by subtraction
@@ -226,7 +275,7 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
     value = finalize_leaf_values(p, M, slot_node[:L], slot_G[:L],
                                  slot_H[:L],
                                  torch.zeros(M, dtype=f32, device=dev))
-    return {
+    return finish_cat_fields({
         "feature": feature[:M],
         "threshold": threshold[:M],
         "left": left[:M],
@@ -239,4 +288,4 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         # each row's leaf node straight from the partition state
         "row_leaf": torch.clamp(slot_node[:L], min=0)[
             torch.clamp(row_slot, max=L - 1)],
-    }
+    }, is_cat_feat, cat_nodes[:M])

@@ -37,7 +37,9 @@ a full width (``phase_plan``) and the selection in a ``fori_loop`` whose
 ``lax.cond`` skips a trip without a finite gain.  Here the levels are a
 Python loop with the same per-phase widths, and a skipped trip is a masked
 update whose writes go to sentinel rows.  Nothing is fetched to the host.
-Categorical and monotone splits are outside the port (``config``).
+Each heap node carries its categorical left set (``nd_catmask``) through
+the expansion's routing and into the selected tree's bitsets.  Monotone
+splits are outside the port (``config``).
 """
 
 from __future__ import annotations
@@ -49,13 +51,18 @@ import torch
 from dryad_tpu_torch.config import MAX_FAST_DEPTH
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
-from dryad_tpu_torch.engine.grower import finalize_leaf_values, root_stats
+from dryad_tpu_torch.engine.grower import (
+    finalize_leaf_values,
+    finish_cat_fields,
+    root_stats,
+)
 from dryad_tpu_torch.engine.histogram import (
     build_hist,
     build_hist_segmented,
     require_kernel_bins,
 )
 from dryad_tpu_torch.engine.levelwise import (
+    cat_lookup,
     deep_layout_supported,
     packed_route,
 )
@@ -96,7 +103,8 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
                                g: torch.Tensor, h: torch.Tensor,
                                bag_mask: torch.Tensor,
                                feat_mask: torch.Tensor, *,
-                               learn_missing: bool = False
+                               learn_missing: bool = False,
+                               is_cat_feat=None, bundled_mask=None
                                ) -> dict[str, Any]:
     p = params
     N, F = Xb.shape
@@ -128,7 +136,8 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
             min_child_weight=p.min_child_weight,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
-            allow=allow, learn_missing=learn_missing)
+            allow=allow, learn_missing=learn_missing,
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
 
     d_switch, P_narrow, _ = phase_plan(D)
     T = leafperm.TILE_ROWS
@@ -174,6 +183,9 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     nd_H = table(0.0, f32, H0)
     nd_C = table(0.0, f32, C0)
     nd_dleft = table(True, torch.bool, root["default_left"][0])
+    nd_catmask = torch.zeros((HN,) + root["cat_mask"].shape[1:],
+                             dtype=torch.bool, device=dev)
+    nd_catmask[1] = root["cat_mask"][0]
     # level-d histograms at offsets 0..2^d-1; one sentinel row (Pf) takes
     # the dropped writes, the final level's children among them
     hists = torch.zeros((Pf + 1, 3, F, B), dtype=f32, device=dev)
@@ -198,12 +210,16 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         w0_t = (((nd_gain > NEG_INF).to(i64) << 31)
                 | (nd_dleft.to(i64) << 30)
                 | (torch.clamp(nd_thresh, 0, B - 1) << 16))
+        if is_cat_feat is not None:
+            w0_t |= is_cat_feat[torch.clamp(nd_feature, min=0)].to(i64) << 29
         rec_t = torch.cat([w0_t | (torch.clamp(nd_feature, min=0) << 32),
                            torch.zeros(1, dtype=i64, device=dev)])
+        catmask = None if is_cat_feat is None else nd_catmask
         do_n, left_n, _ = packed_route(
             rec_t[row_node],
             lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
-            learn_missing)
+            learn_missing,
+            None if catmask is None else cat_lookup(catmask, row_node))
         row_node = torch.where(do_n, 2 * row_node + (~left_n).to(i64),
                                row_node)
 
@@ -211,7 +227,7 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         if use_layout:
             hist_small, lay_rec, lay_tr, lay_ns = _wired_level(
                 lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B, F,
-                isz, n_sel[P], n_buf_tiles, learn_missing, shift)
+                isz, n_sel[P], n_buf_tiles, learn_missing, shift, catmask)
         else:
             hist_small = _legacy_level(
                 Xb, g, h, bag_mask, records, nat_tiles, row_node, idx, jarr,
@@ -246,10 +262,13 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         nd_H = drop_set(nd_H, cidx, ch_H)
         nd_C = drop_set(nd_C, cidx, ch_C)
         nd_dleft = drop_set(nd_dleft, cidx, res["default_left"])
+        nd_catmask = drop_set(nd_catmask, cidx, res["cat_mask"])
     del hists
 
     tree, slot_heap, slot_tree, child_tree = select_tree(
         L, M, HN, nd_gain, nd_feature, nd_thresh, nd_dleft, nd_C)
+    # a split node's left set is its heap node's
+    finish_cat_fields(tree, is_cat_feat, nd_catmask[tree.pop("heap")])
     sh = torch.clamp(slot_heap, 0, HN - 1)
     tree["value"] = finalize_leaf_values(
         p, M, slot_tree, nd_G[sh], nd_H[sh],
@@ -269,11 +288,13 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
 
 
 def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
-                 F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift):
+                 F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift,
+                 catmask=None):
     """One wired expansion level: sides off the layout records, one move
     (K2), the run bookkeeping under heap node ids, the smaller children as
-    contiguous runs of the new layout (K1, layout mode).  Returns
-    (hist_small, lay_rec, lay_tr, lay_ns)."""
+    contiguous runs of the new layout (K1, layout mode).  ``catmask`` (HN,
+    B) holds the heap nodes' categorical left sets, when any feature is
+    categorical.  Returns (hist_small, lay_rec, lay_tr, lay_ns)."""
     T = leafperm.TILE_ROWS
     dev = lay_rec.device
     i64 = torch.int64
@@ -284,8 +305,11 @@ def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
     rr_lay = rec_t[lns][lay_tr][:, None]
     rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
     valid_lay = rec3[:, :, 8] == 1
+    cat_of = (None if catmask is None else cat_lookup(
+        catmask, torch.clamp(lay_ns, max=HN - 1)[lay_tr][:, None]))
     do_lay, left_lay, _ = packed_route(
-        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing)
+        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing,
+        cat_of)
     side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
                        2).reshape(-1)
     del rr_lay, rec3, valid_lay, do_lay, left_lay
@@ -412,5 +436,8 @@ def select_tree(L: int, M: int, HN: int, nd_gain, nd_feature, nd_thresh,
         "cover": drop_set(cover, torch.where(picked, child_tree, M),
                           nd_C)[:M],
         "max_depth": torch.where(picked, depth.to(i64), 0).max(),
+        # each split node's heap id (0 elsewhere), for the caller's
+        # per-heap-node tables
+        "heap": heap,
     }
     return tree, slot_int[:L, 0], slot_int[:L, 1], child_tree

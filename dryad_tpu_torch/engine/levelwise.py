@@ -37,7 +37,11 @@ import torch
 
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
-from dryad_tpu_torch.engine.grower import finalize_leaf_values, root_stats
+from dryad_tpu_torch.engine.grower import (
+    finalize_leaf_values,
+    finish_cat_fields,
+    root_stats,
+)
 from dryad_tpu_torch.engine.histogram import (
     build_hist,
     build_hist_multi,
@@ -84,10 +88,14 @@ def phase_plan(depth_cap: int, num_leaves: int, nat_live: bool):
     return d_switch, P_narrow, P_full
 
 
-def packed_route(rr: torch.Tensor, bins_of, learn_missing: bool):
+def packed_route(rr: torch.Tensor, bins_of, learn_missing: bool,
+                 cat_of=None):
     """Per-row split routing off packed per-slot words: (splits?,
     goes-left?, w0).  ``rr`` int64 holds the reference's routing word w0 in
-    its low 32 bits and the split feature above them.
+    its low 32 bits and the split feature above them.  w0 holds the split
+    flag (bit 31), default-left (30), categorical (29), the threshold
+    (16..28) and a slot (0..15).  ``cat_of(bins)`` gives each row's
+    membership in its node's left set, read where bit 29 is set.
 
     The reference packs w0 in a uint32 with bit 31 set, beside the feature
     in a second uint32 column; torch's uint32 shifts and compares are thin,
@@ -99,13 +107,25 @@ def packed_route(rr: torch.Tensor, bins_of, learn_missing: bool):
     gl = bins_rf <= thr_r
     if learn_missing:
         gl &= (((w0r >> 30) & 1) != 0) | (bins_rf > 0)
+    if cat_of is not None:
+        gl = torch.where(((w0r >> 29) & 1) != 0, cat_of(bins_rf), gl)
     return (w0r >> 31) != 0, gl, w0r
+
+
+def cat_lookup(catmask: torch.Tensor, node: torch.Tensor):
+    """``cat_of`` for ``packed_route``: rows at ``node`` (any shape that
+    broadcasts against their bins) read ``catmask[node, min(bin, B-1)]``
+    of the (n, B) membership table, one flat gather."""
+    B = catmask.shape[1]
+    flat = catmask.reshape(-1)
+    return lambda bins: flat[node * B + torch.clamp(bins, max=B - 1)]
 
 
 def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
                         g: torch.Tensor, h: torch.Tensor,
                         bag_mask: torch.Tensor, feat_mask: torch.Tensor, *,
-                        learn_missing: bool = False) -> dict[str, Any]:
+                        learn_missing: bool = False, is_cat_feat=None,
+                        bundled_mask=None) -> dict[str, Any]:
     p = params
     N, F = Xb.shape
     B = int(total_bins)
@@ -134,7 +154,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             min_child_weight=p.min_child_weight,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
-            allow=allow, learn_missing=learn_missing)
+            allow=allow, learn_missing=learn_missing,
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
 
     T = leafperm.TILE_ROWS
     n_row_tiles = -(-N // T)
@@ -177,6 +198,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     sp["feature"] = torch.full((L,), -1, dtype=i64, device=dev)
     sp["threshold"] = torch.zeros(L, dtype=i64, device=dev)
     sp["default_left"] = torch.ones(L, dtype=torch.bool, device=dev)
+    sp["cat_mask"] = torch.zeros((L,) + root["cat_mask"].shape[1:],
+                                 dtype=torch.bool, device=dev)
     for k in sp:
         sp[k][0] = root[k][0]
     # one sentinel row (index L) takes the dropped histogram writes
@@ -191,6 +214,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     left = torch.zeros(M, dtype=i64, device=dev)
     right = torch.zeros(M, dtype=i64, device=dev)
     node_dleft = torch.ones(M, dtype=torch.bool, device=dev)
+    cat_nodes = torch.zeros((M,) + root["cat_mask"].shape[1:],
+                            dtype=torch.bool, device=dev)
     num_nodes = torch.ones((), dtype=i64, device=dev)
     splits_done = torch.zeros((), dtype=i64, device=dev)
     max_depth = torch.zeros((), dtype=i64, device=dev)
@@ -240,12 +265,15 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         left = drop_set(left, pidx, left_id)
         right = drop_set(right, pidx, right_id)
         node_dleft = drop_set(node_dleft, pidx, sp["default_left"][sj])
+        cat_nodes = drop_set(cat_nodes, pidx, sp["cat_mask"][sj])
         cover = drop_set(cover, torch.where(do, left_id, M), CL)
         cover = drop_set(cover, torch.where(do, right_id, M), CR)
 
         # ---- packed per-slot routing table (L+1,): w0 | feature << 32 -----
         w0_c = ((1 << 31) | (sp["default_left"][sj].to(i64) << 30)
                 | (torch.clamp(thr, 0, B - 1) << 16) | right_slot)
+        if is_cat_feat is not None:
+            w0_c |= is_cat_feat[torch.clamp(sf, min=0)].to(i64) << 29
         rec_t = drop_set(
             torch.zeros(L + 1, dtype=i64, device=dev),
             torch.where(do, sj, L + 1),
@@ -253,10 +281,12 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
 
         # natural-order routing of every row (each row's final leaf; the
         # legacy arm's histogram selection reads it too)
-        rr = rec_t[torch.clamp(row_slot, max=L - 1)]
+        rs = torch.clamp(row_slot, max=L - 1)
+        cat_of = (None if is_cat_feat is None
+                  else cat_lookup(sp["cat_mask"], rs))
         do_n, left_n, w0r = packed_route(
-            rr, lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
-            learn_missing)
+            rec_t[rs], lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
+            learn_missing, cat_of)
         row_do = do_n & (row_slot < L)
         row_slot = torch.where(row_do & ~left_n, w0r & 0xFFFF, row_slot)
 
@@ -264,7 +294,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         if use_layout:
             hist_l, hist_r, lay_rec, lay_tr, lay_rs = _wired_level(
                 p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
-                B, F, isz, sel_bound[P], n_buf_tiles, learn_missing, shift)
+                B, F, isz, sel_bound[P], n_buf_tiles, learn_missing, shift,
+                None if is_cat_feat is None else sp["cat_mask"])
         else:
             hist_l, hist_r = _legacy_level(
                 p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
@@ -298,7 +329,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
 
     value = finalize_leaf_values(p, M, slot_node, slot_G, slot_H,
                                  torch.zeros(M, dtype=f32, device=dev))
-    return {
+    return finish_cat_fields({
         "feature": feature,
         "threshold": threshold,
         "left": left,
@@ -311,14 +342,17 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         # each row's leaf node from the partition state (no re-traversal)
         "row_leaf": torch.clamp(slot_node, min=0)[
             torch.clamp(row_slot, max=L - 1)],
-    }
+    }, is_cat_feat, cat_nodes)
 
 
 def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
-                 B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift):
+                 B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift,
+                 catmask=None):
     """One wired level: sides off the layout records, one move (K2), the
     children as contiguous runs of the new layout (K1, layout mode).
-    Returns (hist_l, hist_r) and the advanced layout."""
+    ``catmask`` (L, B) holds the slots' categorical left sets, when any
+    feature is categorical.  Returns (hist_l, hist_r) and the advanced
+    layout."""
     T = leafperm.TILE_ROWS
     dev = lay_rec.device
     i64 = torch.int64
@@ -327,8 +361,13 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
     rr_lay = rec_t[torch.clamp(lay_rs, max=L)][lay_tr][:, None]
     rec3 = lay_rec.view(n_buf_tiles, T, leafperm.REC_WB)
     valid_lay = rec3[:, :, 8] == 1
+    # dead runs compose to the zero word, so their (clamped) slot's set is
+    # never read
+    cat_of = (None if catmask is None else cat_lookup(
+        catmask, torch.clamp(lay_rs, max=L - 1)[lay_tr][:, None]))
     do_lay, left_lay, _ = packed_route(
-        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing)
+        rr_lay, lambda rf: leafperm.tile_bins(rec3, rf, isz), learn_missing,
+        cat_of)
     side = torch.where(valid_lay, (do_lay & ~left_lay).to(i64),
                        2).reshape(-1)
     del rr_lay, rec3, valid_lay, do_lay, left_lay

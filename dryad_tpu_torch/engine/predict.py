@@ -14,6 +14,11 @@ Packed node-word layout (per node, two limbs):
 
 The reference stores the limbs as uint32.  Torch's uint32 shifts and
 compares are thin, so the port keeps the same field layout in int64.
+
+A model with categorical splits also carries each node's (CAT_WORDS,)
+bitset of the bins that go left: bin b is bit ``b & 31`` of word
+``min(b >> 5, CAT_WORDS - 1)``, read where is_cat (bit 29) is set.  A
+model without categorical splits traverses without the bitset.
 """
 
 from __future__ import annotations
@@ -115,12 +120,13 @@ def unpack_node_words(words: np.ndarray) -> dict:
 
 
 def stage_trees(booster, num_iteration: Optional[int] = None):
-    """(words (n_iter * K, M, 2) int64, value (n_iter * K, M) f32, init
-    (K,) f32, n_iter) for the traversal of the first ``n_iter``
-    iterations' trees, K per iteration.  Without ``num_iteration`` a
-    booster with a best iteration (early stopping) stops there.
-    Categorical splits and models whose fields do not fit the packed words
-    are later slices."""
+    """(words (n_iter * K, M, 2) int64, value (n_iter * K, M) f32, bitset
+    (n_iter * K, M, CAT_WORDS) int64 or None when no staged tree has a
+    categorical split, init (K,) f32, n_iter) for the traversal of the
+    first ``n_iter`` iterations' trees, K per iteration.  Without
+    ``num_iteration`` a booster with a best iteration (early stopping)
+    stops there.  Models whose fields do not fit the packed words are a
+    later slice."""
     if num_iteration is None:
         num_iteration = (booster.best_iteration
                          if booster.best_iteration > 0
@@ -128,9 +134,6 @@ def stage_trees(booster, num_iteration: Optional[int] = None):
     n_iter = min(num_iteration, booster.num_iterations)
     T = n_iter * booster.num_outputs
     ta = {k: v[:T] for k, v in booster.tree_arrays().items()}
-    if ta["is_cat"].any():
-        raise NotImplementedError(
-            "categorical splits are outside this slice of the port")
     reason = packed_fallback_reason(ta["feature"], ta["threshold"],
                                     ta["left"], ta["right"])
     if reason is not None:
@@ -139,13 +142,17 @@ def stage_trees(booster, num_iteration: Optional[int] = None):
             "traversal layout is a later slice of the port")
     words = pack_node_words(ta["feature"], ta["threshold"], ta["left"],
                             ta["right"], ta["default_left"], ta["is_cat"])
-    return (words, np.ascontiguousarray(ta["value"], np.float32),
+    bitset = (ta["cat_bitset"].astype(np.int64) if ta["is_cat"].any()
+              else None)
+    return (words, np.ascontiguousarray(ta["value"], np.float32), bitset,
             np.asarray(booster.init_score, np.float32), n_iter)
 
 
-def tree_leaves(words: torch.Tensor, Xb: torch.Tensor,
-                depth_bound: int) -> torch.Tensor:
-    """Leaf node id every row reaches in one tree (words (M, 2) int64)."""
+def tree_leaves(words: torch.Tensor, Xb: torch.Tensor, depth_bound: int,
+                bitset: torch.Tensor | None = None) -> torch.Tensor:
+    """Leaf node id every row reaches in one tree (words (M, 2) int64;
+    ``bitset`` (M, CAT_WORDS) int64 when the tree may split on a
+    categorical feature)."""
     node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
     for _ in range(max(int(depth_bound), 1)):
         w = words[node]                               # one gather per level
@@ -155,22 +162,29 @@ def tree_leaves(words: torch.Tensor, Xb: torch.Tensor,
         bins = Xb.gather(1, fc[:, None])[:, 0].to(torch.int64)
         go_left = bins <= (w1 & 0xFFFF)
         go_left &= (((w1 >> 28) & 1) != 0) | (bins != 0)
+        if bitset is not None:
+            word = bitset[node, torch.clamp(bins >> 5,
+                                            max=bitset.shape[1] - 1)]
+            go_left = torch.where(((w1 >> 29) & 1) != 0,
+                                  ((word >> (bins & 31)) & 1) != 0, go_left)
         nxt = torch.where(go_left, w0 & 0xFFFF, w0 >> 16)
         node = torch.where(internal, nxt, node)
     return node
 
 
 def add_tree(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
-             score: torch.Tensor, depth_bound: int) -> torch.Tensor:
+             score: torch.Tensor, depth_bound: int,
+             bitset: torch.Tensor | None = None) -> torch.Tensor:
     """``score + value[leaf]`` of one tree (words (M, 2), value (M,)) over
     rows ``Xb``: the fp32 add the boosting loop makes to a valid set's
     scores when the tree is grown (the counterpart of the reference's
     ``_apply_valid_jit``)."""
-    return score + value[tree_leaves(words, Xb, depth_bound)]
+    return score + value[tree_leaves(words, Xb, depth_bound, bitset)]
 
 
 def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
-               init: torch.Tensor, depth_bound: int) -> torch.Tensor:
+               init: torch.Tensor, depth_bound: int,
+               bitset: torch.Tensor | None = None) -> torch.Tensor:
     """Raw scores (N, K) for K = ``init.numel()``: init plus each tree's
     leaf value, tree t adding to column t % K, in fp32 in tree order (the
     reference's summation order per column, and the boosting loop's, so a
@@ -181,7 +195,8 @@ def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
     for t in range(words.shape[0]):
         k = t % K
         score[:, k] = add_tree(words[t], value[t], Xb, score[:, k],
-                               depth_bound)
+                               depth_bound,
+                               None if bitset is None else bitset[t])
     return score
 
 
@@ -191,10 +206,12 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
     outputs), computed on ``device``."""
     from dryad_tpu_torch.engine.train import binned_to_device
 
-    words, value, init, _ = stage_trees(booster, num_iteration)
+    words, value, bitset, init, _ = stage_trees(booster, num_iteration)
     raw = accumulate(torch.from_numpy(words).to(device),
                      torch.from_numpy(value).to(device),
                      binned_to_device(np.asarray(Xb), device),
                      torch.from_numpy(init).to(device),
-                     max(booster.max_depth_seen, 1))
+                     max(booster.max_depth_seen, 1),
+                     None if bitset is None
+                     else torch.from_numpy(bitset).to(device))
     return raw.cpu().numpy()

@@ -1,11 +1,17 @@
-"""Split-gain scan for numerical features, batched over candidates.
+"""Split-gain scan, batched over candidates.
 
 The counterpart of ``dryad_tpu/engine/split.py::find_best_split`` without
-its categorical and monotone arms.  The reference vmaps the scan over a
-level's candidates; here the candidate axis is a leading batch dimension.
-Per-feature prefix sums, the Newton gain on both sides, a validity mask,
-and one flat argmax with first-index tie-breaking (``torch.argmax``
-returns the first maximum, as ``jnp.argmax`` does).
+its monotone arm.  The reference vmaps the scan over a level's candidates;
+here the candidate axis is a leading batch dimension.  Per-feature prefix
+sums, the Newton gain on both sides, a validity mask, and one flat argmax
+with first-index tie-breaking (``torch.argmax`` returns the first maximum,
+as ``jnp.argmax`` does).
+
+Categorical features take the sorted-subset scan: a categorical column's
+bins are ordered by ``g / (h + CAT_SMOOTH)`` (empty bins last, a stable
+sort, so the lower bin wins a tie), the prefix sums run in that order, and
+the winning prefix becomes the left membership set, returned as a (K, B)
+bool mask.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float("-inf")
+CAT_SMOOTH = 10.0
 
 
 def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
@@ -20,13 +27,32 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                     min_child_weight: float, min_data_in_leaf: int,
                     min_split_gain: float, feat_mask: torch.Tensor,
                     allow: torch.Tensor,
-                    learn_missing: bool = False) -> dict[str, torch.Tensor]:
-    """hist (K, 3, F, B) f32; G/H/C/allow (K,).  Returns a dict of (K,)
+                    learn_missing: bool = False,
+                    is_cat_feat: torch.Tensor | None = None,
+                    bundled_mask: torch.Tensor | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """hist (K, 3, F, B) f32; G/H/C/allow (K,); ``is_cat_feat`` (F,) bool
+    when any feature is categorical (None skips the sorted-subset scan, so
+    numeric runs are unchanged); ``bundled_mask`` (F,) bool, EFB bundle
+    columns, kept out of the missing-right plane.  Returns a dict of (K,)
     tensors: gain (-inf where no valid split), feature (-1 then),
-    threshold, g_left, h_left, c_left, default_left."""
+    threshold (a bin id, or a categorical prefix length), g_left, h_left,
+    c_left, default_left, and cat_mask (K, B) bool, the left set of a
+    categorical split (all False otherwise; (K, 1) without categoricals)."""
     hg, hh, hc = hist[:, 0], hist[:, 1], hist[:, 2]
     K, F, B = hg.shape
+    dev = hist.device
     G3, H3, C3 = G[:, None, None], H[:, None, None], C[:, None, None]
+    if is_cat_feat is not None:
+        # a categorical column's bins in g/(h + smooth) order, empty last
+        ratio = torch.where(hc > 0, hg / (hh + CAT_SMOOTH), float("inf"))
+        iota = torch.arange(B, device=dev)
+        order = torch.where(is_cat_feat[None, :, None],
+                            torch.argsort(ratio, dim=2, stable=True),
+                            iota)
+        hg = torch.gather(hg, 2, order)
+        hh = torch.gather(hh, 2, order)
+        hc = torch.gather(hc, 2, order)
     GL = torch.cumsum(hg, dim=2)
     HL = torch.cumsum(hh, dim=2)
     CL = torch.cumsum(hc, dim=2)
@@ -53,6 +79,11 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         gain_r = gain_of(GL - g0, HL - h0, CL_r)
         # a right child of only missing rows mirrors plane 0 at t=0
         gain_r = torch.where((C3 - CL_r) > c0, gain_r, NEG_INF)
+        # categorical columns learn the missing direction by membership,
+        # and a bundle column's bin 0 means "every member at its default"
+        for off in (is_cat_feat, bundled_mask):
+            if off is not None:
+                gain_r = torch.where(off[None, :, None], NEG_INF, gain_r)
         both = torch.cat([gain, gain_r.reshape(K, F * B)], dim=1)
         flat2 = torch.argmax(both, dim=1)
         dleft = flat2 < F * B
@@ -70,6 +101,13 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         g_left = torch.where(dleft, g_left, g_left - hg[rows, f, 0])
         h_left = torch.where(dleft, h_left, h_left - hh[rows, f, 0])
         c_left = torch.where(dleft, c_left, c_left - hc[rows, f, 0])
+    if is_cat_feat is not None:
+        # the left set: bins whose rank in the scan order is <= t
+        rank = torch.empty_like(order[:, 0]).scatter_(
+            1, order[rows, f], iota.expand(K, B))
+        cat_mask = (rank <= t[:, None]) & (is_cat_feat[f] & ok)[:, None]
+    else:
+        cat_mask = torch.zeros((K, 1), dtype=torch.bool, device=dev)
     return {
         "gain": torch.where(ok, best_gain, NEG_INF),
         "feature": torch.where(ok, f, -1),
@@ -78,4 +116,5 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         "h_left": h_left,
         "c_left": c_left,
         "default_left": dleft | ~ok,
+        "cat_mask": cat_mask,
     }

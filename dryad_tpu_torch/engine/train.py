@@ -60,7 +60,7 @@ from dryad_tpu_torch.metrics.device import make_evaluator
 from dryad_tpu_torch.objectives import get_objective, renew_alpha
 
 TREE_KEYS = ("feature", "threshold", "left", "right", "value", "gain",
-             "default_left", "cover")
+             "default_left", "cover", "is_cat", "cat_bitset")
 
 
 def binned_to_device(X_binned: np.ndarray, device) -> torch.Tensor:
@@ -69,6 +69,20 @@ def binned_to_device(X_binned: np.ndarray, device) -> torch.Tensor:
     if X_binned.dtype == np.uint8:
         return torch.from_numpy(np.ascontiguousarray(X_binned)).to(device)
     return torch.from_numpy(X_binned.astype(np.int32)).to(device)
+
+
+def feature_kinds(mapper, learn_missing: bool, device):
+    """(is_cat_feat, bundled_mask) as the growers take them: the (F,)
+    categorical flags when the mapper has a categorical feature (the
+    reference's static ``has_cat``), else None; the EFB bundle columns
+    when there are any and the missing-right plane is scanned, else None,
+    so numeric runs keep their program."""
+    is_cat = mapper.is_categorical
+    bundled = getattr(mapper, "bundled_mask", None)
+    return ((torch.from_numpy(is_cat).to(device) if is_cat.any() else None),
+            (torch.from_numpy(bundled).to(device)
+             if learn_missing and bundled is not None and bundled.any()
+             else None))
 
 
 def class_grads(obj, score: torch.Tensor, y: torch.Tensor,
@@ -131,6 +145,10 @@ def _empty_out(T: int, M: int, device) -> dict[str, torch.Tensor]:
         "gain": torch.zeros((T, M), dtype=torch.float32, device=device),
         "default_left": torch.ones((T, M), dtype=torch.bool, device=device),
         "cover": torch.zeros((T, M), dtype=torch.float32, device=device),
+        "is_cat": torch.zeros((T, M), dtype=torch.bool, device=device),
+        # uint32 words held in int64
+        "cat_bitset": torch.zeros((T, M, CAT_WORDS), dtype=i64,
+                                  device=device),
         "max_depth": torch.zeros(T, dtype=i64, device=device),
     }
 
@@ -146,8 +164,8 @@ def _materialize(p: Params, mapper, out, T: int, init, max_depth_prev: int,
         "left": host["left"].astype(np.int32),
         "right": host["right"].astype(np.int32),
         "value": host["value"],
-        "is_cat": np.zeros((T, M), bool),
-        "cat_bitset": np.zeros((T, M, CAT_WORDS), np.uint32),
+        "is_cat": host["is_cat"],
+        "cat_bitset": host["cat_bitset"].astype(np.uint32),
         "gain": host["gain"],
         "default_left": host["default_left"],
         "cover": host["cover"],
@@ -211,6 +229,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     # L1-family leaf renewal; the whole gate lives in renew_alpha
     renew_a = renew_alpha(p, weighted=data.weight is not None)
     learn_missing = data.has_missing
+    is_cat_feat, bundled_mask = feature_kinds(data.mapper, learn_missing,
+                                              device)
     # a static bound at or above every tree's depth; traversal is exact for
     # any such bound
     depth_bound = (p.max_depth if p.max_depth > 0
@@ -222,14 +242,20 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     max_depth_prev = 0
     replay = None
     if prev is not None:
-        words, value, _, n_prev = stage_trees(prev, prev.num_iterations)
+        words, value, bitset, _, n_prev = stage_trees(prev,
+                                                       prev.num_iterations)
         replay = (torch.from_numpy(words).to(device),
                   torch.from_numpy(value).to(device),
-                  max(prev.max_depth_seen, 1))
-        score = accumulate(*replay[:2], Xb, init_t, replay[2])
+                  max(prev.max_depth_seen, 1),
+                  None if bitset is None
+                  else torch.from_numpy(bitset).to(device))
+        score = accumulate(*replay[:2], Xb, init_t, *replay[2:])
         ta = prev.tree_arrays()
         for key in TREE_KEYS:
-            out[key][:n_prev * K] = torch.from_numpy(ta[key]).to(
+            # the uint32 bitsets travel as int64
+            arr = (ta[key].astype(np.int64) if ta[key].dtype == np.uint32
+                   else ta[key])
+            out[key][:n_prev * K] = torch.from_numpy(arr).to(
                 device=device, dtype=out[key].dtype)
         start_iter = n_prev
         max_depth_prev = prev.max_depth_seen
@@ -260,7 +286,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         vscores = [init_t.reshape(1, K).expand(v.num_rows, K).clone()
                    for _, v in valids]
     else:
-        vscores = [accumulate(*replay[:2], vXb, init_t, replay[2])
+        vscores = [accumulate(*replay[:2], vXb, init_t, *replay[2:])
                    for vXb in vXbs]
     best_iteration, best_value, stale = -1, None, 0
     if init_booster is not None:
@@ -309,7 +335,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         for k, (g, h) in enumerate(grads(score)):
             t = it * K + k
             tree = grow_any(p, B, Xb, g, h, bag, fmask,
-                            learn_missing=learn_missing)
+                            learn_missing=learn_missing,
+                            is_cat_feat=is_cat_feat,
+                            bundled_mask=bundled_mask)
             if renew_a is not None:
                 # before the score update, the tree table and the valid
                 # scores, so all three carry the renewed values
@@ -323,10 +351,11 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             if valids:
                 words = pack_words(tree["feature"], tree["threshold"],
                                    tree["left"], tree["right"],
-                                   tree["default_left"])
+                                   tree["default_left"], tree["is_cat"])
+                bitset = None if is_cat_feat is None else tree["cat_bitset"]
                 for vXb, vs in zip(vXbs, vscores):
                     vs[:, k] = add_tree(words, tree["value"], vXb, vs[:, k],
-                                        depth_bound)
+                                        depth_bound, bitset)
 
         info: dict = {"iteration": it}
         stop = False

@@ -12,8 +12,11 @@ rounded once); each kernel twice and K2 against the numpy oracle bitwise;
 K1's two modes and K3 bitwise equal on the same rows; a tree grown on the
 card vs on the CPU, depthwise or leaf-wise, on either arm: integer arrays
 (row_leaf included) equal and leaf values within 1e-4 (the split scan's
-fp32 prefix sums may round differently on the two devices); multiclass
-training on the card vs the CPU as its test states.
+fp32 prefix sums may round differently on the two devices); categorical
+trees on the card bitwise run to run, their routing equal to predict's,
+and the scan's stable order equal to the CPU's; categorical training on
+the reference's tie-free fixtures, and bagged and multiclass training, on
+the card vs the CPU as each test states.
 """
 
 import numpy as np
@@ -228,6 +231,118 @@ def test_leafwise_tree_on_card_matches_cpu(cuda_device, layout):
     np.testing.assert_allclose(card["value"].cpu().numpy(),
                                cpu["value"].numpy(), atol=1e-4)
     assert int((cpu["feature"] >= 0).sum()) == 127
+
+
+@pytest.mark.cuda
+def test_categorical_order_on_card_matches_cpu(cuda_device):
+    """The sorted-subset scan's order: a stable argsort along the bins of
+    (K, F, B) fp32 ratios with exact ties and ``+inf`` (empty bins) gives
+    the CPU's order on the card, the lower bin first in a tie."""
+    rng = np.random.default_rng(8)
+    ratio = rng.integers(-6, 7, (64, 39, 256)).astype(np.float32) / 4
+    ratio[rng.random(ratio.shape) < 0.3] = np.inf
+    r = torch.from_numpy(ratio)
+    cpu = torch.argsort(r, dim=2, stable=True)
+    for _ in range(2):
+        card = torch.argsort(r.to(cuda_device), dim=2, stable=True)
+        assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth,layout", [
+    ("depthwise", "auto"), ("depthwise", "legacy"), ("leafwise", "auto")])
+def test_categorical_tree_on_card_routes_as_predict(cuda_device, growth,
+                                                   layout):
+    """One tree of CSR-ingested Criteo-shaped rows (30k rows, 26
+    categorical features, 64 bins) on the card, on each arm: two runs
+    bitwise equal, categorical splits present, and every row's leaf from
+    the grower's routing (bit 29 and the membership gathers) equal to the
+    leaf predict's bitset traversal reaches.  (Against the CPU's tree the
+    split scan's fp32 prefix sums round differently on the two devices,
+    which flips near-ties on this tie-heavy data.)"""
+    from dryad_tpu_torch.engine.grower import grow_any
+    from dryad_tpu_torch.engine.predict import pack_words, tree_leaves
+    from dryad_tpu_torch.engine.train import feature_kinds
+
+    csr, y, cat = datasets.criteo_like(30_000, seed=43)
+    ds = Dataset(None, y, csr=csr, categorical_features=cat, max_bins=64)
+    B, F = ds.mapper.total_bins, ds.num_features
+    p = Params(growth=growth, max_depth=6, num_leaves=63, max_bins=64,
+               deep_layout=layout, categorical_features=cat)
+    yt = torch.from_numpy(ds.y).to(cuda_device)
+    g, h = Binary().grad_hess(
+        torch.full_like(yt, float(Binary().init_score(ds.y))), yt)
+    Xb = torch.from_numpy(ds.X_binned).to(cuda_device)
+    is_cat_feat, _ = feature_kinds(ds.mapper, False, cuda_device)
+    args = (p, B, Xb, g, h,
+            torch.ones(ds.num_rows, dtype=torch.bool, device=cuda_device),
+            torch.ones(F, dtype=torch.bool, device=cuda_device))
+    t1 = grow_any(*args, is_cat_feat=is_cat_feat)
+    t2 = grow_any(*args, is_cat_feat=is_cat_feat)
+    for k in t1:
+        assert torch.equal(t1[k], t2[k]), k
+    assert t1["is_cat"].any()
+    words = pack_words(t1["feature"], t1["threshold"], t1["left"],
+                       t1["right"], t1["default_left"], t1["is_cat"])
+    leaves = tree_leaves(words, Xb, 6, t1["cat_bitset"])
+    assert torch.equal(leaves, t1["row_leaf"])
+
+
+def _cat_fixture_leafwise_bagged():
+    rng = np.random.Generator(np.random.Philox(5))
+    n = 2000
+    cat = rng.integers(0, 12, size=n).astype(np.float32)
+    Xnum = rng.normal(size=(n, 5)).astype(np.float32)
+    X = np.column_stack([cat, Xnum])
+    y = ((cat % 3 == 0).astype(np.float32) * 1.5 + Xnum[:, 0]
+         + rng.normal(size=n) * 0.3 > 0.5).astype(np.float32)
+    return X, y, dict(objective="binary", num_trees=6, num_leaves=8,
+                      max_bins=32, categorical_features=[0], subsample=0.8,
+                      colsample=0.8, seed=9)
+
+
+def _cat_fixture_depthwise_bagged():
+    rng = np.random.Generator(np.random.Philox(11))
+    n = 2500
+    cat = rng.integers(0, 9, size=n).astype(np.float32)
+    Xnum = rng.normal(size=(n, 4)).astype(np.float32)
+    X = np.column_stack([cat, Xnum])
+    y = ((cat % 2 == 0) * 1.2 + Xnum[:, 0] + rng.normal(size=n) * 0.3
+         > 0.6).astype(np.float32)
+    return X, y, dict(objective="binary", num_trees=5, num_leaves=16,
+                      max_depth=4, growth="depthwise", max_bins=32,
+                      categorical_features=[0], subsample=0.8, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["auto", "legacy"])
+@pytest.mark.parametrize("make", [_cat_fixture_leafwise_bagged,
+                                  _cat_fixture_depthwise_bagged])
+def test_categorical_training_on_card_matches_cpu(cuda_device, make, layout):
+    """The reference's two bagged categorical fixtures (no near-ties; the
+    same data as tests/test_engine_parity.py's) trained on the card and on
+    the CPU, on either arm: integer arrays, ``is_cat`` and ``cat_bitset``
+    equal, leaf values within 1e-4, covers within 1e-5 relative; the
+    card's raw predict of its model equals the CPU's bit for bit."""
+    import dryad_tpu_torch as dt
+
+    X, y, params = make()
+    ds = Dataset(X, y, categorical_features=[0], max_bins=32)
+    params = dict(params, deep_layout=layout)
+    cpu = dt.train(params, ds, device="cpu")
+    card = dt.train(params, ds, device=cuda_device)
+    assert cpu.arrays["is_cat"].any()
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "is_cat", "cat_bitset"):
+        np.testing.assert_array_equal(card.arrays[k], cpu.arrays[k],
+                                      err_msg=k)
+    np.testing.assert_allclose(card.arrays["value"], cpu.arrays["value"],
+                               atol=1e-4)
+    np.testing.assert_allclose(card.arrays["cover"], cpu.arrays["cover"],
+                               rtol=1e-5)
+    np.testing.assert_array_equal(
+        dt.predict(card, X, raw_score=True, device=cuda_device),
+        dt.predict(card, X, raw_score=True, device="cpu"))
 
 
 @pytest.mark.cuda

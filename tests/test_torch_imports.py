@@ -96,4 +96,5 @@ def test_scan_covers_the_training_loop_modules():
     assert {"engine/train.py", "engine/loop_state.py", "metrics/__init__.py",
             "metrics/device.py", "callbacks.py", "checkpoint.py",
             "booster.py", "dataset.py", "engine/lambdarank.py",
-            "objectives.py"} <= names
+            "objectives.py", "data/bundling.py", "data/binning.py",
+            "data/sketch.py"} <= names

@@ -154,10 +154,15 @@ def test_params_aliases_and_slice_limits():
         assert q.growth == ok.get("growth", "leafwise").replace(
             "lossguide", "leafwise")
         assert q.max_depth == ok.get("max_depth", -1)
+    # categorical features are accepted, as a tuple
+    assert dt.Params.from_dict(
+        {"categorical_features": [1, 3]}).categorical_features == (1, 3)
     for bad, name in (({"unbounded_depth": "bogus"}, "unbounded_depth"),
-                      ({"categorical_features": [1]}, "categorical_features"),
+                      ({"categorical_features": [1], "max_bins": 512},
+                       "categorical"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "categorical_features": [1]}, "categorical_features"),
+                        "monotone_constraints": [1]},
+                       "monotone_constraints"),
                       ({"growth": "depthwise", "max_depth": 4,
                         "top_rate": 0.5}, "goss_top_rate"),
                       ({"growth": "depthwise", "max_depth": 4,
