@@ -162,6 +162,41 @@ Phases (any failed check exits non-zero):
    equal CPU trees, card predict bitwise equal to CPU predict, a model
    file saved on the card loads and predicts bitwise, and its mapper
    bytes equal the CPU run's file's.
+24. GOSS (``boosting="goss"``, rates 0.2 and 0.1) on the Higgs rows of
+   phase 2 at the headline config (depthwise depth 8, 255 leaves, 256
+   bins, wired), the 1M held-out rows as the valid set, 20 trees: the
+   card's uniforms equal the numpy copy at 10M rows for iterations 0
+   and 1; the card's selection (mask, amplified g and h) equals the CPU's
+   bitwise; K1's root and K2's level-0 move under the GOSS mask against
+   their plain versions (the kept rows moved once); 9 K1 and 8 K2
+   launches a tree; a second run bitwise; card predict bitwise CPU; the
+   last eval within 1e-5 of the host AUC; AUC rising and above 0.70;
+   the selection's ms, the tree's fixed-point shift with and without the
+   amplification, one tree profiled;
+25. monotone constraints on features 6-9 (each with the sign of its
+   weight in ``higgs_like``'s linear term), depthwise and leaf-wise
+   (depth 8, 255 leaves, wired), 20 trees each: 9 K1 and 8 K2 launches a
+   tree; predict monotone along each constrained feature over 256 held-out
+   rows x 64 grid points within 1e-6; AUC rising; the widest level's
+   split scan timed with and without its monotone arm;
+26. DART (drop rate 0.1, skip 0.5, at most 50) at the headline config,
+   validated, 20 trees: the loop's drop sets equal ``dart_drop_set``'s;
+   its final valid scores equal CPU predict of the final table bitwise;
+   no best iteration; 9 K1 and 8 K2 launches a tree; the drop
+   iterations' times beside the others';
+27. rf (subsample 0.7, colsample 0.8) at the headline config,
+   validated, 20 trees: K1's root under the bag against its plain
+   version; 9 K1 and 8 K2 launches a tree; the streamed AUC equals the
+   host AUC of (averaged) predict within 1e-5; card predict bitwise CPU;
+28. the modes' fixtures on ``higgs_like(50_000, seed=43)``, 64 bins:
+   GOSS and monotone wired = legacy (depth 8, 128 leaves; K3 and K1 row
+   mode of a legacy tree against their plain versions) and, leaf-wise at
+   depth 8, batched = sequential; DART and rf (depth 6) killed at
+   iteration 7 and resumed from checkpoints every 3, bitwise; each mode's
+   card trees equal the CPU's (values within 1e-4).
+
+Phases 24-28 run after phase 15, while the Higgs rows are still held; the
+log's ``phase seconds`` keys them "24-27" and "28".
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -494,7 +529,7 @@ def dev_us(e) -> float:
 
 def profile_tree(params, ds, dev, fname: str) -> dict:
     """One iteration of the grower, one tree per output (under iteration
-    0's bag and feature mask), under torch.profiler: device time by
+    0's bag and feature mask, or GOSS's selection), under torch.profiler: device time by
     kernel, and the device's busy share of its wall time (measured again
     without the profiler).  The table goes to chiprun_out/<fname>."""
     import torch
@@ -502,6 +537,7 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
 
     import dryad_tpu_torch as dt
     from dryad_tpu_torch.config import effective_depth_params
+    from dryad_tpu_torch.engine.goss import goss_columns
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.loop_state import sample_masks
     from dryad_tpu_torch.engine.train import (
@@ -526,6 +562,9 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
            if row_mask is None else torch.from_numpy(row_mask).to(dev))
     fmask = (torch.ones(ds.num_features, dtype=torch.bool, device=dev)
              if feat_mask is None else torch.from_numpy(feat_mask).to(dev))
+    if p.boosting == "goss":
+        # iteration 0's selection replaces the bag, as in the loop
+        cols, bag = goss_columns(p, 0, cols, bag)
 
     is_cat_feat, bundled_mask = feature_kinds(ds.mapper, ds.has_missing,
                                               dev)
@@ -2605,6 +2644,432 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
     return launches, nat, rows
 
 
+# ---- phases 24-28: GOSS, monotone constraints, DART and rf (M10b) ---------
+MODE_BASE = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+             "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+             "seed": 0, "metric": "auc"}
+MODE_TREES = 20
+GOSS = dict(MODE_BASE, boosting="goss", goss_top_rate=0.2,
+            goss_other_rate=0.1)
+DART = dict(MODE_BASE, boosting="dart", drop_rate=0.1, skip_drop=0.5,
+            max_drop=50)
+RF = dict(MODE_BASE, boosting="rf", subsample=0.7, colsample=0.8)
+MONO_FEATURES = (6, 7, 8, 9)
+MONO_GRID = (256, 64)           # base rows x points along each feature
+
+
+def higgs_w1(n: int, seed: int, num_features: int = 28):
+    """``higgs_like``'s linear weights ``w1`` for ``n`` rows: the generator
+    draws X first, so its normals are drawn again (in blocks, without
+    keeping them) to reach w1."""
+    import numpy as np
+
+    rng = np.random.Generator(np.random.Philox(seed))
+    left = n * num_features
+    while left:
+        step = min(left, 1 << 26)
+        rng.normal(size=step)
+        left -= step
+    return rng.normal(size=num_features).astype(np.float32)
+
+
+def train_valid(dt, params, ds, dv, dev, extra=None):
+    """A main-path run with the valid set and a callback, the launch
+    counts set to 0 just before it; returns (booster, counts, evals)."""
+    from dryad_tpu_torch.engine import cuda_build
+
+    infos = []
+    cuda_build.reset_counts()
+    booster = dt.train(params, ds, [dv], device=dev,
+                       callback=lambda it, info: infos.append(info),
+                       **(extra or {}))
+    return booster, dict(cuda_build.counts), [i["valid_auc"] for i in infos]
+
+
+def root_and_move(dt, a, params, ds, dev, kept: int, what: str) -> tuple:
+    """One capture iteration: K1's masked root and K2's level-0 move
+    against their plain versions, with ``kept`` rows in the root and
+    moved exactly once."""
+    import torch
+
+    from dryad_tpu_torch.engine import hist, leafperm
+
+    calls = capture(dt, params, ds, dev,
+                    {"hist": (hist, "hist_tiles"),
+                     "perm": (leafperm, "permute_records")})
+    check(len(calls["hist"]) == 9 and len(calls["perm"]) == 8,
+          f"{what} capture tree made {len(calls['hist'])} histogram calls "
+          f"and {len(calls['perm'])} row moves")
+    root_args = calls["hist"][0][0]
+    root = check_hist(root_args, f"{what} hist root", a.reps)
+    n_root = int(hist.hist_tiles(*root_args)[0, 2, 0].sum())
+    check(root["P"] == 1 and n_root == kept,
+          f"{what} root: {n_root} rows counted, {kept} kept")
+    check_bag_move(calls["perm"][0][0], kept)
+    perm0 = check_perm(calls["perm"][0][0], a.reps)
+    perm0.update(kept_rows=kept, dropped_rows=ds.num_rows - kept)
+    root["shift"] = root_args[-1].tolist()
+    del calls
+    torch.cuda.empty_cache()
+    return root, perm0
+
+
+def mode_summary(booster, curve, launches) -> dict:
+    return dict(tree_summary(booster), launches=launches,
+                trees=booster.num_iterations,
+                auc={"tree_1": curve[0], "last": curve[-1]})
+
+
+def phase_goss(dt, a, ds, dv, Xv, yv, dev, report) -> tuple:
+    """Phase 24: GOSS at the headline config, validated."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import goss, hist, loop_state
+    from dryad_tpu_torch.metrics import auc
+    from dryad_tpu_torch.objectives import Binary
+
+    params = dict(GOSS, num_trees=MODE_TREES)
+    p = dt.Params.from_dict(params)
+    N = ds.num_rows
+    for it in (0, 1):
+        u = goss.goss_uniform_dev(p.seed, it, N, dev)
+        check(np.array_equal(u.cpu().numpy(),
+                             loop_state.goss_uniform(p, it, N)),
+              f"goss: the card's uniforms of iteration {it} differ from "
+              "the numpy copy")
+    # iteration 0's selection on the card and on the CPU
+    y_dev = torch.from_numpy(ds.y).to(dev)
+    g, h = Binary().grad_hess(torch.full_like(y_dev, float(
+        Binary().init_score(ds.y))), y_dev)
+    u = goss.goss_uniform_dev(p.seed, 0, N, dev)
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    args = (p, N, g[:, None], h[:, None], u, ones)
+    card = goss.goss_select(*args)
+    cpu = goss.goss_select(p, N, g[:, None].cpu(), h[:, None].cpu(),
+                           u.cpu(), ones.cpu())
+    for name, x, z in zip(("g", "h", "mask"), card, cpu):
+        check(torch.equal(x.cpu(), z), f"goss: the card's selection ({name})"
+              " differs from the CPU's")
+    kept = int(card[2].sum())
+    sel_ms = time_ms(lambda: goss.goss_select(*args), a.reps)
+    shifts = {"goss": hist.fixed_point_shift(card[0][:, 0], card[1][:, 0],
+                                             N).tolist(),
+              "unsampled": hist.fixed_point_shift(g, h, N).tolist()}
+    del card, cpu, args, u, ones, g, h, y_dev
+    root, perm0 = root_and_move(dt, a, params, ds, dev, kept, "goss")
+
+    booster, launches, curve = train_valid(dt, params, ds, dv, dev)
+    n = booster.num_iterations
+    check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "goss")
+    b2, _, curve2 = train_valid(dt, params, ds, dv, dev)
+    same_trees(booster, b2, "goss")
+    check(curve2 == curve, "goss: a second run's evals differ")
+    raw = dt.predict(booster, Xv, raw_score=True, device=dev)
+    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+                                         device="cpu")),
+          "goss: card predict != CPU predict")
+    host = auc(yv, raw)
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"goss: last valid_auc {curve[-1]} vs host AUC {host}")
+    check(curve[-1] > curve[0] and curve[-1] > 0.70,
+          f"goss: AUC {curve[0]} -> {curve[-1]}")
+    prof = profile_tree(params, ds, dev, "profile_goss_tree.txt")
+    rep = dict(mode_summary(booster, curve, launches), kept_rows=kept,
+               selection_ms=sel_ms, fixed_point_shift=shifts,
+               busy_share=prof.get("busy_share", "not measured"),
+               profile=prof, hist_root=brief(root), perm_level0=brief(perm0))
+    print("goss: " + json.dumps(rep), flush=True)
+    print("goss: uniforms and selection card = CPU bitwise; K1 root and K2 "
+          "level 0 under the mask bitwise; second run and predict bitwise",
+          flush=True)
+    report["goss"] = rep
+    return launches, root, perm0
+
+
+def phase_monotone(dt, a, ds, Xv, yv, dev, report) -> tuple:
+    """Phase 25: monotone constraints on features 6-9, depthwise and
+    leaf-wise, both wired."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import levelwise, split
+    from dryad_tpu_torch.metrics import auc
+
+    w1 = higgs_w1(ds.num_rows + len(yv), report["seed"])
+    mono = [0] * ds.num_features
+    for f in MONO_FEATURES:
+        mono[f] = 1 if w1[f] > 0 else -1
+    base = dict(MODE_BASE, monotone_constraints=mono, num_trees=MODE_TREES)
+    nb, ng = MONO_GRID
+    rep, by_path = {"constraints": mono}, {}
+    for what, params in (("depthwise", base),
+                         ("leafwise", dict(base, growth="leafwise"))):
+        booster, launches, _ = train_counted(dt, params, ds, dev)
+        n = booster.num_iterations
+        check_launches(launches, {"hist": 9 * n, "perm": 8 * n},
+                       f"monotone {what}")
+        worst = 0.0
+        for f in MONO_FEATURES:
+            pts = np.repeat(Xv[:nb], ng, axis=0)
+            pts[:, f] = np.tile(np.linspace(Xv[:, f].min(), Xv[:, f].max(),
+                                            ng, dtype=np.float32), nb)
+            s = dt.predict(booster, pts, raw_score=True,
+                           device=dev).reshape(nb, ng)
+            d = float((mono[f] * np.diff(s, axis=1)).min())
+            worst = min(worst, d)
+            check(d >= -1e-6, f"monotone {what}: feature {f} moves against "
+                  f"its sign by {d}")
+        a1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
+        a_last = auc(yv, dt.predict(booster, Xv, device=dev))
+        check(a_last > a1, f"monotone {what}: AUC {a1} -> {a_last}")
+        rep[what] = dict(tree_summary(booster), launches=launches,
+                         auc={"tree_1": a1, "last": a_last},
+                         worst_step=worst)
+        by_path[f"monotone_{what}"] = launches
+    # the scan of the widest depthwise level, with and without its arm
+    calls = capture(dt, base, ds, dev,
+                    {"scan": (levelwise, "find_best_split")})
+    sa, skw = calls["scan"][-1]
+    free = {k: v for k, v in skw.items() if k not in ("monotone", "lo",
+                                                      "hi")}
+    rep["scan_ms"] = {
+        "monotone": time_ms(lambda: split.find_best_split(*sa, **skw),
+                            a.reps),
+        "unconstrained": time_ms(lambda: split.find_best_split(*sa, **free),
+                                 a.reps),
+        "candidates": int(sa[0].shape[0])}
+    del calls, sa, skw, free
+    torch.cuda.empty_cache()
+    print("monotone: " + json.dumps(rep), flush=True)
+    print(f"monotone: predict monotone along features {MONO_FEATURES} over "
+          f"{nb} x {ng} grids on both growers", flush=True)
+    report["monotone"] = rep
+    return by_path
+
+
+def phase_dart(dt, a, ds, dv, Xv, yv, dev, report) -> dict:
+    """Phase 26: DART at the headline config, validated."""
+    import numpy as np
+
+    from dryad_tpu_torch.engine import train as engine_train
+    from dryad_tpu_torch.engine.loop_state import dart_drop_set
+    from dryad_tpu_torch.metrics import auc
+
+    params = dict(DART, num_trees=MODE_TREES)
+    p = dt.Params.from_dict(params)
+    K = p.num_outputs
+    n_valid = len(yv)
+    drops, valid_out = [], []
+    real = {k: getattr(engine_train, k) for k in ("dart_drop", "add_tree",
+                                                  "accumulate")}
+
+    def spy_drop(out, score, tids, *rest):
+        drops.append(sorted(set((np.asarray(tids) // K).tolist())))
+        return real["dart_drop"](out, score, tids, *rest)
+
+    def keep(name):
+        def f(*args):
+            r = real[name](*args)
+            if r.shape[0] == n_valid:
+                valid_out[:] = [r]
+            return r
+        return f
+
+    engine_train.dart_drop = spy_drop
+    engine_train.add_tree = keep("add_tree")
+    engine_train.accumulate = keep("accumulate")
+    try:
+        booster, launches, curve = train_valid(dt, params, ds, dv, dev)
+    finally:
+        for k, f in real.items():
+            setattr(engine_train, k, f)
+    n = booster.num_iterations
+    check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "dart")
+    want = [dart_drop_set(p, it, it).tolist() for it in range(n)]
+    check(any(want), "dart: no iteration dropped")
+    check(drops == [w for w in want if w],
+          f"dart: drops {drops} differ from dart_drop_set's {want}")
+    final = valid_out[0].reshape(n_valid, -1)[:, 0].cpu().numpy()
+    check(np.array_equal(final, dt.predict(booster, Xv, raw_score=True,
+                                           device="cpu")),
+          "dart: the trainer's final valid scores differ from CPU predict")
+    check(booster.best_iteration == -1, "dart: a best iteration was kept")
+    host = auc(yv, final)
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"dart: last valid_auc {curve[-1]} vs host AUC {host}")
+    check(curve[-1] > curve[0] and curve[-1] > 0.70,
+          f"dart: AUC {curve[0]} -> {curve[-1]}")
+    ts = booster.tree_seconds
+    drop_its = [it for it in range(n) if want[it]]
+    rest = [ts[it] for it in range(1, n) if not want[it]]
+    rep = dict(mode_summary(booster, curve, launches),
+               drop_iterations=drop_its,
+               dropped_per_drop=[len(w) for w in want if w],
+               drop_iteration_ms=[ts[it] * 1e3 for it in drop_its],
+               other_iteration_ms_mean=(sum(rest) / len(rest) * 1e3
+                                        if rest else None))
+    print("dart: " + json.dumps(rep), flush=True)
+    print("dart: drop sets = dart_drop_set's; final valid scores bitwise "
+          "CPU predict; no best iteration", flush=True)
+    report["dart"] = rep
+    return launches
+
+
+def phase_rf(dt, a, ds, dv, Xv, yv, dev, report) -> tuple:
+    """Phase 27: rf at the headline config, validated."""
+    import numpy as np
+
+    from dryad_tpu_torch.engine.loop_state import sample_masks
+    from dryad_tpu_torch.metrics import auc
+
+    params = dict(RF, num_trees=MODE_TREES)
+    bag = int(np.count_nonzero(sample_masks(
+        dt.Params.from_dict(params), 0, ds.num_rows, ds.num_features)[0]))
+    root, _ = root_and_move(dt, a, params, ds, dev, bag, "rf")
+    booster, launches, curve = train_valid(dt, params, ds, dv, dev)
+    n = booster.num_iterations
+    check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "rf")
+    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+                     device=dev)
+    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+                                         num_iteration=n, device="cpu")),
+          "rf: card predict != CPU predict")
+    host = auc(yv, raw)
+    check(abs(curve[-1] - host) <= 1e-5,
+          f"rf: last valid_auc {curve[-1]} vs the AUC of averaged predict "
+          f"{host}")
+    rep = dict(mode_summary(booster, curve, launches), bag_rows=bag,
+               host_auc_last=host, hist_root=brief(root))
+    print("rf: " + json.dumps(rep), flush=True)
+    print("rf: the streamed metric scores the averaged model; card predict "
+          "bitwise CPU", flush=True)
+    report["rf"] = rep
+    return launches, root
+
+
+def phase_mode_fixtures(dt, a, dev, report) -> tuple:
+    """Phase 28: GOSS, monotone, DART and rf on the 50k-row fixture."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.engine import (
+        cuda_build,
+        grower,
+        hist,
+        hist_nat,
+        leafwise_fast,
+    )
+    from dryad_tpu_torch.engine.goss import goss_columns
+    from dryad_tpu_torch.objectives import Binary
+
+    X, y = datasets.higgs_like(50_000, seed=43)
+    ds = dt.Dataset(X, y, max_bins=64)
+    fix = {"objective": "binary", "num_trees": 4, "num_leaves": 128,
+           "max_bins": 64, "growth": "depthwise", "max_depth": 8}
+    mono = [0] * 6 + [1, -1, 1, -1]
+    rep, launches, nat = {}, {}, None
+    for what, params in (("goss", dict(fix, boosting="goss")),
+                         ("monotone", dict(fix, monotone_constraints=mono))):
+        b_w = dt.train(params, ds, device=dev)
+        legacy = dict(params, deep_layout="legacy")
+        calls = capture(dt, legacy, ds, dev,
+                        {"rows": (hist, "hist_rows"),
+                         "nat": (hist_nat, "build_hist_nat")})
+        check(len(calls["nat"]) > 0 and len(calls["rows"]) > 0,
+              f"{what} fixture: the legacy tree made no K3 or no K1 "
+              "row-mode call")
+        if nat is None:
+            nat = check_nat(calls["nat"][-1], f"{what} fixture nat", a.reps)
+            rows = check_rows(calls["rows"][-1][0], f"{what} fixture rows",
+                              a.reps)
+        del calls
+        cuda_build.reset_counts()
+        b_l = dt.train(legacy, ds, device=dev)
+        launches[what] = dict(cuda_build.counts)
+        for k in ("feature", "threshold", "left", "right", "default_left"):
+            check(np.array_equal(b_w.arrays[k], b_l.arrays[k]),
+                  f"{what} fixture, wired vs legacy: {k!r} differs")
+        dv = float(np.abs(b_w.arrays["value"] - b_l.arrays["value"]).max())
+        check(dv <= 1e-5, f"{what} fixture, wired vs legacy: values differ "
+              f"by {dv}")
+        # leaf-wise depth 8: batched = sequential on iteration 0's inputs
+        p = dt.Params.from_dict(dict(params, growth="leafwise"))
+        yt = torch.from_numpy(ds.y).to(dev)
+        gh = [Binary().grad_hess(torch.full_like(
+            yt, float(Binary().init_score(ds.y))), yt)]
+        bag = torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
+        if p.boosting == "goss":
+            gh, bag = goss_columns(p, 0, gh, bag)
+        args = (p, ds.mapper.total_bins,
+                torch.from_numpy(ds.X_binned).to(dev), *gh[0], bag,
+                torch.ones(ds.num_features, dtype=torch.bool, device=dev))
+        bat = leafwise_fast.grow_tree_leafwise_batched(*args)
+        seq = grower.grow_tree(*args)
+        for k in ("feature", "threshold", "left", "right", "default_left",
+                  "row_leaf", "value", "cover"):
+            check(torch.equal(bat[k], seq[k]),
+                  f"{what} fixture, batched vs sequential: {k!r} differs")
+        rep[what] = {"wired_vs_legacy_max_value_diff": dv,
+                     "legacy_launches": launches[what],
+                     "batched_vs_sequential": "bitwise equal"}
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(it, info):
+        if it == 7:
+            raise Crash
+
+    small = dict(fix, max_depth=6, num_leaves=40, num_trees=12)
+    for what, params in (("dart", dict(small, boosting="dart", drop_rate=0.3,
+                                       skip_drop=0.2)),
+                         ("rf", dict(small, boosting="rf", subsample=0.7,
+                                     colsample=0.8))):
+        straight = dt.train(params, ds, device=dev)
+        with tempfile.TemporaryDirectory(dir=OUT) as ckdir:
+            try:
+                dt.train(params, ds, device=dev, checkpoint_dir=ckdir,
+                         checkpoint_every=3, callback=crash)
+                fail(f"{what} resume: the crash did not stop the run")
+            except Crash:
+                pass
+            resumed = dt.train(params, ds, device=dev, checkpoint_dir=ckdir,
+                               checkpoint_every=3, resume=True)
+        same_trees(straight, resumed, f"{what} resume")
+        check(np.array_equal(
+            dt.predict(straight, X, raw_score=True, device=dev),
+            dt.predict(resumed, X, raw_score=True, device=dev)),
+            f"{what} resume: predict differs")
+        rep.setdefault(what, {})["resume"] = "bitwise equal (crash at 7)"
+    # card = CPU trees for each mode
+    card_cpu = {}
+    for what, params in (("goss", dict(small, boosting="goss")),
+                         ("monotone", dict(small, monotone_constraints=mono)),
+                         ("dart", dict(small, boosting="dart",
+                                       drop_rate=0.3, skip_drop=0.2)),
+                         ("rf", dict(small, boosting="rf", subsample=0.7,
+                                     colsample=0.8))):
+        params = dict(params, num_trees=4)
+        b_c = dt.train(params, ds, device=dev)
+        b_h = dt.train(params, ds, device="cpu")
+        for k in ("feature", "threshold", "left", "right", "default_left"):
+            check(np.array_equal(b_c.arrays[k], b_h.arrays[k]),
+                  f"{what} fixture, card vs CPU: {k!r} differs")
+        dv = float(np.abs(b_c.arrays["value"] - b_h.arrays["value"]).max())
+        check(dv <= 1e-4, f"{what} fixture, card vs CPU: values differ by "
+              f"{dv}")
+        card_cpu[what] = dv
+    rep["card_vs_cpu_max_value_diff"] = card_cpu
+    rep["nat_level"], rep["rows_level"] = brief(nat), brief(rows)
+    print("mode fixtures: " + json.dumps(rep), flush=True)
+    report["mode_fixtures"] = rep
+    return launches, nat, rows
+
+
 # the histogram kernels' launch shape and both bounds
 _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
@@ -2729,10 +3194,20 @@ def main() -> int:
     bag_params, dv, b_launches, b_root, b_perm = phase_bagged(
         dt, a, ds, Xv, yv, dev, report)
     r_launches = phase_resume(dt, ds, dv, Xv, dev, bag_params, report)
-    del dv
     bl_launches, bl_nat, bl_rows = phase_bagged_legacy(dt, a, ds, Xv, yv,
                                                        dev, report)
     mark("13-15")
+    # ---- 24-27. GOSS, monotone constraints, DART and rf on the Higgs rows
+    g_launches, g_root, g_perm = phase_goss(dt, a, ds, dv, Xv, yv, dev,
+                                            report)
+    mono_paths = phase_monotone(dt, a, ds, Xv, yv, dev, report)
+    d_launches = phase_dart(dt, a, ds, dv, Xv, yv, dev, report)
+    rf_launches, rf_root = phase_rf(dt, a, ds, dv, Xv, yv, dev, report)
+    del dv
+    mark("24-27")
+    # ---- 28. the boosting modes' fixtures ---------------------------------
+    mf_launches, mf_nat, mf_rows = phase_mode_fixtures(dt, a, dev, report)
+    mark("28")
     # ---- 16. Epsilon-shaped regression, the Higgs tensors freed -----------
     del ds, Xv, yv, w_booster
     gc.collect()
@@ -2784,7 +3259,11 @@ def main() -> int:
                "covertype_resume": cr_launches,
                "covertype_fixture_legacy": cf_launches,
                "mslr": m_launches, "robust_epsilon": rb_launches,
-               "criteo": ct_launches, "criteo_fixture_legacy": ctf_launches}
+               "criteo": ct_launches, "criteo_fixture_legacy": ctf_launches,
+               "goss": g_launches, **mono_paths, "dart": d_launches,
+               "rf": rf_launches,
+               "goss_fixture_legacy": mf_launches["goss"],
+               "monotone_fixture_legacy": mf_launches["monotone"]}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())
@@ -2804,7 +3283,9 @@ def main() -> int:
                       "covertype_root": brief(c_root),
                       "covertype_level": brief(c_level),
                       "criteo_root": brief(ct_root),
-                      "criteo_level": brief(ct_level)}),
+                      "criteo_level": brief(ct_level),
+                      "goss_root": brief(g_root),
+                      "rf_root": brief(rf_root)}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,
@@ -2815,14 +3296,16 @@ def main() -> int:
                       "covertype_fixture_level": brief(cf_rows),
                       "mslr_root": brief(m_root),
                       "mslr_level": brief(m_rows),
-                      "criteo_fixture_level": brief(ctf_rows)}),
+                      "criteo_fixture_level": brief(ctf_rows),
+                      "mode_fixture_level": brief(mf_rows)}),
         kernel_entry("perm", "dryad_tpu_torch/csrc/perm.cu",
                      "dryad_tpu/engine/leafperm.py:94", launches("perm"),
                      paths("perm"), perm,
                      {"leafwise_level": brief(lw_perm),
                       "bagged_level0": brief(b_perm),
                       "covertype_level": brief(c_perm),
-                      "criteo_level": brief(ct_perm)}),
+                      "criteo_level": brief(ct_perm),
+                      "goss_level0": brief(g_perm)}),
         kernel_entry("nat", "dryad_tpu_torch/csrc/hist_nat.cu",
                      "dryad_tpu/engine/pallas_hist.py:719", launches("nat"),
                      paths("nat"), nat, {"leafwise_level": brief(ld_nat),
@@ -2832,7 +3315,9 @@ def main() -> int:
                                              brief(cf_nat),
                                          "mslr_level": brief(m_nat),
                                          "criteo_fixture_level":
-                                             brief(ctf_nat)}),
+                                             brief(ctf_nat),
+                                         "mode_fixture_level":
+                                             brief(mf_nat)}),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -25,10 +25,11 @@ reference's growers:
 leaf-wise (the default; the batched expansion plus selection for a
 finite depth cap, which ``max_depth=-1`` maps to as the reference does,
 else the sequential grower) and depthwise, each on the wired leaf-ordered
-layout or the legacy plan arm; with sample weights, bagging and column
-sampling, valid sets scored on the device, early stopping, callbacks,
-checkpoint/resume and warm starts; it saves and loads model files in the
-reference's format, and it predicts.  It imports nothing of ``jax`` or of
+layout or the legacy plan arm, with monotone constraints; in the
+boosting modes gbdt, goss, dart and rf; with sample weights, bagging and
+column sampling, valid sets scored on the device, early stopping,
+callbacks, checkpoint/resume and warm starts; it saves and loads model
+files in the reference's format, and it predicts.  It imports nothing of ``jax`` or of
 ``dryad_tpu``.
 """
 
@@ -103,6 +104,14 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
     elif p.num_trees == 0:
         raise ValueError("num_trees=0 is only meaningful with init_model "
                          "(a 0-tree warm-start append)")
+    if (any(p.monotone_constraints)
+            and getattr(train_set.mapper, "bundled_mask", None) is not None):
+        # bundling stacks columns, so positional per-feature constraints
+        # would land on the wrong (and non-ordinal) columns
+        raise ValueError(
+            "monotone_constraints are positional over the original "
+            "features and are incompatible with feature bundling; rebuild "
+            "the Dataset with bundle=False")
     valid = list(valid_sets) if valid_sets else None
     if valid_names is not None:
         if valid is None or len(valid_names) != len(valid):
@@ -131,7 +140,8 @@ def _check_append_compatible(p: Params, train_set: Dataset,
                              model: Booster) -> None:
     """A warm-start append replays the model's trees over the new binned
     rows, so they must live in the model's frozen bin space, and the tree
-    tables must stack."""
+    tables must stack (rf and non-rf trees do not mix: the trainer refuses
+    that for every continuation)."""
     m_new, m_old = train_set.mapper, model.mapper
     if m_new is not m_old and m_new.to_json_dict() != m_old.to_json_dict():
         raise ValueError(

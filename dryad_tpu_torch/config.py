@@ -3,9 +3,9 @@ that it runs (the reference's nine objectives: binary, multiclass
 softmax, regression, the robust and count family l1, huber, fair,
 quantile and poisson, and lambdarank ranking; leaf-wise and depthwise
 growth, on the wired leaf-ordered layout or the legacy plan arm;
-categorical features; bagging, column sampling, evaluation and early
-stopping), and the
-growth-policy helpers that pick a grower.
+categorical features; monotone constraints; bagging, column sampling,
+evaluation and early stopping; the boosting modes gbdt, goss, dart and
+rf), and the growth-policy helpers that pick a grower.
 
 Defaults and LightGBM-style aliases are the reference's, so
 ``{"objective": "binary"}`` alone trains leaf-wise with 31 leaves and
@@ -24,6 +24,7 @@ from typing import Any, Mapping
 OBJECTIVES = ("binary", "multiclass", "regression", "lambdarank",
               "l1", "huber", "fair", "quantile", "poisson")
 GROWTH_POLICIES = ("leafwise", "depthwise")
+BOOSTING = ("gbdt", "goss", "dart", "rf")
 
 _PARAM_ALIASES = {
     "num_iterations": "num_trees",
@@ -83,13 +84,6 @@ _GROWTH_ALIASES = {
 # values.  Given at these values they change nothing and are accepted; any
 # other value raises.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
-    "boosting": "gbdt",
-    "goss_top_rate": 0.2,
-    "goss_other_rate": 0.1,
-    "drop_rate": 0.1,
-    "skip_drop": 0.5,
-    "max_drop": 50,
-    "monotone_constraints": (),
     "hist_backend": "auto",
     "predict_layout": "auto",
     "hist_reduce": "auto",
@@ -129,6 +123,24 @@ class Params:
     subsample: float = 1.0
     colsample: float = 1.0
     seed: int = 0
+    # gbdt: plain boosting.  goss: keep the goss_top_rate share of rows
+    # with the largest |g|, pick goss_other_rate of the rest and amplify
+    # their g/h by (1 - top) / other (engine/goss.py).  dart: each
+    # iteration drops earlier iterations with prob drop_rate (none with
+    # prob skip_drop, at most max_drop), fits against the pruned ensemble,
+    # then scales the new trees by 1/(k+1) and the k dropped ones by
+    # k/(k+1).  rf: every tree fits the g/h of the constant init score on
+    # its own bag, at shrinkage 1, and predict averages the trees.
+    boosting: str = "gbdt"
+    goss_top_rate: float = 0.2
+    goss_other_rate: float = 0.1
+    drop_rate: float = 0.1
+    skip_drop: float = 0.5
+    max_drop: int = 50
+    # per-feature -1/0/+1, () unconstrained: a +1 feature splits only where
+    # the right child's (clamped) output is >= the left's, and children
+    # inherit output bounds (LightGBM's "basic" mode)
+    monotone_constraints: tuple[int, ...] = ()
     # evaluation / early stopping
     metric: str = ""              # "" = the objective's default
     # 0 = disabled.  Counts evaluations without improvement, so with
@@ -170,7 +182,9 @@ class Params:
 
     @property
     def effective_learning_rate(self) -> float:
-        return self.learning_rate
+        """1.0 under rf, which averages full-strength trees; every leaf
+        finalizer reads this, never ``learning_rate``."""
+        return 1.0 if self.boosting == "rf" else self.learning_rate
 
     def validate(self) -> "Params":
         if self.objective not in OBJECTIVES:
@@ -192,6 +206,40 @@ class Params:
                              "(bitset width)")
         if self.min_data_in_leaf < 1:
             raise ValueError("min_data_in_leaf must be >= 1")
+        if any(m not in (-1, 0, 1) for m in self.monotone_constraints):
+            raise ValueError(
+                "monotone_constraints entries must be -1, 0 or +1")
+        if self.boosting not in BOOSTING:
+            raise ValueError(f"boosting must be one of {BOOSTING}, got "
+                             f"{self.boosting!r}")
+        if self.boosting == "rf" and self.subsample >= 1.0:
+            # every tree would fit the same g/h on the same rows
+            raise ValueError(
+                "boosting='rf' requires subsample < 1.0: trees only "
+                "de-correlate through per-iteration row bagging")
+        if self.boosting == "dart":
+            if not (0.0 <= self.drop_rate <= 1.0):
+                raise ValueError("drop_rate must be in [0, 1]")
+            if not (0.0 <= self.skip_drop <= 1.0):
+                raise ValueError("skip_drop must be in [0, 1]")
+            if self.max_drop < 1:
+                raise ValueError("max_drop must be >= 1")
+            if self.early_stopping_rounds:
+                # later drops rescale the trees the best iteration was
+                # scored with
+                raise ValueError(
+                    "early_stopping_rounds is incompatible with "
+                    "boosting='dart'")
+        if self.boosting == "goss":
+            if (not (0 < self.goss_top_rate < 1)
+                    or not (0 < self.goss_other_rate < 1)):
+                raise ValueError("goss rates (goss_top_rate, "
+                                 "goss_other_rate) must be in (0, 1)")
+            if self.goss_top_rate + self.goss_other_rate > 1:
+                raise ValueError(
+                    "goss_top_rate + goss_other_rate must be <= 1")
+            if self.subsample < 1.0:
+                raise ValueError("goss replaces bagging; set subsample=1.0")
         if self.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
         if self.num_trees < 0:
@@ -233,7 +281,7 @@ class Params:
                 value = _OBJECTIVE_ALIASES.get(value, value)
             if key == "growth" and isinstance(value, str):
                 value = _GROWTH_ALIASES.get(value, value)
-            if key == "categorical_features":
+            if key in ("categorical_features", "monotone_constraints"):
                 value = tuple(int(v) for v in value)
             if key in _OUTSIDE_SLICE_DEFAULTS:
                 default = _OUTSIDE_SLICE_DEFAULTS[key]
@@ -253,22 +301,18 @@ class Params:
     @classmethod
     def from_reference_dict(cls, d: Mapping[str, Any]) -> "Params":
         """The port's Params for a ``dryad_tpu`` model's params dict (a
-        model file's ``meta.params``): a gbdt model of any of the nine
-        objectives.  Parameters outside the slice that only shape training
-        on the reference's device (its histogram backend, chunking, ...)
-        are dropped."""
+        model file's ``meta.params``): a model of any of the nine
+        objectives and any boosting mode.  Parameters that only shape
+        training on the reference's device (its histogram backend,
+        chunking, ...) are dropped."""
         if d.get("objective", "binary") not in OBJECTIVES:
             raise ValueError(f"objective {d.get('objective')!r} is outside "
                              "this slice of the port")
-        if d.get("boosting", "gbdt") not in ("gbdt", "goss"):
-            # rf averages and dart rescales at predict time
-            raise ValueError(f"boosting={d.get('boosting')!r} is outside "
-                             "this slice of the port")
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in known}
-        if "categorical_features" in kw:
-            kw["categorical_features"] = tuple(
-                int(v) for v in kw["categorical_features"])
+        for key in ("categorical_features", "monotone_constraints"):
+            if key in kw:
+                kw[key] = tuple(int(v) for v in kw[key])
         return cls(**kw).validate()
 
     def to_dict(self) -> dict[str, Any]:
@@ -276,6 +320,17 @@ class Params:
         the same name and meaning, so the reference's ``Params.from_dict``
         loads it."""
         return dataclasses.asdict(self)
+
+
+def check_rf_continuation(prev: Params, p: Params) -> None:
+    """Refuse to continue a model across rf and non-rf boosting: rf
+    predictions average the trees, so a mixed tree table has no sound
+    aggregation."""
+    if "rf" in (prev.boosting, p.boosting) and prev.boosting != p.boosting:
+        raise ValueError(
+            "cannot continue training across rf and non-rf boosting: rf "
+            "predictions average the trees, so a mixed tree table has no "
+            "sound aggregation")
 
 
 # ---- growth-policy helpers, the reference's (dryad_tpu/config.py) ----------

@@ -26,10 +26,11 @@ def booster_from_reference(tree_arrays: dict, mapper_json: dict, init_score,
     """The port's Booster for a reference model (its ``best_iteration``
     and ``train_state`` carried too, so it resumes or predicts as the
     reference would).  Only what predict reads must be in the slice: a
-    gbdt model of any of the nine objectives (K outputs and K trees per
-    iteration for multiclass), with categorical splits and a plain or
-    bundled (EFB) mapper; parameters that only shape the reference's
-    training are not carried.  ``Booster.load`` of a reference model file
+    model of any of the nine objectives and any boosting mode (K outputs
+    and K trees per iteration for multiclass; an rf model predicts
+    averaged), with categorical splits and a plain or bundled (EFB)
+    mapper; parameters that only shape the reference's training are not
+    carried.  ``Booster.load`` of a reference model file
     is the other way across."""
     params = Params.from_reference_dict(params_dict)
     return Booster(params, mapper_from_json_dict(mapper_json),

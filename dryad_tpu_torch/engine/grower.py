@@ -14,7 +14,9 @@ and histogram; L-1 trips each split the best slot (leaf-wise: the best
 gain; depthwise: the best gain of the shallowest level), the left child
 keeping the slot and the right child taking slot k+1.  The smaller child's
 histogram is one masked pass over every row (K1, row mode, in the tree's
-fixed-point shift) and the larger one is the parent's minus it.  A trip
+fixed-point shift) and the larger one is the parent's minus it.  Under
+monotone constraints each slot carries output bounds (``child_bounds``)
+that its children inherit and its leaf value is clamped to.  A trip
 without a finite gain is a masked update whose writes go to sentinel rows
 (slot L, node M), so nothing is fetched to the host.
 """
@@ -106,11 +108,41 @@ def finish_cat_fields(tree: dict, is_cat_feat, cat_nodes) -> dict:
     return tree
 
 
+def _monotone_array(p, F: int, device):
+    """(F,) int32 constraints, padded or cut to F, or None when nothing is
+    constrained (the growers then run the unconstrained program)."""
+    if not any(p.monotone_constraints):
+        return None
+    mono = [0] * F
+    for i, m in enumerate(p.monotone_constraints[:F]):
+        mono[i] = int(m)
+    return torch.tensor(mono, dtype=torch.int32, device=device)
+
+
+def child_bounds(mono, sf, GL, HL, GR, HR, lam, lo_p, hi_p):
+    """Output bounds (lo_l, hi_l, lo_r, hi_r) of a split's two children
+    (LightGBM's "basic" mode): across a +1 or -1 split feature the
+    midpoint of the clamped child outputs separates the subtrees; a 0
+    feature passes the parent's bounds on.  f32, elementwise over
+    candidates."""
+    wl = torch.clamp(-(GL / (HL + lam)), lo_p, hi_p)
+    wr = torch.clamp(-(GR / (HR + lam)), lo_p, hi_p)
+    mid = 0.5 * (wl + wr)
+    m = mono[torch.clamp(sf, min=0)]
+    return (torch.where(m < 0, mid, lo_p), torch.where(m > 0, mid, hi_p),
+            torch.where(m > 0, mid, lo_p), torch.where(m < 0, mid, hi_p))
+
+
 def finalize_leaf_values(p, M: int, slot_node, slot_G, slot_H,
-                         value: torch.Tensor) -> torch.Tensor:
+                         value: torch.Tensor, slot_lo=None,
+                         slot_hi=None) -> torch.Tensor:
     """Newton leaf values with shrinkage, fp32, scattered to leaf nodes;
-    slots without a node (slot_node < 0) go to the dropped index M."""
+    slots without a node (slot_node < 0) go to the dropped index M.
+    Monotone bounds ``slot_lo``/``slot_hi`` clamp the raw value before
+    shrinkage."""
     raw = -(slot_G / (slot_H + p.lambda_l2))
+    if slot_lo is not None:
+        raw = torch.clamp(raw, slot_lo, slot_hi)
     vals = raw * p.effective_learning_rate
     idx = torch.where(slot_node >= 0, slot_node, M)
     return drop_set(value, idx, vals)
@@ -134,6 +166,7 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
     # pass reads the table (K1, row mode) and sums in the shift
     records = tile_plan.make_records(Xb, g, h)
     shift = _hist.fixed_point_shift(g, h, N)
+    mono = _monotone_array(p, F, dev)
 
     def hist_of(mask):
         # the bag gates histograms only; every row is routed, so the final
@@ -141,7 +174,7 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         return build_hist(Xb, g, h, mask & bag_mask, B, shift,
                           records=records)[None]
 
-    def best(hist, G, H, C, depth):
+    def best(hist, G, H, C, depth, lo, hi):
         allow = (depth < depth_cap) & (C >= 2 * p.min_data_in_leaf)
         return find_best_split(
             hist, G, H, C, lambda_l2=p.lambda_l2,
@@ -149,13 +182,20 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
             allow=allow, learn_missing=learn_missing,
-            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask,
+            monotone=mono, lo=lo, hi=hi)
 
     row_slot = torch.zeros(N, dtype=i64, device=dev)
     hist0 = hist_of(torch.ones(N, dtype=torch.bool, device=dev))
     G0, H0, C0 = root_stats(hist0[0])
     G0, H0, C0 = G0[None], H0[None], C0[None]
-    root = best(hist0, G0, H0, C0, torch.zeros(1, dtype=i64, device=dev))
+    if mono is not None:
+        # per-slot monotone output bounds, unbounded at the root
+        slot_lo = torch.full((L + 1,), float("-inf"), dtype=f32, device=dev)
+        slot_hi = torch.full((L + 1,), float("inf"), dtype=f32, device=dev)
+    root = best(hist0, G0, H0, C0, torch.zeros(1, dtype=i64, device=dev),
+                *((slot_lo[:1], slot_hi[:1]) if mono is not None
+                  else (None, None)))
 
     # slot tables with one sentinel row (L) for the no-op writes
     def slots(fill, dtype, at0):
@@ -258,8 +298,16 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         depth_c = slot_depth[s] + 1
         ch_G, ch_H, ch_C = (torch.cat([GL, GR]), torch.cat([HL, HR]),
                             torch.cat([CL, CR]))
+        ch_lo = ch_hi = None
+        if mono is not None:
+            lo_l, hi_l, lo_r, hi_r = child_bounds(
+                mono, sf, GL, HL, GR, HR, p.lambda_l2, slot_lo[s],
+                slot_hi[s])
+            ch_lo, ch_hi = torch.cat([lo_l, lo_r]), torch.cat([hi_l, hi_r])
+            slot_lo[si] = ch_lo
+            slot_hi[si] = ch_hi
         res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C,
-                   depth_c.expand(2))
+                   depth_c.expand(2), ch_lo, ch_hi)
         slot_node[si] = ids
         slot_gain[si] = res["gain"]
         slot_G[si] = ch_G
@@ -272,9 +320,10 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         max_depth = torch.where(ok, torch.maximum(max_depth, depth_c),
                                 max_depth)
 
-    value = finalize_leaf_values(p, M, slot_node[:L], slot_G[:L],
-                                 slot_H[:L],
-                                 torch.zeros(M, dtype=f32, device=dev))
+    value = finalize_leaf_values(
+        p, M, slot_node[:L], slot_G[:L], slot_H[:L],
+        torch.zeros(M, dtype=f32, device=dev),
+        *((slot_lo[:L], slot_hi[:L]) if mono is not None else ()))
     return finish_cat_fields({
         "feature": feature[:M],
         "threshold": threshold[:M],

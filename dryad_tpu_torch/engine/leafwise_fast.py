@@ -38,8 +38,12 @@ a full width (``phase_plan``) and the selection in a ``fori_loop`` whose
 Python loop with the same per-phase widths, and a skipped trip is a masked
 update whose writes go to sentinel rows.  Nothing is fetched to the host.
 Each heap node carries its categorical left set (``nd_catmask``) through
-the expansion's routing and into the selected tree's bitsets.  Monotone
-splits are outside the port (``config``).
+the expansion's routing and into the selected tree's bitsets.  Under
+monotone constraints each heap node carries its output bounds
+(``nd_lo``/``nd_hi``, ``grower.child_bounds``): they bound its split scan
+in the expansion and clamp the value of the leaf it becomes in the
+selected tree.  A heap node's bounds depend only on its ancestors, so
+the selection needs no bounds of its own.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ from dryad_tpu_torch.config import MAX_FAST_DEPTH
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import (
+    _monotone_array,
+    child_bounds,
     finalize_leaf_values,
     finish_cat_fields,
     root_stats,
@@ -129,15 +135,17 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     # one fixed-point shift per tree: every histogram of the tree (root,
     # every level, either arm, any kernel) sums in it
     shift = _hist.fixed_point_shift(g, h, N)
+    mono = _monotone_array(p, F, dev)
 
-    def best(hist, G, H, C, allow):
+    def best(hist, G, H, C, allow, lo, hi):
         return find_best_split(
             hist, G, H, C, lambda_l2=p.lambda_l2,
             min_child_weight=p.min_child_weight,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
             allow=allow, learn_missing=learn_missing,
-            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask,
+            monotone=mono, lo=lo, hi=hi)
 
     d_switch, P_narrow, _ = phase_plan(D)
     T = leafperm.TILE_ROWS
@@ -164,14 +172,21 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         nat_tiles = hist_nat.maybe_natural_tiles(Xb)
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
     G0, H0, C0 = root_stats(hist0)
-    root = best(hist0[None], G0[None], H0[None], C0[None],
-                (C0 >= 2 * p.min_data_in_leaf)[None])
 
     # ---- heap-node tables (index = heap id; unwritten nodes keep these) --
     def table(fill, dtype, at_root):
         t = torch.full((HN,), fill, dtype=dtype, device=dev)
         t[1] = at_root
         return t
+
+    if mono is not None:
+        # monotone output bounds, unbounded at the root
+        nd_lo = torch.full((HN,), float("-inf"), dtype=f32, device=dev)
+        nd_hi = torch.full((HN,), float("inf"), dtype=f32, device=dev)
+    root = best(hist0[None], G0[None], H0[None], C0[None],
+                (C0 >= 2 * p.min_data_in_leaf)[None],
+                *((nd_lo[1:2], nd_hi[1:2]) if mono is not None
+                  else (None, None)))
 
     nd_gain = table(NEG_INF, f32, root["gain"][0])
     nd_feature = table(-1, i64, root["feature"][0])
@@ -244,14 +259,24 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         hists[torch.clamp(torch.where(do, 2 * jarr + 1, Pf), max=Pf)] = hist_r
 
         # ---- children's stats and best splits, batched -------------------
+        ch_lo = ch_hi = None
+        if mono is not None:
+            lo_l, hi_l, lo_r, hi_r = child_bounds(
+                mono, nd_feature[idx], GL, HL, GR, HR, p.lambda_l2,
+                nd_lo[idx], nd_hi[idx])
+            ch_lo, ch_hi = torch.cat([lo_l, lo_r]), torch.cat([hi_l, hi_r])
         ch_do = torch.cat([do, do])
         ch_G = torch.cat([GL, GR])
         ch_H = torch.cat([HL, HR])
         ch_C = torch.cat([CL, CR])
         allow = ch_do & (d + 1 < D) & (ch_C >= 2 * p.min_data_in_leaf)
-        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow)
+        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow,
+                   ch_lo, ch_hi)
         del hist_l, hist_r
         cidx = torch.where(ch_do, torch.cat([2 * idx, 2 * idx + 1]), HN)
+        if mono is not None:
+            nd_lo = drop_set(nd_lo, cidx, ch_lo)
+            nd_hi = drop_set(nd_hi, cidx, ch_hi)
         nd_gain = drop_set(nd_gain, cidx, res["gain"])
         nd_feature = drop_set(nd_feature, cidx, res["feature"])
         nd_thresh = drop_set(nd_thresh, cidx, res["threshold"])
@@ -272,7 +297,8 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     sh = torch.clamp(slot_heap, 0, HN - 1)
     tree["value"] = finalize_leaf_values(
         p, M, slot_tree, nd_G[sh], nd_H[sh],
-        torch.zeros(M, dtype=f32, device=dev))
+        torch.zeros(M, dtype=f32, device=dev),
+        *((nd_lo[sh], nd_hi[sh]) if mono is not None else ()))
     # every heap node's leaf in the selected tree: walking down, a node is
     # its own tree node where its parent was selected (it then has a tree
     # id, >= 1), else it inherits its parent's leaf

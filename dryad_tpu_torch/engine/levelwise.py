@@ -17,6 +17,10 @@ from the parent.  The two arms differ in how the smaller children are read:
   into a tile plan and read them from a per-tree record table of any
   width (K1, row mode).
 
+Under monotone constraints each slot carries its output bounds
+(``grower.child_bounds``), which bound its split scan and clamp its leaf
+value.
+
 Semantics are the reference's: within a level, splits apply in
 best-gain-first order (stable, lowest slot first) until the ``num_leaves``
 budget runs out; the left child keeps the parent's slot, right children
@@ -38,6 +42,8 @@ import torch
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import (
+    _monotone_array,
+    child_bounds,
     finalize_leaf_values,
     finish_cat_fields,
     root_stats,
@@ -147,15 +153,17 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     # one fixed-point shift per tree, kept on the device: every histogram
     # of the tree (root, every level, either arm, either kernel) sums in it
     shift = _hist.fixed_point_shift(g, h, N)
+    mono = _monotone_array(p, F, dev)
 
-    def best(hist, G, H, C, allow):
+    def best(hist, G, H, C, allow, lo, hi):
         return find_best_split(
             hist, G, H, C, lambda_l2=p.lambda_l2,
             min_child_weight=p.min_child_weight,
             min_data_in_leaf=p.min_data_in_leaf,
             min_split_gain=p.min_split_gain, feat_mask=feat_mask,
             allow=allow, learn_missing=learn_missing,
-            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask)
+            is_cat_feat=is_cat_feat, bundled_mask=bundled_mask,
+            monotone=mono, lo=lo, hi=hi)
 
     T = leafperm.TILE_ROWS
     n_row_tiles = -(-N // T)
@@ -179,8 +187,14 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         nat_tiles = hist_nat.maybe_natural_tiles(Xb)
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
     G0, H0, C0 = root_stats(hist0)
+    if mono is not None:
+        # per-slot monotone output bounds, unbounded at the root
+        slot_lo = torch.full((L,), float("-inf"), dtype=f32, device=dev)
+        slot_hi = torch.full((L,), float("inf"), dtype=f32, device=dev)
     root = best(hist0[None], G0[None], H0[None], C0[None],
-                (C0 >= 2 * p.min_data_in_leaf)[None])
+                (C0 >= 2 * p.min_data_in_leaf)[None],
+                *((slot_lo[:1], slot_hi[:1]) if mono is not None
+                  else (None, None)))
 
     slot_node = torch.full((L,), -1, dtype=i64, device=dev)
     slot_node[0] = 0
@@ -304,15 +318,25 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         hists[torch.where(do, right_slot, L)] = hist_r
 
         # ---- children's stats and best splits, batched -------------------
+        ch_lo = ch_hi = None
+        if mono is not None:
+            lo_l, hi_l, lo_r, hi_r = child_bounds(
+                mono, sf, GL, HL, GR, HR, p.lambda_l2, slot_lo[sj],
+                slot_hi[sj])
+            ch_lo, ch_hi = torch.cat([lo_l, lo_r]), torch.cat([hi_l, hi_r])
         ch_slot = torch.cat([sj, right_slot])
         ch_do = torch.cat([do, do])
         ch_G = torch.cat([GL, GR])
         ch_H = torch.cat([HL, HR])
         ch_C = torch.cat([CL, CR])
         allow = ch_do & (d + 1 < depth_cap) & (ch_C >= 2 * p.min_data_in_leaf)
-        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow)
+        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow,
+                   ch_lo, ch_hi)
 
         cidx = torch.where(ch_do, ch_slot, L)
+        if mono is not None:
+            slot_lo = drop_set(slot_lo, cidx, ch_lo)
+            slot_hi = drop_set(slot_hi, cidx, ch_hi)
         slot_node = drop_set(slot_node, cidx, torch.cat([left_id, right_id]))
         slot_gain = drop_set(slot_gain, cidx, res["gain"])
         slot_G = drop_set(slot_G, cidx, ch_G)
@@ -327,8 +351,10 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         num_nodes = num_nodes + 2 * n_do
         max_depth = torch.where(n_do > 0, d + 1, max_depth)
 
-    value = finalize_leaf_values(p, M, slot_node, slot_G, slot_H,
-                                 torch.zeros(M, dtype=f32, device=dev))
+    value = finalize_leaf_values(
+        p, M, slot_node, slot_G, slot_H,
+        torch.zeros(M, dtype=f32, device=dev),
+        *((slot_lo, slot_hi) if mono is not None else ()))
     return finish_cat_fields({
         "feature": feature,
         "threshold": threshold,

@@ -1,6 +1,7 @@
 """Host-side state of the boosting loop, numpy only: copies of
-``dryad_tpu/cpu/trainer.py``'s ``sample_masks``, ``normalize_valids`` and
-``update_best``, so the port draws the same bags and keeps the same
+``dryad_tpu/cpu/trainer.py``'s ``sample_masks``, ``goss_uniform``,
+``dart_drop_set``, ``normalize_valids`` and ``update_best``, so the port
+draws the same bags, GOSS uniforms and DART drop sets and keeps the same
 early-stopping books as the reference."""
 
 from __future__ import annotations
@@ -28,6 +29,56 @@ def sample_masks(params, iteration: int, num_rows: int, num_features: int):
     return row_mask, feat_mask
 
 
+GOSS_M1, GOSS_M2, GOSS_GOLDEN = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
+
+
+def goss_key(seed: int, iteration: int) -> int:
+    """The u32 key of one iteration's GOSS hash: the murmur3 finalizer of
+    (seed, iteration), in Python ints."""
+    key = (seed * GOSS_GOLDEN + iteration * 0x7FEB352D
+           + 0x165667B1) % (1 << 32)
+    key ^= key >> 16
+    key = (key * GOSS_M1) % (1 << 32)
+    key ^= key >> 13
+    key = (key * GOSS_M2) % (1 << 32)
+    return key ^ (key >> 16)
+
+
+def goss_uniform(params, iteration: int, num_rows: int) -> np.ndarray:
+    """Uniforms of one iteration's GOSS pick: a counter-based murmur3
+    finalizer hash of (seed, iteration, row id), a pure u32 function, so
+    the card draws the same values (``engine/goss.goss_uniform_dev``).
+    The 24-bit mantissa uniform is exact in f32."""
+    M1, M2 = GOSS_M1, GOSS_M2
+    key = goss_key(params.seed, iteration)
+    x = np.arange(num_rows, dtype=np.uint32) * np.uint32(GOSS_GOLDEN)
+    x ^= np.uint32(key)
+    x ^= x >> np.uint32(16)
+    x = x * np.uint32(M1)
+    x ^= x >> np.uint32(13)
+    x = x * np.uint32(M2)
+    x ^= x >> np.uint32(16)
+    return (x >> np.uint32(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+def dart_drop_set(params, iteration: int, n_prev: int) -> np.ndarray:
+    """The iterations DART drops at ``iteration`` (ascending ids): none
+    with prob ``skip_drop``, else each of the ``n_prev`` earlier ones with
+    prob ``drop_rate``, a uniform subsample of ``max_drop`` when more are
+    drawn.  Philox keyed like ``sample_masks`` on its own counter
+    stream."""
+    if n_prev == 0 or params.drop_rate <= 0.0:
+        return np.empty(0, np.int64)
+    rng = np.random.Generator(np.random.Philox(
+        key=params.seed, counter=(1 << 32) + iteration))
+    if rng.uniform() < params.skip_drop:
+        return np.empty(0, np.int64)
+    sel = np.nonzero(rng.uniform(size=n_prev) < params.drop_rate)[0]
+    if sel.size > params.max_drop:
+        sel = np.sort(rng.permutation(sel)[: params.max_drop])
+    return sel.astype(np.int64)
+
+
 def normalize_valids(valid) -> list[tuple[str, Dataset]]:
     """None | Dataset | list[Dataset | (name, Dataset)] -> [(name, ds)].
 
@@ -51,10 +102,10 @@ def normalize_valids(valid) -> list[tuple[str, Dataset]]:
 def update_best(p, best_iteration, best_value, stale, iteration, value,
                 higher):
     """Early-stopping bookkeeping of one eval: returns (best_iteration,
-    best_value, stale).  Under DART (a later slice, M10) it is a no-op by
-    construction: drops after the best iteration rescale earlier trees, so
-    the prefix ending there is not the ensemble that scored best."""
-    if getattr(p, "boosting", "gbdt") == "dart":
+    best_value, stale).  Under DART it is a no-op by construction: drops
+    after the best iteration rescale earlier trees, so the prefix ending
+    there is not the ensemble that scored best."""
+    if p.boosting == "dart":
         return best_iteration, best_value, stale
     improved = best_value is None or (
         value > best_value if higher else value < best_value)

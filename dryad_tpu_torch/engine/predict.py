@@ -4,7 +4,10 @@ The counterpart of ``dryad_tpu/engine/predict.py``'s packed arm.
 Traversal compares integer bin ids, and the leaf values are added in fp32
 in iteration order, each class tree to its own score column, so the raw
 scores are bitwise those of the reference given the same model, on any
-device.
+device.  An rf model's scores are then averaged on the host
+(``rf_average``).  DART's drop (``dart_drop``) and its replay-sum
+(``accumulate`` over the rescaled table, the function a resumed run
+rebuilds its scores with) live here too.
 
 Packed node-word layout (per node, two limbs):
 
@@ -200,13 +203,67 @@ def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
     return score
 
 
+def table_words(out: dict, sl) -> torch.Tensor:
+    """Words of the slots ``sl`` (an index or a slice) of the boosting
+    loop's device tree tables, packed as ``stage_trees`` packs a
+    booster's: (M, 2) for one slot, (T, M, 2) for a slice."""
+    return pack_words(out["feature"][sl], out["threshold"][sl],
+                      out["left"][sl], out["right"][sl],
+                      out["default_left"][sl], out["is_cat"][sl])
+
+
+def dart_drop(out: dict, score: torch.Tensor, tids: np.ndarray,
+              Xb: torch.Tensor, factor_drop: np.float32, depth_bound: int,
+              bitset: torch.Tensor | None = None):
+    """DART's drop of the tree slots ``tids`` (int64, ascending; slot t adds
+    to column t % K): returns (score minus their contributions, the value
+    table with their rows times ``factor_drop``).  The contributions are
+    summed in fp32 in slot order into a zero (N, K) table, then
+    subtracted, as the reference's ``_dart_drop_jit`` and CPU trainer do;
+    ``factor_drop`` = f32(k / (k + 1)) comes from the host.  ``bitset``
+    is the table's (T, M, CAT_WORDS) bitsets when a categorical split can
+    occur."""
+    K = score.shape[1]
+    dcontrib = torch.zeros_like(score)
+    for t in tids.tolist():
+        c = t % K
+        dcontrib[:, c] = add_tree(table_words(out, t),
+                                  out["value"][t], Xb, dcontrib[:, c],
+                                  depth_bound,
+                                  None if bitset is None else bitset[t])
+    value = out["value"].clone()
+    idx = torch.from_numpy(tids).to(value.device)
+    value[idx] = value[idx] * torch.tensor(factor_drop, device=value.device)
+    return score - dcontrib, value
+
+
+def rf_average(raw, init_score, n_iter: int) -> np.ndarray:
+    """The rf transform of raw scores: ``init + (raw - init) * (1/n)`` in
+    fp32 with the reciprocal computed on the host, two separate roundings
+    (a fused multiply-add would be 1 ulp off).  Shared by predict and,
+    through ``rf_average_dev``, the loop's valid-set evals."""
+    inv = np.float32(1.0) / np.float32(n_iter)
+    init = np.asarray(init_score, np.float32)
+    return (init + (np.asarray(raw) - init) * inv).astype(np.float32)
+
+
+def rf_average_dev(vs: torch.Tensor, init: torch.Tensor,
+                   n_iter: int) -> torch.Tensor:
+    """``rf_average`` of (N, K) scores on their device: three eager ops,
+    so nothing fuses the multiply into the add."""
+    inv = torch.tensor(np.float32(1.0) / np.float32(n_iter),
+                       device=vs.device)
+    return init + (vs - init) * inv
+
+
 def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
                    num_iteration: Optional[int] = None) -> np.ndarray:
     """Raw scores (N, K) float32 of pre-binned rows (K = the booster's
-    outputs), computed on ``device``."""
+    outputs), computed on ``device``; an rf model's are averaged
+    (``rf_average``, on the host)."""
     from dryad_tpu_torch.engine.train import binned_to_device
 
-    words, value, bitset, init, _ = stage_trees(booster, num_iteration)
+    words, value, bitset, init, n_iter = stage_trees(booster, num_iteration)
     raw = accumulate(torch.from_numpy(words).to(device),
                      torch.from_numpy(value).to(device),
                      binned_to_device(np.asarray(Xb), device),
@@ -214,4 +271,6 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
                      max(booster.max_depth_seen, 1),
                      None if bitset is None
                      else torch.from_numpy(bitset).to(device))
+    if booster.params.boosting == "rf" and n_iter > 0:
+        return rf_average(raw.cpu().numpy(), init, n_iter)
     return raw.cpu().numpy()

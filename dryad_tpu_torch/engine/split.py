@@ -1,7 +1,7 @@
 """Split-gain scan, batched over candidates.
 
-The counterpart of ``dryad_tpu/engine/split.py::find_best_split`` without
-its monotone arm.  The reference vmaps the scan over a level's candidates;
+The counterpart of ``dryad_tpu/engine/split.py::find_best_split``.  The
+reference vmaps the scan over a level's candidates;
 here the candidate axis is a leading batch dimension.  Per-feature prefix
 sums, the Newton gain on both sides, a validity mask, and one flat argmax
 with first-index tie-breaking (``torch.argmax`` returns the first maximum,
@@ -12,6 +12,13 @@ bins are ordered by ``g / (h + CAT_SMOOTH)`` (empty bins last, a stable
 sort, so the lower bin wins a tie), the prefix sums run in that order, and
 the winning prefix becomes the left membership set, returned as a (K, B)
 bool mask.
+
+Monotone constraints (LightGBM's "basic" mode) take the reference's arm:
+each candidate carries output bounds ``lo``/``hi``; the child outputs are
+clamped to them, the gain is the objective reduction ``-(G w + (H + lambda)
+w^2 / 2)`` of the clamped outputs (``G^2 / (2 (H + lambda))`` unclamped),
+and a +1 (-1) feature splits only where the right output is >= (<=) the
+left one.  Without constraints the scan is unchanged.
 """
 
 from __future__ import annotations
@@ -29,12 +36,17 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                     allow: torch.Tensor,
                     learn_missing: bool = False,
                     is_cat_feat: torch.Tensor | None = None,
-                    bundled_mask: torch.Tensor | None = None
+                    bundled_mask: torch.Tensor | None = None,
+                    monotone: torch.Tensor | None = None,
+                    lo: torch.Tensor | None = None,
+                    hi: torch.Tensor | None = None
                     ) -> dict[str, torch.Tensor]:
     """hist (K, 3, F, B) f32; G/H/C/allow (K,); ``is_cat_feat`` (F,) bool
     when any feature is categorical (None skips the sorted-subset scan, so
     numeric runs are unchanged); ``bundled_mask`` (F,) bool, EFB bundle
-    columns, kept out of the missing-right plane.  Returns a dict of (K,)
+    columns, kept out of the missing-right plane; ``monotone`` (F,) int32
+    in {-1, 0, 1} with the candidates' (K,) f32 output bounds ``lo`` and
+    ``hi`` (None: no constraint, the unconstrained scan).  Returns a dict of (K,)
     tensors: gain (-inf where no valid split), feature (-1 then),
     threshold (a bin id, or a categorical prefix length), g_left, h_left,
     c_left, default_left, and cat_mask (K, B) bool, the left set of a
@@ -57,15 +69,30 @@ def find_best_split(hist: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     HL = torch.cumsum(hh, dim=2)
     CL = torch.cumsum(hc, dim=2)
     fmask = feat_mask[None, :, None]
+    if monotone is not None:
+        lo3, hi3 = lo[:, None, None], hi[:, None, None]
+        mcol = monotone.to(torch.float32)[None, :, None]
 
     def gain_of(GLx, HLx, CLx):
         GRx, HRx, CRx = G3 - GLx, H3 - HLx, C3 - CLx
         valid = ((CLx >= min_data_in_leaf) & (CRx >= min_data_in_leaf)
                  & (HLx >= min_child_weight) & (HRx >= min_child_weight)
                  & fmask)
-        parent = G3 * G3 / (H3 + lambda_l2)
-        gain = 0.5 * (GLx * GLx / (HLx + lambda_l2)
-                      + GRx * GRx / (HRx + lambda_l2) - parent)
+        if monotone is not None:
+            # clamped child outputs; unconstrained features pass whatever
+            # their (possibly NaN) outputs are
+            wl = torch.clamp(-GLx / (HLx + lambda_l2), lo3, hi3)
+            wr = torch.clamp(-GRx / (HRx + lambda_l2), lo3, hi3)
+            wp = torch.clamp(-G3 / (H3 + lambda_l2), lo3, hi3)
+            valid &= (mcol == 0) | (mcol * (wr - wl) >= 0)
+            red_l = -(GLx * wl + 0.5 * (HLx + lambda_l2) * wl * wl)
+            red_r = -(GRx * wr + 0.5 * (HRx + lambda_l2) * wr * wr)
+            red_p = -(G3 * wp + 0.5 * (H3 + lambda_l2) * wp * wp)
+            gain = red_l + red_r - red_p
+        else:
+            parent = G3 * G3 / (H3 + lambda_l2)
+            gain = 0.5 * (GLx * GLx / (HLx + lambda_l2)
+                          + GRx * GRx / (HRx + lambda_l2) - parent)
         return torch.where(valid, gain, NEG_INF)
 
     gain = gain_of(GL, HL, CL).reshape(K, F * B)

@@ -5,15 +5,21 @@ trees, stored in tree slots ``it * K + k``.
 
 Each iteration: stop if early stopping has run out of patience -> draw the
 row bag and the feature mask (Philox(seed, iteration), on the host), which
-the K trees share -> one grad/hess pass, with sample weights, of the
-pre-iteration score (for lambdarank the padded per-query lambda pass,
-``engine/lambdarank.py``, on a plan built once per run) -> for each class
-k: grow on column k of g and h (its own fixed-point shift) -> for the L1
-family, renew the leaf values to quantiles of the in-bag residuals
-against the pre-update score (``renew_values``) -> ``score[:, k] +=
-value[row_leaf]`` -> add the new tree to column k of every valid set's
-scores -> then evaluate on the device -> early-stopping books -> callback
--> checkpoint when due.
+the K trees share -> under DART, draw the drop set and drop those
+iterations' trees (``predict.dart_drop``) -> one grad/hess pass, with
+sample weights, of the pre-iteration score (for lambdarank the padded
+per-query lambda pass, ``engine/lambdarank.py``, on a plan built once per
+run; under rf the pass of the constant init score, made once per run) ->
+under GOSS, the selection (``engine/goss.py``) replaces the bag and
+amplifies the picked rows' g and h -> for each class k: grow on column k
+of g and h (its own fixed-point shift) -> for the L1 family, renew the
+leaf values to quantiles of the in-bag residuals against the pre-update
+score (``renew_values``) -> under a DART drop, scale the tree by 1/(k+1)
+-> ``score[:, k] += value[row_leaf]`` -> add the new tree to column k of
+every valid set's scores -> after a DART drop, rebuild the train and
+valid scores instead, by the replay-sum a resumed run computes -> then
+evaluate on the device (under rf, the averaged scores) -> early-stopping
+books -> callback -> checkpoint when due.
 Iteration counts (``best_iteration``, ``eval_period``, checkpoints,
 ``num_iteration``) count iterations; the tree tables count trees.
 
@@ -39,11 +45,17 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.booster import CAT_WORDS, Booster
-from dryad_tpu_torch.config import Params, effective_depth_params
+from dryad_tpu_torch.config import (
+    Params,
+    check_rf_continuation,
+    effective_depth_params,
+)
 from dryad_tpu_torch.dataset import Dataset
+from dryad_tpu_torch.engine.goss import goss_columns
 from dryad_tpu_torch.engine.grower import grow_any
 from dryad_tpu_torch.engine.lambdarank import PaddingPlan, grad_hess_ranking
 from dryad_tpu_torch.engine.loop_state import (
+    dart_drop_set,
     normalize_valids,
     sample_masks,
     update_best,
@@ -53,8 +65,10 @@ from dryad_tpu_torch.engine.predict import (
     PACKED_FEATURE_BITS,
     accumulate,
     add_tree,
-    pack_words,
+    dart_drop,
+    rf_average_dev,
     stage_trees,
+    table_words,
 )
 from dryad_tpu_torch.metrics.device import make_evaluator
 from dryad_tpu_torch.objectives import get_objective, renew_alpha
@@ -202,6 +216,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         if prev.num_total_trees > T:
             raise ValueError("new num_trees must cover the init_booster's "
                              "iterations")
+        check_rf_continuation(prev.params, p)
     Xb = binned_to_device(data.X_binned, device)
     y = torch.from_numpy(data.y).to(device)
     weight = (None if data.weight is None
@@ -226,6 +241,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     else:
         def grads(score):
             return class_grads(obj, score, y, weight)
+    # rf: every tree fits the g/h of the constant init score, one pass
+    rf_gh = grads(score) if p.boosting == "rf" else None
     # L1-family leaf renewal; the whole gate lives in renew_alpha
     renew_a = renew_alpha(p, weighted=data.weight is not None)
     learn_missing = data.has_missing
@@ -289,7 +306,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         vscores = [accumulate(*replay[:2], vXb, init_t, *replay[2:])
                    for vXb in vXbs]
     best_iteration, best_value, stale = -1, None, 0
-    if init_booster is not None:
+    if init_booster is not None and p.boosting != "dart":
+        # a DART continuation does not inherit a best iteration: its drops
+        # rescale trees inside that prefix
         best_iteration = init_booster.best_iteration
         best_value = init_booster.train_state.get("best_value")
         stale = init_booster.train_state.get("stale", 0)
@@ -332,7 +351,26 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                else torch.from_numpy(row_mask).to(device))
         fmask = (ones_feat if feat_mask is None
                  else torch.from_numpy(feat_mask).to(device))
-        for k, (g, h) in enumerate(grads(score)):
+        drop = (dart_drop_set(p, it, it) if p.boosting == "dart"
+                else np.empty(0, np.int64))
+        value_scale = None
+        if drop.size:
+            # the host's roundings of 1/(k+1) and k/(k+1), as the CPU
+            # trainer takes them
+            kd = drop.size
+            value_scale = np.float32(1.0 / (kd + 1))
+            tids = (drop[:, None] * K + np.arange(K)).reshape(-1)
+            score_eff, out["value"] = dart_drop(
+                out, score, tids, Xb, np.float32(kd / (kd + 1.0)),
+                depth_bound, None if is_cat_feat is None
+                else out["cat_bitset"])
+            gh = grads(score_eff)
+            del score_eff
+        else:
+            gh = rf_gh if rf_gh is not None else grads(score)
+        if p.boosting == "goss":
+            gh, bag = goss_columns(p, it, gh, bag)
+        for k, (g, h) in enumerate(gh):
             t = it * K + k
             tree = grow_any(p, B, Xb, g, h, bag, fmask,
                             learn_missing=learn_missing,
@@ -344,25 +382,43 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                 tree["value"] = renew_values(
                     tree["value"], tree["feature"], tree["row_leaf"], y,
                     score[:, k], bag, renew_a, p.effective_learning_rate, M)
-            score[:, k] = score[:, k] + tree["value"][tree["row_leaf"]]
+            if value_scale is not None:
+                tree["value"] = tree["value"] * torch.tensor(
+                    value_scale, device=device)
             for key in TREE_KEYS:
                 out[key][t] = tree[key]
             out["max_depth"][t] = tree["max_depth"]
+            if value_scale is not None:
+                continue            # the scores are rebuilt below
+            score[:, k] = score[:, k] + tree["value"][tree["row_leaf"]]
             if valids:
-                words = pack_words(tree["feature"], tree["threshold"],
-                                   tree["left"], tree["right"],
-                                   tree["default_left"], tree["is_cat"])
+                words = table_words(out, t)
                 bitset = None if is_cat_feat is None else tree["cat_bitset"]
                 for vXb, vs in zip(vXbs, vscores):
                     vs[:, k] = add_tree(words, tree["value"], vXb, vs[:, k],
                                         depth_bound, bitset)
+        if value_scale is not None:
+            # the replay-sum over the rescaled table, the function a
+            # resumed run rebuilds its scores with (incremental deltas
+            # would round differently)
+            n_live = (it + 1) * K
+            words = table_words(out, slice(0, n_live))
+            bitset = (None if is_cat_feat is None
+                      else out["cat_bitset"][:n_live])
+            score = accumulate(words, out["value"][:n_live], Xb, init_t,
+                               depth_bound, bitset)
+            vscores = [accumulate(words, out["value"][:n_live], vXb, init_t,
+                                  depth_bound, bitset) for vXb in vXbs]
 
         info: dict = {"iteration": it}
         stop = False
         # evaluate every eval_period-th iteration and always the last, so
         # the tail is never unscored
         if valids and ((it + 1) % p.eval_period == 0 or it + 1 == n_iters):
-            vals_dev = [fn(vs) for vs, (_, _, fn) in zip(vscores,
+            # rf scores the averaged model, as predict serves it
+            vs_eval = ([rf_average_dev(vs, init_t, it + 1) for vs in vscores]
+                       if p.boosting == "rf" else vscores)
+            vals_dev = [fn(vs) for vs, (_, _, fn) in zip(vs_eval,
                                                          evaluators)]
             if not sync_eval:
                 deferred.append((it, vals_dev))

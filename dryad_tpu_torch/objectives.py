@@ -254,13 +254,11 @@ def renew_alpha(params, weighted: bool = False) -> float | None:
     reference's gate, whole): LightGBM refits the L1 family's leaves to
     residual percentiles (RenewTreeOutput): the median for l1 and huber,
     ``params.alpha`` for quantile.  Off for weighted data (the percentile
-    is unweighted), for boosting other than gbdt/goss, and under monotone
-    constraints; the port's Params has neither field yet, so those two
-    read as the defaults."""
-    if weighted or getattr(params, "boosting", "gbdt") not in ("gbdt",
-                                                              "goss"):
+    is unweighted), under dart and rf, and under monotone constraints (a
+    renewed value could leave its bounds)."""
+    if weighted or params.boosting not in ("gbdt", "goss"):
         return None
-    if any(getattr(params, "monotone_constraints", ())):
+    if any(params.monotone_constraints):
         return None
     if params.objective in ("l1", "huber"):
         return 0.5

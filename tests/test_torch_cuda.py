@@ -16,7 +16,9 @@ fp32 prefix sums may round differently on the two devices); categorical
 trees on the card bitwise run to run, their routing equal to predict's,
 and the scan's stable order equal to the CPU's; categorical training on
 the reference's tie-free fixtures, and bagged and multiclass training, on
-the card vs the CPU as each test states.
+the card vs the CPU as each test states; GOSS's uniforms and selection on
+the card bitwise equal to the CPU's, and GOSS, monotone, DART and rf
+training on the card vs the CPU as their test states.
 """
 
 import numpy as np
@@ -417,3 +419,64 @@ def test_multiclass_training_on_card_matches_cpu(cuda_device):
     assert raw.shape == (10_000, 3)
     np.testing.assert_array_equal(
         raw, dt.predict(card, X[50_000:], raw_score=True, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_goss_selection_on_card_matches_cpu(cuda_device, K):
+    """GOSS at 1M rows: the card's uniforms equal the numpy copy, and the
+    card's selection (mask, amplified g and h) equals the CPU's, bit for
+    bit."""
+    from dryad_tpu_torch.engine import goss, loop_state
+
+    p = Params(boosting="goss", goss_top_rate=0.2, goss_other_rate=0.1,
+               seed=7)
+    N = 1_000_000
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.1, 1, (N, K)).astype(np.float32))
+    u = goss.goss_uniform_dev(p.seed, 3, N, cuda_device)
+    np.testing.assert_array_equal(u.cpu().numpy(),
+                                  loop_state.goss_uniform(p, 3, N))
+    ones = torch.ones(N, dtype=torch.bool)
+    card = goss.goss_select(p, N, g.to(cuda_device), h.to(cuda_device), u,
+                            ones.to(cuda_device))
+    cpu = goss.goss_select(p, N, g, h, u.cpu(), ones)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["goss", "monotone_depthwise",
+                                  "monotone_leafwise", "dart", "rf"])
+def test_boosting_modes_on_card_match_cpu(cuda_device, mode):
+    """GOSS, monotone constraints (depthwise and leaf-wise), DART and rf
+    trained on the card and on the CPU (20k Higgs-like rows, 64 bins,
+    depth 6, 6 trees): integer arrays equal, leaf values within 1e-4; the
+    card's raw predict of its model equals the CPU's bit for bit."""
+    import dryad_tpu_torch as dt
+
+    X, y = datasets.higgs_like(20_000, seed=43)
+    ds = Dataset(X, y, max_bins=64)
+    base = dict(objective="binary", growth="depthwise", max_depth=6,
+                num_leaves=40, max_bins=64, num_trees=6, seed=3)
+    params = {"goss": dict(base, boosting="goss"),
+              "monotone_depthwise": dict(
+                  base, monotone_constraints=(0,) * 6 + (1, -1, 1, -1)),
+              "monotone_leafwise": dict(
+                  base, growth="leafwise",
+                  monotone_constraints=(0,) * 6 + (1, -1, 1, -1)),
+              "dart": dict(base, boosting="dart", drop_rate=0.5,
+                           skip_drop=0.2),
+              "rf": dict(base, boosting="rf", subsample=0.7,
+                         colsample=0.8)}[mode]
+    cpu = dt.train(params, ds, device="cpu")
+    card = dt.train(params, ds, device=cuda_device)
+    for k in ("feature", "threshold", "left", "right", "default_left"):
+        np.testing.assert_array_equal(card.arrays[k], cpu.arrays[k],
+                                      err_msg=k)
+    np.testing.assert_allclose(card.arrays["value"], cpu.arrays["value"],
+                               atol=1e-4)
+    np.testing.assert_array_equal(
+        dt.predict(card, X, raw_score=True, device=cuda_device),
+        dt.predict(card, X, raw_score=True, device="cpu"))

@@ -154,19 +154,27 @@ def test_params_aliases_and_slice_limits():
         assert q.growth == ok.get("growth", "leafwise").replace(
             "lossguide", "leafwise")
         assert q.max_depth == ok.get("max_depth", -1)
-    # categorical features are accepted, as a tuple
+    # categorical features and monotone constraints are accepted, as
+    # tuples; so are the boosting modes and their knobs
     assert dt.Params.from_dict(
         {"categorical_features": [1, 3]}).categorical_features == (1, 3)
+    assert dt.Params.from_dict(
+        {"growth": "depthwise", "max_depth": 4,
+         "monotone_constraints": [1]}).monotone_constraints == (1,)
+    assert dt.Params.from_dict(
+        {"growth": "depthwise", "max_depth": 4, "boosting": "dart",
+         "rate_drop": 0.2}).drop_rate == 0.2
     for bad, name in (({"unbounded_depth": "bogus"}, "unbounded_depth"),
                       ({"categorical_features": [1], "max_bins": 512},
                        "categorical"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "monotone_constraints": [1]},
+                        "monotone_constraints": [2]},
                        "monotone_constraints"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "top_rate": 0.5}, "goss_top_rate"),
+                        "boosting": "goss", "top_rate": 1.5},
+                       "goss_top_rate"),
                       ({"growth": "depthwise", "max_depth": 4,
-                        "boosting": "dart"}, "boosting"),
+                        "boosting": "dropout"}, "boosting"),
                       ({"growth": "depthwise", "max_depth": 4,
                         "objective": "tweedie"}, "objective"),
                       ({"growth": "depthwise", "max_depth": 4,
