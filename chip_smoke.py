@@ -161,7 +161,8 @@ Phases (any failed check exits non-zero):
    CSR fixture with a categorical bundle and missing values: card trees
    equal CPU trees, card predict bitwise equal to CPU predict, a model
    file saved on the card loads and predicts bitwise, and its mapper
-   bytes equal the CPU run's file's.
+   bytes equal the CPU run's file's; its text model (``dump_text``) loads
+   and predicts bitwise.
 24. GOSS (``boosting="goss"``, rates 0.2 and 0.1) on the Higgs rows of
    phase 2 at the headline config (depthwise depth 8, 255 leaves, 256
    bins, wired), the 1M held-out rows as the valid set, 20 trees: the
@@ -195,8 +196,31 @@ Phases (any failed check exits non-zero):
    iteration 7 and resumed from checkpoints every 3, bitwise; each mode's
    card trees equal the CPU's (values within 1e-4).
 
-Phases 24-28 run after phase 15, while the Higgs rows are still held; the
-log's ``phase seconds`` keys them "24-27" and "28".
+29. ``cv`` at the headline config on phase 2's Higgs rows: 5 stratified
+   folds (they partition the rows) of 10 trees, AUC every iteration: 9 K1
+   and 8 K2 launches a tree; each fold's last AUC within 1e-5 of the host
+   AUC of its booster's card predict on its holdout; the mean curve
+   rises; a second ``cv`` at 3 trees a fold bitwise the first 3
+   iterations of each fold; seconds per fold;
+30. the model API on phase 4's headline booster: ``pred_leaf`` of the 1M
+   held-out rows on the card bitwise the CPU's, and init plus the leaves'
+   values in tree order bitwise the raw predict; the booster re-indexed to
+   feature ids >= 4096 (the structure-of-arrays traversal) on 100k rows
+   widened to 4124 columns predicts bitwise as the packed arm; TreeSHAP of
+   2,000 rows on the card within 1e-9 of the CPU's, contributions plus
+   bias within 1e-5 of predict, rows/s; ``refit`` on the 1M held-out rows
+   at decay 0.9, card = CPU structure and values within rtol 1e-5 / atol
+   1e-6, two card runs bitwise, decay 1.0 bitwise the old values,
+   seconds; a text model round trip predicts bitwise; split counts sum to
+   the internal nodes;
+31. ``DryadClassifier`` at its defaults (leaf-wise, 31 leaves, depth 9,
+   wired), 10 iterations on the raw Covertype rows drawn as phase 17
+   draws them, labels ``y * 10 + 3``: ``classes_`` the 7 labels; 10 K1
+   and 9 K2 launches a tree; ``predict_proba`` of the 100k held-out rows
+   sums to 1 within 1e-5 and is bitwise ``predict(clf.booster_, X)``.
+
+Phases 24-31 run after phase 15, while the Higgs rows are still held; the
+log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -2631,6 +2655,11 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
           "EFB fixture: the loaded model file predicts differently")
     check(same_mapper, "EFB fixture: card and CPU model files' mapper "
           "bytes differ")
+    text = dt.Booster.from_text(b_card.dump_text())
+    check(isinstance(text.mapper, BundledMapper)
+          and np.array_equal(raw, dt.predict(text, Xd, raw_score=True,
+                                             device=dev)),
+          "EFB fixture: the text model predicts differently")
     rep = {"wired_vs_legacy_max_value_diff": dv, "launches": launches,
            "cat_splits_depthwise": int(b_w.arrays["is_cat"].sum()),
            "leafwise": {"max_depth": p.max_depth,
@@ -3071,6 +3100,222 @@ def phase_mode_fixtures(dt, a, dev, report) -> tuple:
 
 
 # the histogram kernels' launch shape and both bounds
+# ---- phases 29-31: the rest of the user API (M16) --------------------------
+CV = dict(MODE_BASE, num_trees=10)
+CV_FOLDS = 5
+CV_SHORT = 3
+SOA_ROWS = 100_000
+SOA_BASE = 4096          # first feature id past the packed words' 12 bits
+SHAP_ROWS = 2_000
+EST_TREES = 10
+
+
+def phase_cv(dt, ds, dev, report) -> dict:
+    """Phase 29: ``cv`` at the headline config on the Higgs rows: 5
+    stratified folds of 10 trees, AUC every iteration."""
+    import numpy as np
+
+    from dryad_tpu_torch.cv import _fold_indices
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.metrics import auc
+
+    folds = _fold_indices(ds.y, CV_FOLDS, True, True, 0)
+    check(np.array_equal(np.sort(np.concatenate(folds)),
+                         np.arange(ds.num_rows)),
+          "cv: the folds do not partition the rows")
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    res = dt.cv(CV, ds, nfold=CV_FOLDS, device=dev, return_boosters=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_build.counts)
+    n = CV["num_trees"] * CV_FOLDS
+    check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "cv")
+    mean = res["valid_auc-mean"]
+    check(len(mean) == CV["num_trees"] and mean[-1] > mean[0],
+          f"cv: the mean AUC curve {mean} does not rise")
+    host_last, fold_train_s = [], []
+    for b, hold in zip(res["boosters"], folds):
+        curve = b.train_state["eval_history"]["valid_auc"]
+        raw = b.predict_binned(ds.X_binned[hold], raw_score=True,
+                               device=dev)
+        host = auc(ds.y[hold], raw)
+        check(abs(curve[-1][1] - host) <= 1e-5,
+              f"cv: a fold's last AUC {curve[-1][1]} vs host {host}")
+        host_last.append(host)
+        fold_train_s.append(sum(b.tree_seconds))
+    short = dt.cv(dict(CV, num_trees=CV_SHORT), ds, nfold=CV_FOLDS,
+                  device=dev, return_boosters=True)
+    check(short["valid_auc-mean"] == mean[:CV_SHORT]
+          and short["valid_auc-stdv"] == res["valid_auc-stdv"][:CV_SHORT],
+          "cv: 3 trees a fold differ from the first 3 iterations of 10")
+    for bs, b in zip(short["boosters"], res["boosters"]):
+        for k, v in bs.tree_arrays().items():
+            check(np.array_equal(v, b.tree_arrays()[k][:CV_SHORT]),
+                  f"cv: a 3-tree fold's {k!r} differs from the 10-tree's")
+    rep = {"folds": CV_FOLDS, "trees": CV["num_trees"],
+           "fold_rows": [int(len(h)) for h in folds],
+           "seconds": seconds, "seconds_per_fold": seconds / CV_FOLDS,
+           "fold_train_seconds": fold_train_s,
+           "auc_mean": mean, "auc_stdv": res["valid_auc-stdv"],
+           "host_auc_last": host_last, "launches": launches}
+    print("cv: " + json.dumps(rep), flush=True)
+    print("cv: folds partition the rows; last AUCs = host; 3-tree folds "
+          "bitwise the first 3 of 10", flush=True)
+    report["cv"] = rep
+    return launches
+
+
+def widened(booster, Xb):
+    """``booster`` with every split feature moved to SOA_BASE + f (past
+    the packed words), and ``Xb``'s columns placed there in a wider
+    matrix."""
+    import numpy as np
+
+    ta = booster.tree_arrays()
+    ta["feature"] = np.where(ta["feature"] >= 0, ta["feature"] + SOA_BASE,
+                             -1)
+    Xw = np.zeros((Xb.shape[0], SOA_BASE + Xb.shape[1]), Xb.dtype)
+    Xw[:, SOA_BASE:] = Xb
+    return type(booster)(booster.params, booster.mapper, ta,
+                         booster.init_score, booster.max_depth_seen), Xw
+
+
+def phase_model_api(dt, booster, Xv, yv, dev, report) -> None:
+    """Phase 30: pred_leaf, the SoA arm, TreeSHAP, refit, the text model
+    and feature importance on the headline booster."""
+    import numpy as np
+    import torch
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    Xb = booster.mapper.transform(Xv)
+    rep: dict = {"bin_seconds": time.perf_counter() - t0}
+    # pred_leaf of the held-out rows; the leaves' values add to the raw
+    # scores in tree order
+    t0 = time.perf_counter()
+    leaves = booster.predict_binned(Xb, pred_leaf=True, device=dev)
+    rep["pred_leaf_s"] = time.perf_counter() - t0
+    check(leaves.shape == (Xb.shape[0], booster.num_total_trees)
+          and leaves.dtype == np.int32, f"pred_leaf shape {leaves.shape}")
+    check(np.array_equal(leaves, booster.predict_binned(
+        Xb, pred_leaf=True, device=cpu)), "pred_leaf: card != CPU")
+    raw = booster.predict_binned(Xb, raw_score=True, device=dev)
+    score = np.full(Xb.shape[0], booster.init_score[0], np.float32)
+    for t in range(leaves.shape[1]):
+        score += booster.arrays["value"][t, leaves[:, t]]
+    check(np.array_equal(score, raw), "pred_leaf: init + leaf values != "
+          "the raw predict")
+    # the SoA arm: features re-indexed past the packed words
+    wide, Xw = widened(booster, Xb[:SOA_ROWS])
+    t0 = time.perf_counter()
+    soa = wide.predict_binned(Xw, raw_score=True, device=dev)
+    rep["soa_predict_s"] = time.perf_counter() - t0
+    check(np.array_equal(soa, raw[:SOA_ROWS]),
+          "SoA arm: predict != the packed arm's")
+    check(np.array_equal(wide.predict_binned(Xw, pred_leaf=True,
+                                             device=dev),
+                         leaves[:SOA_ROWS]),
+          "SoA arm: pred_leaf != the packed arm's")
+    del Xw
+    # TreeSHAP on a few thousand rows, card against CPU
+    Xs = Xb[:SHAP_ROWS]
+    t0 = time.perf_counter()
+    phi = booster.predict_binned(Xs, pred_contrib=True, device=dev)
+    shap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phi_cpu = booster.predict_binned(Xs, pred_contrib=True, device=cpu)
+    shap_cpu_s = time.perf_counter() - t0
+    err = float(np.abs(phi - phi_cpu).max())
+    check(err <= 1e-9, f"SHAP: card vs CPU differ by {err}")
+    eff = float(np.abs(phi.sum(axis=1) - raw[:SHAP_ROWS]).max())
+    check(eff <= 1e-5, f"SHAP: contributions + bias miss predict by {eff}")
+    rep["shap"] = {"rows": SHAP_ROWS, "trees": booster.num_total_trees,
+                   "seconds": shap_s, "rows_per_s": SHAP_ROWS / shap_s,
+                   "cpu_seconds": shap_cpu_s, "card_vs_cpu": err,
+                   "efficiency_err": eff}
+    # refit of every tree on the held-out rows
+    t0 = time.perf_counter()
+    r1 = booster.refit(Xv, yv, decay_rate=0.9, device=dev)
+    refit_s = time.perf_counter() - t0
+    r2 = booster.refit(Xv, yv, decay_rate=0.9, device=dev)
+    check(np.array_equal(r1.arrays["value"], r2.arrays["value"]),
+          "refit: two card runs differ")
+    t0 = time.perf_counter()
+    rc = booster.refit(Xv, yv, decay_rate=0.9, device=cpu)
+    refit_cpu_s = time.perf_counter() - t0
+    for k, v in rc.tree_arrays().items():
+        if k != "value":
+            check(np.array_equal(v, r1.tree_arrays()[k]),
+                  f"refit: card and CPU {k!r} differ")
+    check(np.allclose(r1.arrays["value"], rc.arrays["value"], rtol=1e-5,
+                      atol=1e-6), "refit: card vs CPU values")
+    check(not np.array_equal(r1.arrays["value"], booster.arrays["value"]),
+          "refit: no value moved")
+    same = booster.refit(Xv, yv, decay_rate=1.0, device=dev)
+    check(np.array_equal(same.arrays["value"], booster.arrays["value"]),
+          "refit: decay 1.0 changed a value")
+    rep["refit"] = {"rows": Xv.shape[0], "seconds": refit_s,
+                    "cpu_seconds": refit_cpu_s,
+                    "card_vs_cpu": float(np.abs(
+                        r1.arrays["value"] - rc.arrays["value"]).max())}
+    # the text model, and the split counts
+    text = dt.Booster.from_text(booster.dump_text())
+    check(np.array_equal(text.predict_binned(Xb, raw_score=True,
+                                             device=dev), raw),
+          "text model: the round trip predicts differently")
+    split = booster.feature_importance("split")
+    check(int(split.sum()) == int((booster.arrays["feature"] >= 0).sum()),
+          "feature_importance: split counts != internal nodes")
+    rep["gain_top3"] = [int(f) for f in np.argsort(
+        -booster.feature_importance("gain"))[:3]]
+    print("model api: " + json.dumps(rep), flush=True)
+    print("model api: pred_leaf card = CPU and sums to predict; SoA = "
+          "packed; SHAP card = CPU, efficient; refit card = CPU, "
+          "repeatable; text round trip bitwise", flush=True)
+    report["model_api"] = rep
+
+
+def phase_estimator(dt, dev, report) -> dict:
+    """Phase 31: ``DryadClassifier`` at its defaults on the raw Covertype
+    rows, labels ``y * 10 + 3``."""
+    import numpy as np
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.sklearn import DryadClassifier
+
+    X, y = datasets.covertype_like(COV_ROWS + COV_HOLDOUT, COV_FEATURES,
+                                   COV_CLASSES, seed=11)
+    labels = y[:COV_ROWS] * 10 + 3
+    clf = DryadClassifier(num_trees=EST_TREES, device=dev)
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    clf.fit(X[:COV_ROWS], labels)
+    fit_s = time.perf_counter() - t0
+    launches = dict(cuda_build.counts)
+    b = clf.booster_
+    check(np.array_equal(clf.classes_, np.arange(COV_CLASSES) * 10 + 3),
+          f"estimator: classes_ {clf.classes_}")
+    check(b.params.max_depth == 9 and b.num_total_trees == EST_TREES * 7,
+          f"estimator: depth {b.params.max_depth}, "
+          f"{b.num_total_trees} trees")
+    n = b.num_total_trees
+    check_launches(launches, {"hist": 10 * n, "perm": 9 * n}, "estimator")
+    Xh = X[COV_ROWS:]
+    proba = clf.predict_proba(Xh)
+    check(proba.shape == (COV_HOLDOUT, COV_CLASSES)
+          and float(np.abs(proba.sum(axis=1) - 1).max()) <= 1e-5,
+          "estimator: predict_proba rows do not sum to 1")
+    check(np.array_equal(proba, dt.predict(b, Xh, device=dev)),
+          "estimator: predict_proba != dryad_tpu_torch.predict")
+    acc = float((clf.predict(Xh) == y[COV_ROWS:] * 10 + 3).mean())
+    rep = dict(tree_summary(b), fit_seconds=fit_s, launches=launches,
+               holdout_accuracy=acc)
+    print("estimator: " + json.dumps(rep), flush=True)
+    report["estimator"] = rep
+    return launches
+
+
 _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
 
@@ -3208,6 +3453,13 @@ def main() -> int:
     # ---- 28. the boosting modes' fixtures ---------------------------------
     mf_launches, mf_nat, mf_rows = phase_mode_fixtures(dt, a, dev, report)
     mark("28")
+    # ---- 29-30. cv and the model API on the Higgs rows --------------------
+    cv_launches = phase_cv(dt, ds, dev, report)
+    phase_model_api(dt, w_booster, Xv, yv, dev, report)
+    mark("29-30")
+    # ---- 31. an estimator on the Covertype rows ---------------------------
+    est_launches = phase_estimator(dt, dev, report)
+    mark("31")
     # ---- 16. Epsilon-shaped regression, the Higgs tensors freed -----------
     del ds, Xv, yv, w_booster
     gc.collect()
@@ -3263,7 +3515,8 @@ def main() -> int:
                "goss": g_launches, **mono_paths, "dart": d_launches,
                "rf": rf_launches,
                "goss_fixture_legacy": mf_launches["goss"],
-               "monotone_fixture_legacy": mf_launches["monotone"]}
+               "monotone_fixture_legacy": mf_launches["monotone"],
+               "cv": cv_launches, "estimator_covertype": est_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

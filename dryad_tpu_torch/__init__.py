@@ -11,6 +11,16 @@
     booster = dryad.train({"objective": "binary",
                            "categorical_features": cat_ids}, ds)
 
+    # the rest of the model API
+    res = dryad.cv({"objective": "binary"}, ds, nfold=5)
+    leaves = dryad.predict(booster, X_test, pred_leaf=True)      # (N, T)
+    shap = dryad.predict(booster, X_test, pred_contrib=True)     # (N, F+1)
+    adapted = booster.refit(X_new, y_new, decay_rate=0.9)
+    booster.save_text("model.json")
+    same = dryad.Booster.load_any("model.json")    # npz or text
+    from dryad_tpu_torch.sklearn import DryadClassifier
+    clf = DryadClassifier(num_trees=50).fit(X, labels)
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise rather than fall back.  On
 the CPU every kernel runs its plain PyTorch version.
@@ -29,7 +39,13 @@ layout or the legacy plan arm, with monotone constraints; in the
 boosting modes gbdt, goss, dart and rf; with sample weights, bagging and
 column sampling, valid sets scored on the device, early stopping,
 callbacks, checkpoint/resume and warm starts; it saves and loads model
-files in the reference's format, and it predicts.  It imports nothing of ``jax`` or of
+files in the reference's formats (npz and versioned text), and it
+predicts scores, leaf ids (``pred_leaf``) and TreeSHAP contributions
+(``pred_contrib``), through packed node words or, for models whose fields
+overflow them, the structure-of-arrays traversal (``predict_layout``).
+It refits leaf values on new rows (``Booster.refit``), cross-validates
+(``cv``) and wraps all of this in scikit-learn-style estimators
+(``dryad_tpu_torch.sklearn``).  It imports nothing of ``jax`` or of
 ``dryad_tpu``.
 """
 
@@ -42,9 +58,10 @@ import torch
 
 from dryad_tpu_torch.booster import Booster
 from dryad_tpu_torch.config import Params, make_params
+from dryad_tpu_torch.cv import cv
 from dryad_tpu_torch.dataset import Dataset
 
-__all__ = ["train", "predict", "Dataset", "Booster", "Params",
+__all__ = ["train", "predict", "cv", "Dataset", "Booster", "Params",
            "resolve_device"]
 
 
@@ -157,17 +174,16 @@ def _check_append_compatible(p: Params, train_set: Dataset,
 
 
 def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
-            num_iteration: Optional[int] = None, device=None) -> np.ndarray:
-    """Predict raw features through the booster's frozen mapper; returns
-    the objective's transform of the scores (probabilities for binary and
-    multiclass, rates for poisson), or raw scores with ``raw_score=True``:
-    shape (N,) for one output, (N, K) for a K-class model."""
-    from dryad_tpu_torch.engine.predict import predict_binned
-    from dryad_tpu_torch.objectives import get_objective
-
-    dev = resolve_device(device)
-    Xb = booster.mapper.transform(np.asarray(X, np.float32))
-    raw = predict_binned(booster, Xb, device=dev, num_iteration=num_iteration)
-    out = raw if raw_score else get_objective(booster.params).transform_np(
-        raw)
-    return out if booster.num_outputs > 1 else out[:, 0]
+            num_iteration: Optional[int] = None, pred_leaf: bool = False,
+            pred_contrib: bool = False, device=None) -> np.ndarray:
+    """Predict raw features through the booster's frozen mapper on
+    ``device`` (default: the card); returns the objective's transform of
+    the scores (probabilities for binary and multiclass, rates for
+    poisson), or raw scores with ``raw_score=True``: shape (N,) for one
+    output, (N, K) for a K-class model.  ``pred_leaf=True`` gives the
+    (N, T) int32 leaf node ids of the first T = n_iter * K trees,
+    ``pred_contrib=True`` the (N, [K,] F + 1) float64 TreeSHAP values, the
+    last column the bias (it takes precedence over ``pred_leaf``)."""
+    return booster.predict(X, raw_score=raw_score,
+                           num_iteration=num_iteration, pred_leaf=pred_leaf,
+                           pred_contrib=pred_contrib, device=device)

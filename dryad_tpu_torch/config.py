@@ -85,7 +85,6 @@ _GROWTH_ALIASES = {
 # other value raises.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "hist_backend": "auto",
-    "predict_layout": "auto",
     "hist_reduce": "auto",
     "ch_max": 0,
     "rows_per_chunk": 65536,
@@ -163,6 +162,10 @@ class Params:
     lambdarank_truncation: int = 30
     hist_subtraction: bool = True
     deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
+    # predict's traversal table: packed node words when every field fits
+    # (auto), always (packed: raises on overflow), or structure-of-arrays
+    # (legacy)
+    predict_layout: str = "auto"
 
     @property
     def effective_num_leaves(self) -> int:
@@ -266,6 +269,8 @@ class Params:
             raise ValueError("eval_period must be >= 1")
         if self.deep_layout not in ("auto", "legacy"):
             raise ValueError("deep_layout must be auto|legacy")
+        if self.predict_layout not in ("auto", "packed", "legacy"):
+            raise ValueError("predict_layout must be auto|packed|legacy")
         return self
 
     def replace(self, **kw: Any) -> "Params":

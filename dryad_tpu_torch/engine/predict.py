@@ -1,6 +1,7 @@
-"""Predict: level-synchronous tree traversal over packed node words.
+"""Predict: level-synchronous tree traversal over packed node words, or
+over structure-of-arrays node fields where a model's fields overflow them.
 
-The counterpart of ``dryad_tpu/engine/predict.py``'s packed arm.
+The counterpart of ``dryad_tpu/engine/predict.py``'s two arms.
 Traversal compares integer bin ids, and the leaf values are added in fp32
 in iteration order, each class tree to its own score column, so the raw
 scores are bitwise those of the reference given the same model, on any
@@ -22,6 +23,13 @@ A model with categorical splits also carries each node's (CAT_WORDS,)
 bitset of the bins that go left: bin b is bit ``b & 31`` of word
 ``min(b >> 5, CAT_WORDS - 1)``, read where is_cat (bit 29) is set.  A
 model without categorical splits traverses without the bitset.
+
+The structure-of-arrays ("legacy") table is a dict of (..., M) int64
+fields (``SOA_KEYS``), taken where a feature id reaches 4096, a threshold
+or a child index 65536 (``predict_layout``: ``auto`` packs when every
+field fits, ``packed`` raises, ``legacy`` always takes it).  Both arms
+compare the same integer values, so they agree bit for bit; every
+function below that takes a table takes either.
 """
 
 from __future__ import annotations
@@ -97,8 +105,8 @@ def pack_node_words(feature, threshold, left, right, default_left,
                          or int(arr.max()) >= (1 << widths[name])):
             raise ValueError(
                 f"packed predict layout: field {name!r} does not fit "
-                f"{widths[name]} bits (max value {int(arr.max())}); the "
-                "legacy layout is a later slice of the port")
+                f"{widths[name]} bits (max value {int(arr.max())}); use "
+                "predict_layout='legacy' for this model")
     t = {k: torch.from_numpy(np.asarray(v, np.int64))
          for k, v in fields.items()}
     return pack_words(t["feature"], t["threshold"], t["left"], t["right"],
@@ -122,14 +130,50 @@ def unpack_node_words(words: np.ndarray) -> dict:
     }
 
 
-def stage_trees(booster, num_iteration: Optional[int] = None):
-    """(words (n_iter * K, M, 2) int64, value (n_iter * K, M) f32, bitset
-    (n_iter * K, M, CAT_WORDS) int64 or None when no staged tree has a
-    categorical split, init (K,) f32, n_iter) for the traversal of the
-    first ``n_iter`` iterations' trees, K per iteration.  Without
-    ``num_iteration`` a booster with a best iteration (early stopping)
-    stops there.  Models whose fields do not fit the packed words are a
-    later slice."""
+SOA_KEYS = ("feature", "threshold", "left", "right", "default_left",
+            "is_cat")
+
+
+def soa_table(ta: dict) -> dict:
+    """The structure-of-arrays table of tree arrays ``ta`` (numpy, leading
+    dims (..., M)): every traversal field as int64 (the flags 0/1)."""
+    return {k: np.ascontiguousarray(ta[k], np.int64) for k in SOA_KEYS}
+
+
+def table_to(table, device):
+    """A staged numpy table (packed words or an SoA dict) as tensors on
+    ``device``."""
+    if isinstance(table, dict):
+        return {k: torch.from_numpy(v).to(device) for k, v in table.items()}
+    return torch.from_numpy(table).to(device)
+
+
+def table_slot(table, t):
+    """Tree ``t`` (or the slice ``t``) of a staged table."""
+    if isinstance(table, dict):
+        return {k: v[t] for k, v in table.items()}
+    return table[t]
+
+
+def table_len(table) -> int:
+    """Trees in a staged table."""
+    if isinstance(table, dict):
+        return int(table["feature"].shape[0])
+    return int(table.shape[0])
+
+
+def stage_trees(booster, num_iteration: Optional[int] = None,
+                layout: Optional[str] = None):
+    """(table, value (n_iter * K, M) f32, bitset (n_iter * K, M,
+    CAT_WORDS) int64 or None when no staged tree has a categorical split,
+    init (K,) f32, n_iter) for the traversal of the first ``n_iter``
+    iterations' trees, K per iteration.  Without ``num_iteration`` a
+    booster with a best iteration (early stopping) stops there.
+
+    ``layout`` (default ``booster.params.predict_layout``): ``packed``
+    gives the (n_iter * K, M, 2) int64 node words and raises when a field
+    overflows them; ``legacy`` the structure-of-arrays dict
+    (``soa_table``); ``auto`` packs when every field fits, else SoA."""
     if num_iteration is None:
         num_iteration = (booster.best_iteration
                          if booster.best_iteration > 0
@@ -137,25 +181,34 @@ def stage_trees(booster, num_iteration: Optional[int] = None):
     n_iter = min(num_iteration, booster.num_iterations)
     T = n_iter * booster.num_outputs
     ta = {k: v[:T] for k, v in booster.tree_arrays().items()}
-    reason = packed_fallback_reason(ta["feature"], ta["threshold"],
-                                    ta["left"], ta["right"])
-    if reason is not None:
-        raise NotImplementedError(
-            f"packed node words do not fit ({reason}); the legacy "
-            "traversal layout is a later slice of the port")
-    words = pack_node_words(ta["feature"], ta["threshold"], ta["left"],
-                            ta["right"], ta["default_left"], ta["is_cat"])
+    if layout is None:
+        layout = booster.params.predict_layout
+    if layout not in ("auto", "packed", "legacy"):
+        raise ValueError("predict_layout must be auto|packed|legacy")
+    if layout == "auto":
+        layout = ("packed" if packed_fallback_reason(
+            ta["feature"], ta["threshold"], ta["left"], ta["right"]) is None
+            else "legacy")
+    if layout == "packed":
+        table = pack_node_words(ta["feature"], ta["threshold"], ta["left"],
+                                ta["right"], ta["default_left"],
+                                ta["is_cat"])
+    else:
+        table = soa_table(ta)
     bitset = (ta["cat_bitset"].astype(np.int64) if ta["is_cat"].any()
               else None)
-    return (words, np.ascontiguousarray(ta["value"], np.float32), bitset,
+    return (table, np.ascontiguousarray(ta["value"], np.float32), bitset,
             np.asarray(booster.init_score, np.float32), n_iter)
 
 
-def tree_leaves(words: torch.Tensor, Xb: torch.Tensor, depth_bound: int,
+def tree_leaves(table, Xb: torch.Tensor, depth_bound: int,
                 bitset: torch.Tensor | None = None) -> torch.Tensor:
-    """Leaf node id every row reaches in one tree (words (M, 2) int64;
-    ``bitset`` (M, CAT_WORDS) int64 when the tree may split on a
-    categorical feature)."""
+    """Leaf node id every row reaches in one tree: ``table`` is its (M, 2)
+    int64 node words or its SoA dict of (M,) fields; ``bitset`` (M,
+    CAT_WORDS) int64 when the tree may split on a categorical feature."""
+    if isinstance(table, dict):
+        return _leaves_soa(table, Xb, depth_bound, bitset)
+    words = table
     node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
     for _ in range(max(int(depth_bound), 1)):
         w = words[node]                               # one gather per level
@@ -175,30 +228,53 @@ def tree_leaves(words: torch.Tensor, Xb: torch.Tensor, depth_bound: int,
     return node
 
 
-def add_tree(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
+def _leaves_soa(tree: dict, Xb: torch.Tensor, depth_bound: int,
+                bitset: torch.Tensor | None) -> torch.Tensor:
+    """The SoA arm of ``tree_leaves``: one gather per field per level, the
+    same integer comparisons as the packed arm."""
+    node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
+    for _ in range(max(int(depth_bound), 1)):
+        f = tree["feature"][node]
+        internal = f >= 0
+        fc = torch.where(internal, f, 0)
+        bins = Xb.gather(1, fc[:, None])[:, 0].to(torch.int64)
+        go_left = bins <= tree["threshold"][node]
+        go_left &= (tree["default_left"][node] != 0) | (bins != 0)
+        if bitset is not None:
+            word = bitset[node, torch.clamp(bins >> 5,
+                                            max=bitset.shape[1] - 1)]
+            go_left = torch.where(tree["is_cat"][node] != 0,
+                                  ((word >> (bins & 31)) & 1) != 0, go_left)
+        nxt = torch.where(go_left, tree["left"][node], tree["right"][node])
+        node = torch.where(internal, nxt, node)
+    return node
+
+
+def add_tree(table, value: torch.Tensor, Xb: torch.Tensor,
              score: torch.Tensor, depth_bound: int,
              bitset: torch.Tensor | None = None) -> torch.Tensor:
-    """``score + value[leaf]`` of one tree (words (M, 2), value (M,)) over
+    """``score + value[leaf]`` of one tree (its table, value (M,)) over
     rows ``Xb``: the fp32 add the boosting loop makes to a valid set's
     scores when the tree is grown (the counterpart of the reference's
     ``_apply_valid_jit``)."""
-    return score + value[tree_leaves(words, Xb, depth_bound, bitset)]
+    return score + value[tree_leaves(table, Xb, depth_bound, bitset)]
 
 
-def accumulate(words: torch.Tensor, value: torch.Tensor, Xb: torch.Tensor,
+def accumulate(table, value: torch.Tensor, Xb: torch.Tensor,
                init: torch.Tensor, depth_bound: int,
                bitset: torch.Tensor | None = None) -> torch.Tensor:
     """Raw scores (N, K) for K = ``init.numel()``: init plus each tree's
     leaf value, tree t adding to column t % K, in fp32 in tree order (the
     reference's summation order per column, and the boosting loop's, so a
-    resumed run rebuilds its scores bitwise)."""
+    resumed run rebuilds its scores bitwise).  ``table``: packed words or
+    an SoA dict, (T, M, ...)."""
     K = init.numel()
     score = init.to(torch.float32).reshape(1, K).expand(
         Xb.shape[0], K).clone()
-    for t in range(words.shape[0]):
+    for t in range(table_len(table)):
         k = t % K
-        score[:, k] = add_tree(words[t], value[t], Xb, score[:, k],
-                               depth_bound,
+        score[:, k] = add_tree(table_slot(table, t), value[t], Xb,
+                               score[:, k], depth_bound,
                                None if bitset is None else bitset[t])
     return score
 
@@ -263,8 +339,8 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
     (``rf_average``, on the host)."""
     from dryad_tpu_torch.engine.train import binned_to_device
 
-    words, value, bitset, init, n_iter = stage_trees(booster, num_iteration)
-    raw = accumulate(torch.from_numpy(words).to(device),
+    table, value, bitset, init, n_iter = stage_trees(booster, num_iteration)
+    raw = accumulate(table_to(table, device),
                      torch.from_numpy(value).to(device),
                      binned_to_device(np.asarray(Xb), device),
                      torch.from_numpy(init).to(device),
@@ -274,3 +350,23 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
     if booster.params.boosting == "rf" and n_iter > 0:
         return rf_average(raw.cpu().numpy(), init, n_iter)
     return raw.cpu().numpy()
+
+
+def predict_leaves(booster, Xb: np.ndarray, *, device: torch.device,
+                   num_iteration: Optional[int] = None) -> np.ndarray:
+    """(N, T) int32 leaf node ids of pre-binned rows in the first T =
+    n_iter * K trees (``pred_leaf``; the ``num_iteration`` and
+    ``best_iteration`` rule of the scores), traversed on ``device``."""
+    from dryad_tpu_torch.engine.train import binned_to_device
+
+    table, _, bitset, _, _ = stage_trees(booster, num_iteration)
+    table = table_to(table, device)
+    Xd = binned_to_device(np.asarray(Xb), device)
+    out = torch.empty((Xd.shape[0], table_len(table)), dtype=torch.int32,
+                      device=device)
+    for t in range(table_len(table)):
+        out[:, t] = tree_leaves(
+            table_slot(table, t), Xd, max(booster.max_depth_seen, 1),
+            None if bitset is None
+            else torch.from_numpy(bitset[t]).to(device))
+    return out.cpu().numpy()

@@ -68,6 +68,7 @@ from dryad_tpu_torch.engine.predict import (
     dart_drop,
     rf_average_dev,
     stage_trees,
+    table_to,
     table_words,
 )
 from dryad_tpu_torch.metrics.device import make_evaluator
@@ -259,9 +260,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     max_depth_prev = 0
     replay = None
     if prev is not None:
-        words, value, bitset, _, n_prev = stage_trees(prev,
+        table, value, bitset, _, n_prev = stage_trees(prev,
                                                        prev.num_iterations)
-        replay = (torch.from_numpy(words).to(device),
+        replay = (table_to(table, device),
                   torch.from_numpy(value).to(device),
                   max(prev.max_depth_seen, 1),
                   None if bitset is None

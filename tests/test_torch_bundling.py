@@ -20,6 +20,7 @@ import dryad_tpu_torch as dt
 from dryad_tpu_torch.data import bundling as tb
 from dryad_tpu_torch.data.sketch import BinMapper as TBinMapper
 from dryad_tpu_torch.data.sketch import sketch_features as t_sketch
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _base(csr, y, cat=()):

@@ -25,6 +25,7 @@ from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.engine.grower import pack_cat_bitset
 from dryad_tpu_torch.engine.predict import predict_binned
 from dryad_tpu_torch.engine.split import find_best_split as t_find
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _KW = dict(lambda_l2=1.0, min_child_weight=1e-3, min_data_in_leaf=5,
            min_split_gain=0.0)

@@ -28,6 +28,7 @@ from dryad_tpu_torch import datasets as tdatasets
 from dryad_tpu_torch.data.bundling import BundledMapper
 from dryad_tpu_torch.engine.predict import predict_binned
 from dryad_tpu_torch.metrics import auc
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _STRUCT = ("feature", "threshold", "left", "right", "is_cat", "cat_bitset",
            "default_left")

@@ -34,6 +34,7 @@ from dryad_tpu.datasets import covertype_like, higgs_like, mslr_like
 import dryad_tpu_torch as dt
 from dryad_tpu_torch.checkpoint import Checkpointer
 from dryad_tpu_torch.convert import booster_from_reference
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 PARAMS = dict(objective="binary", num_trees=12, num_leaves=7, max_depth=3,
               max_bins=32, subsample=0.8, seed=3, min_data_in_leaf=5)

@@ -18,7 +18,9 @@ and the scan's stable order equal to the CPU's; categorical training on
 the reference's tie-free fixtures, and bagged and multiclass training, on
 the card vs the CPU as each test states; GOSS's uniforms and selection on
 the card bitwise equal to the CPU's, and GOSS, monotone, DART and rf
-training on the card vs the CPU as their test states.
+training on the card vs the CPU as their test states; the model API
+(pred_leaf, the SoA traversal, TreeSHAP, refit, cv) on the card vs the
+CPU as its test states.
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from dryad_tpu_torch.engine.leafwise_fast import (
 from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 from dryad_tpu_torch.objectives import Binary
 from torch_layout import grouped_layout
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = leafperm.TILE_ROWS
 
@@ -480,3 +483,59 @@ def test_boosting_modes_on_card_match_cpu(cuda_device, mode):
     np.testing.assert_array_equal(
         dt.predict(card, X, raw_score=True, device=cuda_device),
         dt.predict(card, X, raw_score=True, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["binary", "multiclass_categorical"])
+def test_model_api_on_card_matches_cpu(cuda_device, kind):
+    """pred_leaf, the SoA traversal (features re-indexed past 4096),
+    TreeSHAP, refit and cv on the card against the CPU: leaf ids and
+    predicts bitwise, SHAP within 1e-9, refit values within rtol 1e-5 /
+    atol 1e-6 and two card refits bitwise, cv trees equal and curves
+    within 1e-6."""
+    import dryad_tpu_torch as dt
+
+    if kind == "binary":
+        X, y = datasets.higgs_like(20_000, seed=5)
+        ds = Dataset(X, y, max_bins=64)
+        params = dict(objective="binary", growth="depthwise", max_depth=6,
+                      num_leaves=40, max_bins=64, num_trees=5)
+    else:
+        X, y = datasets.covertype_like(20_000, 12, 3, seed=5)
+        X[:, 0] = np.floor(np.abs(X[:, 0]) * 4)
+        ds = Dataset(X, y, max_bins=64, categorical_features=[0])
+        params = dict(objective="multiclass", num_class=3, num_trees=3,
+                      num_leaves=15, max_bins=64, categorical_features=[0])
+    b = dt.train(params, ds, device="cpu")
+    Xb = ds.X_binned[:2000]
+    leaves = b.predict_binned(Xb, pred_leaf=True, device=cuda_device)
+    np.testing.assert_array_equal(
+        leaves, b.predict_binned(Xb, pred_leaf=True, device="cpu"))
+    ta = b.tree_arrays()
+    ta["feature"] = np.where(ta["feature"] >= 0, ta["feature"] + 4096, -1)
+    Xw = np.zeros((Xb.shape[0], 4096 + Xb.shape[1]), Xb.dtype)
+    Xw[:, 4096:] = Xb
+    wide = dt.Booster(b.params, b.mapper, ta, b.init_score,
+                      b.max_depth_seen)
+    np.testing.assert_array_equal(
+        wide.predict_binned(Xw, raw_score=True, device=cuda_device),
+        b.predict_binned(Xb, raw_score=True, device=cuda_device))
+    phi = b.predict_binned(Xb[:300], pred_contrib=True, device=cuda_device)
+    np.testing.assert_allclose(
+        phi, b.predict_binned(Xb[:300], pred_contrib=True, device="cpu"),
+        rtol=0, atol=1e-9)
+    r1 = b.refit(X, y, decay_rate=0.8, device=cuda_device)
+    r2 = b.refit(X, y, decay_rate=0.8, device=cuda_device)
+    rc = b.refit(X, y, decay_rate=0.8, device="cpu")
+    np.testing.assert_array_equal(r1.arrays["value"], r2.arrays["value"])
+    np.testing.assert_allclose(r1.arrays["value"], rc.arrays["value"],
+                               rtol=1e-5, atol=1e-6)
+    if kind == "binary":
+        kw = dict(nfold=3, seed=1, return_boosters=True)
+        card = dt.cv(params, ds, device=cuda_device, **kw)
+        cpu = dt.cv(params, ds, device="cpu", **kw)
+        for bc, bp in zip(card["boosters"], cpu["boosters"]):
+            for k in ("feature", "threshold", "left", "right"):
+                np.testing.assert_array_equal(bc.arrays[k], bp.arrays[k])
+        np.testing.assert_allclose(card["valid_auc-mean"],
+                                   cpu["valid_auc-mean"], rtol=0, atol=1e-6)

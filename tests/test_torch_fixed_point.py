@@ -19,6 +19,7 @@ from dryad_tpu_torch.engine import hist, hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.histogram import build_hist_segmented
 from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 from torch_layout import grouped_layout
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = hist.TILE_ROWS
 

@@ -21,6 +21,7 @@ from dryad_tpu_torch.engine import hist as thist
 from dryad_tpu_torch.engine import histogram as thg
 from dryad_tpu_torch.engine import leafperm as tlp
 from torch_layout import grouped_layout
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = tlp.TILE_ROWS
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from dryad_tpu.engine import pallas_hist as jph
 from dryad_tpu_torch.engine import hist, hist_nat, tile_plan
 from dryad_tpu_torch.engine.histogram import build_hist_segmented
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = tile_plan.TILE_ROWS
 

@@ -31,6 +31,7 @@ from dryad_tpu.objectives import LambdaRank as JLambdaRank
 from dryad_tpu_torch import datasets
 from dryad_tpu_torch.engine import lambdarank as L
 from dryad_tpu_torch.objectives import LambdaRank
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from dryad_tpu.engine import leafperm as jlp
 from dryad_tpu_torch.engine import leafperm as tlp
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = tlp.TILE_ROWS
 

@@ -46,6 +46,7 @@ from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.engine import grower as tgrower
 from dryad_tpu_torch.engine import hist, hist_nat
 from dryad_tpu_torch.engine import leafwise_fast as tlf
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "default_left",
              "row_leaf", "max_depth", "cover")

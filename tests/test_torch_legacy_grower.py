@@ -23,6 +23,7 @@ from dryad_tpu_torch.engine import levelwise as tlw
 from dryad_tpu_torch.engine import tile_plan
 
 from test_torch_split_grower import _tree_inputs
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "default_left",
              "row_leaf", "max_depth", "cover")

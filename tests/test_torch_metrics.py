@@ -29,6 +29,7 @@ import dryad_tpu_torch as dt
 from dryad_tpu_torch import metrics as M
 from dryad_tpu_torch.metrics import device as D
 from dryad_tpu_torch.engine.loop_state import normalize_valids, sample_masks
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("subsample,colsample", [

@@ -41,6 +41,7 @@ from dryad_tpu_torch import datasets, metrics
 from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.metrics.device import eval_value
 from dryad_tpu_torch.objectives import Multiclass
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "default_left",
              "is_cat")

@@ -19,6 +19,7 @@ import dryad_tpu
 from dryad_tpu.datasets import covertype_like
 
 import dryad_tpu_torch as dt
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "default_left",
              "is_cat")

@@ -29,6 +29,7 @@ from dryad_tpu import objectives as JO
 
 import dryad_tpu_torch as dt
 from dryad_tpu_torch import config, objectives as O
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 N = 4000
 

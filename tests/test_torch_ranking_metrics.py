@@ -25,6 +25,7 @@ from dryad_tpu.metrics import device as JD
 import dryad_tpu_torch as dt
 from dryad_tpu_torch import metrics as M
 from dryad_tpu_torch.metrics import device as D
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _queries(seed, n_q=300, max_size=40):

@@ -28,6 +28,7 @@ from dryad_tpu.datasets import mslr_like
 import dryad_tpu_torch as dt
 from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.metrics import ndcg_at_k
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "default_left",
              "is_cat")

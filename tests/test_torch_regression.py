@@ -25,6 +25,7 @@ from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.datasets import epsilon_like
 from dryad_tpu_torch.metrics import rmse
 from dryad_tpu_torch.objectives import Regression
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 PARAMS = dict(objective="regression", num_trees=4, num_leaves=31,
               max_depth=5, growth="depthwise", max_bins=64)

@@ -27,6 +27,7 @@ from dryad_tpu.engine.train import _renew_values
 import dryad_tpu_torch as dt
 from dryad_tpu_torch.engine import train as engine_train
 from dryad_tpu_torch.engine.train import renew_values
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _toy(n=6000, seed=4):

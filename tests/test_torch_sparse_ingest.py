@@ -18,6 +18,7 @@ from dryad_tpu_torch import dataset as tdataset
 from dryad_tpu_torch import datasets as tdatasets
 from dryad_tpu_torch.data import binning as tbinning
 from dryad_tpu_torch.data.sketch import _sketch_categorical as t_sketch_cat
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from dryad_tpu.engine.split import find_best_split as j_find
 from dryad_tpu_torch.config import Params as TParams
 from dryad_tpu_torch.engine import levelwise as tlw
 from dryad_tpu_torch.engine.split import find_best_split as t_find
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _hists(rng, K, F, B, missing):

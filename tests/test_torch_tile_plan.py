@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from dryad_tpu.engine import pallas_hist as jph
 from dryad_tpu_torch.engine import tile_plan as ttp
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 T = ttp.TILE_ROWS
 

@@ -29,6 +29,7 @@ from dryad_tpu_torch.convert import booster_from_reference
 from dryad_tpu_torch.engine.predict import pack_node_words, unpack_node_words
 from dryad_tpu_torch.metrics import auc
 from dryad_tpu_torch.objectives import Binary
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
 
 _INT_KEYS = ("feature", "threshold", "left", "right", "is_cat", "cat_bitset",
              "default_left")
