@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--rows N] [--trees T] [--seed S] [--reps R]
                           [--eps-rows N] [--eps-trees T] [--bag-trees T]
                           [--bag-legacy-trees T] [--cov-default-trees T]
+                          [--serve-trees T]
 
 Phases (any failed check exits non-zero):
 
@@ -111,7 +112,8 @@ Phases (any failed check exits non-zero):
 20. MSLR-WEB30K LambdaMART (``mslr_like(18,919 + 6,306 queries, (5, 234)
    documents, 136 features, seed=17)``: the train queries of one fold and
    the next 6,306 as the valid set; the acceptance config: leaf-wise, 31
-   leaves, max_depth 10, 50 trees, 256 bins, NDCG@10 every iteration).
+   leaves, max_depth 10, 50 trees cut to 25, 256 bins, NDCG@10 every
+   iteration).
    145-byte records refuse the wired layout, so the batched grower's
    legacy arm: on a capture tree K3 (level 3, P=8) and K1 row mode (root
    and level 9, P=512) against their plain versions; 4 K3 and 7 K1
@@ -119,7 +121,7 @@ Phases (any failed check exits non-zero):
    K3 gate); a second run bitwise equal; card predict bitwise equal to CPU
    predict; the trainer's valid scores bitwise equal to predict's; NDCG@10
    rising from iteration 1 and above the zero-score NDCG, its last value
-   within 1e-5 of the host oracle; the lambda pass on tree 25's scores
+   within 1e-5 of the host oracle; the lambda pass on tree 12's scores
    twice bitwise and within rtol 1e-5 / atol 1e-6 of the CPU's;
    iterations/s, the lambda pass's and one NDCG eval's device ms, one
    iteration profiled (K3 and K1 row mode device ms, busy share), peak
@@ -165,7 +167,7 @@ Phases (any failed check exits non-zero):
    and predicts bitwise.
 24. GOSS (``boosting="goss"``, rates 0.2 and 0.1) on the Higgs rows of
    phase 2 at the headline config (depthwise depth 8, 255 leaves, 256
-   bins, wired), the 1M held-out rows as the valid set, 20 trees: the
+   bins, wired), the 1M held-out rows as the valid set, 10 trees: the
    card's uniforms equal the numpy copy at 10M rows for iterations 0
    and 1; the card's selection (mask, amplified g and h) equals the CPU's
    bitwise; K1's root and K2's level-0 move under the GOSS mask against
@@ -176,17 +178,17 @@ Phases (any failed check exits non-zero):
    amplification, one tree profiled;
 25. monotone constraints on features 6-9 (each with the sign of its
    weight in ``higgs_like``'s linear term), depthwise and leaf-wise
-   (depth 8, 255 leaves, wired), 20 trees each: 9 K1 and 8 K2 launches a
+   (depth 8, 255 leaves, wired), 10 trees each: 9 K1 and 8 K2 launches a
    tree; predict monotone along each constrained feature over 256 held-out
    rows x 64 grid points within 1e-6; AUC rising; the widest level's
    split scan timed with and without its monotone arm;
 26. DART (drop rate 0.1, skip 0.5, at most 50) at the headline config,
-   validated, 20 trees: the loop's drop sets equal ``dart_drop_set``'s;
+   validated, 10 trees: the loop's drop sets equal ``dart_drop_set``'s;
    its final valid scores equal CPU predict of the final table bitwise;
    no best iteration; 9 K1 and 8 K2 launches a tree; the drop
    iterations' times beside the others';
 27. rf (subsample 0.7, colsample 0.8) at the headline config,
-   validated, 20 trees: K1's root under the bag against its plain
+   validated, 10 trees: K1's root under the bag against its plain
    version; 9 K1 and 8 K2 launches a tree; the streamed AUC equals the
    host AUC of (averaged) predict within 1e-5; card predict bitwise CPU;
 28. the modes' fixtures on ``higgs_like(50_000, seed=43)``, 64 bins:
@@ -217,10 +219,29 @@ Phases (any failed check exits non-zero):
    wired), 10 iterations on the raw Covertype rows drawn as phase 17
    draws them, labels ``y * 10 + 3``: ``classes_`` the 7 labels; 10 K1
    and 9 K2 launches a tree; ``predict_proba`` of the 100k held-out rows
-   sums to 1 within 1e-5 and is bitwise ``predict(clf.booster_, X)``.
+   sums to 1 within 1e-5 and is bitwise ``predict(clf.booster_, X)``;
+32. serving (``dryad_tpu_torch.serve``), last: the headline config
+   trained at ``serve_trees`` (500, the north star's count) trees on
+   phase 2's rows (9 K1 and 8 K2 launches a tree; held-out AUC above 0.70
+   and risen from tree 10; trees/s), saved, and served from the saved
+   file beside a second, named model (20 regression trees, a text file):
+   launches of one bucket call of the tree-at-once program against
+   ``accumulate``'s; warmup captures one CUDA graph per (version, bucket),
+   seconds each; served raw and transformed answers bitwise the direct
+   card predict at every request shape (1 to 5000 rows, chunked past
+   4096) for both models, bitwise the CPU predict on 10k rows, and 8
+   concurrent clients' answers bitwise slices of one predict; no capture
+   after ``warmup_complete()`` and ``/healthz`` 200; latency p50/p99 at
+   1, 8, 64, 512 and 4096 rows (``SERVE_LAT_REQS`` sequential requests
+   each); one HTTP round trip bitwise; a budget eviction lowers
+   ``torch.cuda.memory_allocated`` and the re-staged model answers
+   bitwise; staged device bytes; bulk rows/s of 4 clients sending
+   4096-row requests, pipelined against serial (``run_bench_compare``,
+   two windows of ``SERVE_BULK["duration_s"]`` seconds an arm).
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
-log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".
+log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
+32 runs after phase 23 on the same rows, kept on the host until then.
 
 Each kernel's time is held beside two bounds, the bytes over the memory
 rate and, for the histogram kernels, the shared-memory atomic updates (3
@@ -1842,11 +1863,11 @@ def phase_covertype_fixture(dt, a, dev, report) -> tuple:
 
 
 # MSLR-WEB30K's LambdaMART acceptance config (scripts/acceptance.py:84):
-# leaf-wise, 31 leaves, max_depth 10, 50 trees, 256 bins, NDCG@10 of the
-# valid set every iteration.  MSLR-WEB30K holds 31,531 queries of ~120
+# leaf-wise, 31 leaves, max_depth 10, 50 trees (cut to 25 here, for the
+# script's time), 256 bins, NDCG@10 of the valid set every iteration.  MSLR-WEB30K holds 31,531 queries of ~120
 # documents, 136 features, relevance 0-4; a fold trains on 3/5 of its
 # queries (18,919) and validates on 1/5 (6,306)
-MSLR = {"objective": "lambdarank", "num_trees": 50, "num_leaves": 31,
+MSLR = {"objective": "lambdarank", "num_trees": 25, "num_leaves": 31,
         "max_depth": 10, "max_bins": 256}
 MSLR_TRAIN_QUERIES = 18_919
 MSLR_VALID_QUERIES = 6_306
@@ -2021,7 +2042,7 @@ def phase_mslr(dt, a, dev, report) -> tuple:
     del calls
     torch.cuda.empty_cache()
 
-    # the main path: 50 trees, the valid set's NDCG@10 every iteration
+    # the main path: 25 trees, the valid set's NDCG@10 every iteration
     kept, restore = spy_valid_scores(engine_train, 1)
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2058,7 +2079,7 @@ def phase_mslr(dt, a, dev, report) -> tuple:
     print("mslr: second run bitwise equal; card predict bitwise equal to "
           "CPU; valid scores bitwise equal to predict", flush=True)
 
-    # the lambda pass on one iteration's scores (tree 25's): card twice,
+    # the lambda pass on one iteration's scores (tree T // 2's): card twice,
     # bitwise, and against the same function on the CPU
     obj = get_objective(booster.params)
     s_mid = predict_binned(booster, ds.X_binned, device=dev,
@@ -2677,7 +2698,7 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
 MODE_BASE = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
              "seed": 0, "metric": "auc"}
-MODE_TREES = 20
+MODE_TREES = 10                 # enough for AUC to rise and DART to drop
 GOSS = dict(MODE_BASE, boosting="goss", goss_top_rate=0.2,
             goss_other_rate=0.1)
 DART = dict(MODE_BASE, boosting="dart", drop_rate=0.1, skip_drop=0.5,
@@ -3320,6 +3341,302 @@ _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
 
 
+SERVE = dict(MODE_BASE, num_trees=500)
+SERVE_SMALL = {"objective": "regression", "growth": "depthwise",
+               "max_depth": 6, "num_leaves": 63, "max_bins": 256,
+               "learning_rate": 0.1, "num_trees": 20}
+SERVE_BUCKETS = (1, 8, 64, 512, 4096)    # latency is measured at these
+SERVE_SHAPES = (1, 7, 8, 9, 63, 64, 100, 511, 512, 4095, 4096, 5000)
+SERVE_LAT_REQS = 500                     # sequential requests per bucket
+SERVE_BULK = dict(clients=4, sizes=(4096,), duration_s=4.0, arms=2)
+
+
+def serve_launches(fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` launches, from
+    torch.profiler; 0 when the profiler sees no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_table_bytes(entry, dev) -> int:
+    """Bytes of one staged model's tables on the card."""
+    state = entry._device[dev]
+    tensors = ([*state["table"].values()] if isinstance(state["table"], dict)
+               else [state["table"]])
+    tensors += [state["value"], state["init"]]
+    if state["bitset"] is not None:
+        tensors.append(state["bitset"])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_serve(dt, a, ds, Xv, yv, dev, report) -> dict:
+    """Phase 32: the serving stack on the headline model.  Trains it at
+    ``serve_trees`` trees on phase 2's rows, saves it, serves it from the
+    saved file beside a second, named model (a text file), and checks
+    served = direct predict on the card bitwise at every request shape,
+    = CPU predict on a 10k-row sample, no capture after warmup, /healthz
+    200, an eviction's freed device memory and re-stage, and one HTTP
+    round trip.  Prints the seconds of each step (``step_seconds``).
+    Returns the training run's launches."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import predict as P
+    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.metrics import auc
+    from dryad_tpu_torch.obs.health import healthz_payload
+    from dryad_tpu_torch.serve import (PredictServer, bucket_rows,
+                                       run_bench_compare)
+    from dryad_tpu_torch.serve.http import make_http_server
+
+    steps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    T = a.serve_trees
+    booster, launches, peak = train_counted(dt, dict(SERVE, num_trees=T),
+                                            ds, dev)
+    lap("train")
+    check_launches(launches, {"hist": 9 * T, "perm": 8 * T}, "serve train")
+    Xvb = booster.mapper.transform(Xv)        # binned once for both AUCs
+    auc10 = auc(yv, booster.predict_binned(Xvb, num_iteration=10,
+                                           device=dev))
+    auc_last = auc(yv, booster.predict_binned(Xvb, device=dev))
+    del Xvb
+    check(auc_last > auc10 and auc_last > 0.70,
+          f"serve: held-out AUC {auc10} at 10 trees, {auc_last} at {T}")
+    train = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
+                 auc={"tree_10": auc10, "last": auc_last},
+                 train_seconds=sum(booster.tree_seconds))
+    print("serve train: " + json.dumps(train), flush=True)
+    small = dt.train(SERVE_SMALL, ds, device=dev)
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "headline.dryad")
+    small_path = os.path.join(tmp.name, "small.json")
+    booster.save(path)
+    small.save_text(small_path)
+    rep: dict = {"trees": T, "train": train,
+                 "model_file_bytes": os.path.getsize(path)}
+    server = PredictServer(device=dev)
+    v1 = server.load_model(path)
+    v2 = server.load_model(small_path, name="small", activate=False)
+    e1 = server.registry.get(v1)
+    check(e1.booster.num_iterations == T, "serve: the saved model's trees")
+    lap("auc_small_model_files")
+
+    # launches of one bucket call of the tree-at-once program (eager) and
+    # of the per-tree accumulate, and the two results, on the same 64 rows
+    st = e1.device_state(dev)
+    x64 = binned_to_device(booster.mapper.transform(Xv[:64]), dev)
+    args = (st["table"], st["value"], x64, st["init"], e1.depth_bound,
+            st["bitset"])
+    rep["launches_per_bucket_call"] = serve_launches(
+        lambda: P.forest_scores(*args))
+    rep["accumulate_launches_per_call"] = serve_launches(
+        lambda: P.accumulate(*args))
+    check(torch.equal(P.forest_scores(*args), P.accumulate(*args)),
+          "serve: forest_scores != accumulate")
+    del st, x64, args
+    lap("launch_counts")
+
+    t0 = time.perf_counter()
+    touched = server.warmup()
+    rep["warmup_seconds"] = time.perf_counter() - t0
+    nb = len(server.cache.buckets())
+    check(touched == 2 * nb, f"serve: warmup touched {touched}")
+    rep["capture_seconds"] = {
+        f"v{k[0]}/{k[1]}": s for k, s in sorted(server.cache.capture_s.items())}
+    compiles = server.stats()["cache_compiles"]
+    check(compiles == 2 * nb, f"serve: {compiles} captures in warmup")
+    rep["staged_device_bytes"] = {
+        "headline": device_table_bytes(e1, dev),
+        "small": device_table_bytes(server.registry.get(v2), dev)}
+    rep["registry_memory"] = server.registry.memory()
+    lap("warmup")
+    # where a bucket call's time goes: the graph's replay (device ms, CUDA
+    # events) and binning the raw rows on the host
+    pool = Xv[:20_000]
+    split = {}
+    with server.cache._device_lock:
+        for n in SERVE_BUCKETS:
+            g = server.cache._graphs.get((v1, bucket_rows(n), 1))
+            check(g is not None, f"serve: no graph of bucket {n}")
+            t0 = time.perf_counter()
+            for _ in range(10):
+                booster.mapper.transform(pool[:n])
+            split[n] = {"bucket": bucket_rows(n),
+                        "replay_ms": time_ms(g.graph.replay, 20),
+                        "binning_ms": (time.perf_counter() - t0) / 10 * 1e3}
+    del g                  # a graph holds its version's tables alive
+    rep["bucket_call_split"] = split
+    lap("bucket_call_split")
+
+    n_max = max(SERVE_SHAPES)
+    direct = {raw: booster.predict(Xv[:n_max], raw_score=raw, device=dev)
+              for raw in (True, False)}
+    direct_small = small.predict(Xv[:n_max], device=dev)
+    with server:
+        # each request shape against the direct predict of its rows (a
+        # slice of one predict: predict is per row)
+        for n in SERVE_SHAPES:
+            for raw in (True, False):
+                got = server.predict(Xv[:n], raw_score=raw, timeout=120)
+                want = direct[raw][:n]
+                check(got.dtype == want.dtype and np.array_equal(got, want),
+                      f"serve: {n} rows (raw={raw}) != direct card predict")
+            got = server.predict(Xv[:n], model="small", timeout=120)
+            check(np.array_equal(got, direct_small[:n]),
+                  f"serve: the small model's {n} rows != direct")
+        got = server.predict(Xv[:10_000], raw_score=True, timeout=120)
+        check(np.array_equal(got, booster.predict(
+            Xv[:10_000], raw_score=True, device="cpu")),
+            "serve: 10k rows served != CPU predict")
+        # concurrent mixed requests: each answer a slice of one predict
+        direct = booster.predict(pool, raw_score=True, device=dev)
+        bad = []
+
+        def client(ci):
+            rng = np.random.default_rng(100 + ci)
+            for _ in range(20):
+                n = int(rng.choice((1, 9, 100, 700, 3000)))
+                s0 = int(rng.integers(0, len(pool) - n))
+                out = server.predict(pool[s0:s0 + n], raw_score=True,
+                                     timeout=120)
+                if not np.array_equal(out, direct[s0:s0 + n]):
+                    bad.append((ci, n, s0))
+
+        threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+                   for ci in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        check(not any(t.is_alive() for t in threads) and not bad,
+              f"serve: concurrent answers differ: {bad[:3]}")
+        lap("bitwise_checks")
+
+        # latency by bucket, one client, sequential requests
+        rng = np.random.default_rng(7)
+        lat = {}
+        for n in SERVE_BUCKETS:
+            ms = []
+            for _ in range(SERVE_LAT_REQS):
+                s0 = int(rng.integers(0, len(pool) - n))
+                t0 = time.perf_counter()
+                server.predict(pool[s0:s0 + n], timeout=120)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[n] = {"p50_ms": float(np.percentile(ms, 50)),
+                      "p99_ms": float(np.percentile(ms, 99)),
+                      "requests": len(ms),
+                      "rows_per_s": n / (float(np.mean(ms)) / 1e3)}
+        rep["latency_by_bucket"] = lat
+        lap("latency")
+        stats = server.stats()
+        check(stats["cache_compiles"] == compiles,
+              f"serve: {stats['cache_compiles'] - compiles} captures after "
+              "warmup_complete()")
+        code, body = healthz_payload()
+        check(code == 200, f"serve: /healthz {code} {body}")
+
+        # one HTTP round trip
+        httpd = make_http_server(server, port=0)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            req = urllib.request.Request(
+                base + "/predict",
+                data=json.dumps({"rows": Xv[:5].tolist(),
+                                 "raw": True}).encode(),
+                headers={"Content-Type": "application/json"})
+            out = json.loads(urllib.request.urlopen(req, timeout=60).read())
+            health = urllib.request.urlopen(base + "/healthz", timeout=60)
+            check(health.status == 200, "serve: HTTP /healthz")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(60)
+        check(np.array_equal(np.asarray(out["predictions"], np.float32),
+                             booster.predict(Xv[:5], raw_score=True,
+                                             device=dev)),
+              "serve: the HTTP answer != direct predict")
+
+        # an eviction frees the headline model's tables and graphs
+        sync()
+        m0 = torch.cuda.memory_allocated()
+        server.activate(v2)
+        server.registry.budget_bytes = 1
+        v3 = server.registry.add(small, activate=False)
+        server.registry.get(v3).staged()       # a staging event: evicts v1
+        sync()
+        m1 = torch.cuda.memory_allocated()
+        check(not e1.is_staged and not any(
+            k[0] == v1 for k in server.cache._warm),
+            "serve: the headline model was not evicted")
+        check(m0 - m1 >= rep["staged_device_bytes"]["headline"],
+              f"serve: eviction freed {m0 - m1} bytes, less than the "
+              f"model's {rep['staged_device_bytes']['headline']} on the card")
+        rep["evicted_bytes"] = m0 - m1
+        server.activate(v1)
+        for n in (9, 4096):
+            got = server.predict(Xv[:n], raw_score=True, timeout=120)
+            check(np.array_equal(got, booster.predict(
+                Xv[:n], raw_score=True, device=dev)),
+                f"serve: re-staged {n} rows != direct")
+        server.registry.budget_bytes = None
+        stats = server.stats()
+        check(stats["evictions"] >= 1 and stats["restages"] >= 1,
+              "serve: no eviction or re-stage counted")
+        code, body = healthz_payload()
+        check(code == 200, f"serve: /healthz after a re-stage {code} {body}")
+    rep["stats"] = {k: stats[k] for k in (
+        "requests", "rows", "batches", "batch_fill_ratio", "p50_ms",
+        "p99_ms", "cache_hits", "cache_compiles", "evictions", "restages")}
+    del server, e1
+    tmp.cleanup()
+    lap("http_eviction")
+
+    # bulk rows/s with 4 clients of 4096-row requests, pipeline vs serial
+    cmp = run_bench_compare(booster, device=dev, max_batch_rows=4096,
+                            max_wait_ms=2.0, feature_pool=pool, seed=0,
+                            **SERVE_BULK)
+    check(cmp["recompiles_after_warmup"] == 0,
+          "serve bench: captures after warmup")
+    rep["bulk"] = {arm: {k: cmp[arm][k] for k in (
+        "rows_per_s", "rows_per_s_arms", "requests_per_s",
+        "bench_requests", "p50_ms", "p99_ms", "batch_fill_ratio",
+        "spread_rows_per_s")}
+        for arm in ("serial", "pipeline")}
+    rep["pipeline_speedup"] = cmp["pipeline_speedup"]
+    lap("bulk")
+    rep["step_seconds"] = steps
+    print("serve: " + json.dumps(rep), flush=True)
+    print("serve: served = direct card predict at every shape, = CPU on "
+          "10k rows; no capture after warmup; /healthz 200; eviction freed "
+          "memory and the re-staged model answers bitwise; HTTP bitwise",
+          flush=True)
+    report["serve"] = rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -3347,9 +3664,10 @@ def main() -> int:
     ap.add_argument("--eps-rows", type=int, default=EPS_ROWS)
     ap.add_argument("--eps-holdout", type=int, default=EPS_HOLDOUT)
     ap.add_argument("--eps-trees", type=int, default=20)
-    ap.add_argument("--bag-trees", type=int, default=20)
+    ap.add_argument("--bag-trees", type=int, default=12)
     ap.add_argument("--bag-legacy-trees", type=int, default=5)
     ap.add_argument("--cov-default-trees", type=int, default=10)
+    ap.add_argument("--serve-trees", type=int, default=SERVE["num_trees"])
     a = ap.parse_args()
 
     import torch
@@ -3366,6 +3684,8 @@ def main() -> int:
           "be >= 2 (metrics must move)")
     check(a.cov_default_trees >= 7, "--cov-default-trees must be >= 7 "
           "(the resume drill crashes at iteration 6)")
+    check(a.serve_trees > 10, "--serve-trees must be > 10 (AUC must rise "
+          "from tree 10)")
     t_start = time.perf_counter()
     # wall seconds of each group of phases, keyed by its phase numbers
     phase_seconds: dict = {}
@@ -3460,8 +3780,9 @@ def main() -> int:
     # ---- 31. an estimator on the Covertype rows ---------------------------
     est_launches = phase_estimator(dt, dev, report)
     mark("31")
-    # ---- 16. Epsilon-shaped regression, the Higgs tensors freed -----------
-    del ds, Xv, yv, w_booster
+    # ---- 16. Epsilon-shaped regression, the Higgs tensors freed (the
+    # Higgs rows stay on the host for phase 32) ----------------------------
+    del w_booster
     gc.collect()
     torch.cuda.empty_cache()
     e_launches, e_root, e_level, eds, eXv_b, eyv = phase_epsilon(
@@ -3501,6 +3822,12 @@ def main() -> int:
     ctf_launches, ctf_nat, ctf_rows = phase_criteo_fixtures(dt, a, dev,
                                                             report)
     mark("23")
+    # ---- 32. serving the headline model -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv_launches = phase_serve(dt, a, ds, Xv, yv, dev, report)
+    del ds, Xv, yv
+    mark("32")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -3516,7 +3843,8 @@ def main() -> int:
                "rf": rf_launches,
                "goss_fixture_legacy": mf_launches["goss"],
                "monotone_fixture_legacy": mf_launches["monotone"],
-               "cv": cv_launches, "estimator_covertype": est_launches}
+               "cv": cv_launches, "estimator_covertype": est_launches,
+               "serve_train": sv_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

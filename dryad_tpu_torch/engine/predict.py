@@ -205,49 +205,13 @@ def tree_leaves(table, Xb: torch.Tensor, depth_bound: int,
                 bitset: torch.Tensor | None = None) -> torch.Tensor:
     """Leaf node id every row reaches in one tree: ``table`` is its (M, 2)
     int64 node words or its SoA dict of (M,) fields; ``bitset`` (M,
-    CAT_WORDS) int64 when the tree may split on a categorical feature."""
-    if isinstance(table, dict):
-        return _leaves_soa(table, Xb, depth_bound, bitset)
-    words = table
-    node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
-    for _ in range(max(int(depth_bound), 1)):
-        w = words[node]                               # one gather per level
-        w0, w1 = w[:, 0], w[:, 1]
-        internal = ((w1 >> 30) & 1) != 0
-        fc = (w1 >> 16) & 0xFFF
-        bins = Xb.gather(1, fc[:, None])[:, 0].to(torch.int64)
-        go_left = bins <= (w1 & 0xFFFF)
-        go_left &= (((w1 >> 28) & 1) != 0) | (bins != 0)
-        if bitset is not None:
-            word = bitset[node, torch.clamp(bins >> 5,
-                                            max=bitset.shape[1] - 1)]
-            go_left = torch.where(((w1 >> 29) & 1) != 0,
-                                  ((word >> (bins & 31)) & 1) != 0, go_left)
-        nxt = torch.where(go_left, w0 & 0xFFFF, w0 >> 16)
-        node = torch.where(internal, nxt, node)
-    return node
-
-
-def _leaves_soa(tree: dict, Xb: torch.Tensor, depth_bound: int,
-                bitset: torch.Tensor | None) -> torch.Tensor:
-    """The SoA arm of ``tree_leaves``: one gather per field per level, the
-    same integer comparisons as the packed arm."""
-    node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
-    for _ in range(max(int(depth_bound), 1)):
-        f = tree["feature"][node]
-        internal = f >= 0
-        fc = torch.where(internal, f, 0)
-        bins = Xb.gather(1, fc[:, None])[:, 0].to(torch.int64)
-        go_left = bins <= tree["threshold"][node]
-        go_left &= (tree["default_left"][node] != 0) | (bins != 0)
-        if bitset is not None:
-            word = bitset[node, torch.clamp(bins >> 5,
-                                            max=bitset.shape[1] - 1)]
-            go_left = torch.where(tree["is_cat"][node] != 0,
-                                  ((word >> (bins & 31)) & 1) != 0, go_left)
-        nxt = torch.where(go_left, tree["left"][node], tree["right"][node])
-        node = torch.where(internal, nxt, node)
-    return node
+    CAT_WORDS) int64 when the tree may split on a categorical feature.
+    ``forest_leaves`` of a one-tree table (its flat ids are the leaf
+    ids)."""
+    one = ({k: v[None] for k, v in table.items()} if isinstance(table, dict)
+           else table[None])
+    return forest_leaves(one, Xb, depth_bound,
+                         None if bitset is None else bitset[None])[:, 0]
 
 
 def add_tree(table, value: torch.Tensor, Xb: torch.Tensor,
@@ -279,10 +243,85 @@ def accumulate(table, value: torch.Tensor, Xb: torch.Tensor,
     return score
 
 
-def table_words(out: dict, sl) -> torch.Tensor:
-    """Words of the slots ``sl`` (an index or a slice) of the boosting
-    loop's device tree tables, packed as ``stage_trees`` packs a
-    booster's: (M, 2) for one slot, (T, M, 2) for a slice."""
+def forest_leaves(table, Xb: torch.Tensor, depth_bound: int,
+                  bitset: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, T) flat node ids ``t * M + leaf`` that every row reaches in each
+    of the T trees of a staged table ((T, M, 2) packed words or an SoA
+    dict of (T, M) fields; ``bitset`` (T, M, CAT_WORDS)), all trees at
+    once: one gather per field per level over the (N, T) node tensor.
+    The one copy of the routing rule: ``tree_leaves`` is its T = 1 case."""
+    soa = isinstance(table, dict)
+    T, M = (table["feature"] if soa else table).shape[:2]
+    flat = ({k: v.reshape(T * M) for k, v in table.items()} if soa
+            else table.reshape(T * M, 2))
+    bflat = None if bitset is None else bitset.reshape(T * M, -1)
+    base = torch.arange(T, dtype=torch.int64, device=Xb.device) * M
+    node = base.expand(Xb.shape[0], T).clone()
+    for _ in range(max(int(depth_bound), 1)):
+        if soa:
+            f = flat["feature"][node]
+            internal = f >= 0
+            fc = torch.where(internal, f, 0)
+            thr, dl = flat["threshold"][node], flat["default_left"][node] != 0
+            left, right = flat["left"][node], flat["right"][node]
+        else:
+            w = flat[node]                        # (N, T, 2)
+            w0, w1 = w[..., 0], w[..., 1]
+            internal = ((w1 >> 30) & 1) != 0
+            fc = (w1 >> 16) & 0xFFF
+            thr, dl = w1 & 0xFFFF, ((w1 >> 28) & 1) != 0
+            left, right = w0 & 0xFFFF, w0 >> 16
+        bins = Xb.gather(1, fc).to(torch.int64)
+        go_left = (bins <= thr) & (dl | (bins != 0))
+        if bflat is not None:
+            ic = (flat["is_cat"][node] != 0 if soa
+                  else ((w1 >> 29) & 1) != 0)
+            word = bflat[node, torch.clamp(bins >> 5,
+                                           max=bflat.shape[1] - 1)]
+            go_left = torch.where(ic, ((word >> (bins & 31)) & 1) != 0,
+                                  go_left)
+        node = torch.where(internal, base + torch.where(go_left, left, right),
+                           node)
+    return node
+
+
+def forest_scores(table, value: torch.Tensor, Xb: torch.Tensor,
+                  init: torch.Tensor, depth_bound: int,
+                  bitset: torch.Tensor | None = None) -> torch.Tensor:
+    """``accumulate`` with all trees traversed at once (``forest_leaves``):
+    the leaf values then go into the (N, K) scores by in-order fp32 adds,
+    tree t into column t % K, so the result is bitwise ``accumulate``'s
+    with ~14 ops a level plus one add a tree, against ``accumulate``'s ~20
+    a level a tree (``chip_smoke.py``'s serve phase prints both launch
+    counts).  The serving cache's program."""
+    T = table_len(table)
+    K = init.numel()
+    N = Xb.shape[0]
+    cols = [init[k].to(torch.float32).expand(N).clone() for k in range(K)]
+    if T:
+        leaf = forest_leaves(table, Xb, depth_bound, bitset)
+        vals = value.reshape(-1)[leaf].t().contiguous()     # (T, N)
+        for t in range(T):
+            cols[t % K].add_(vals[t])
+    return torch.stack(cols, dim=1)
+
+
+def packed_fits(n_features: int, max_nodes: int) -> bool:
+    """Whether every feature id below ``n_features`` and every child index
+    below ``max_nodes`` fits its packed width (bin thresholds always do)."""
+    return (n_features <= (1 << PACKED_FEATURE_BITS)
+            and max_nodes <= (1 << PACKED_CHILD_BITS))
+
+
+def table_words(out: dict, sl, n_features: int):
+    """The traversal table of the slots ``sl`` (an index or a slice) of the
+    boosting loop's device tree tables over rows of ``n_features``
+    columns: packed words as ``stage_trees`` packs a booster's ((M, 2) for
+    one slot, (T, M, 2) for a slice) when the run's shapes fit them
+    (``packed_fits``), else the SoA dict of the same slots, so no field is
+    ever packed past its width."""
+    if not packed_fits(n_features, out["feature"].shape[-1]):
+        return {k: out[k][sl].to(torch.int64) for k in SOA_KEYS}
     return pack_words(out["feature"][sl], out["threshold"][sl],
                       out["left"][sl], out["right"][sl],
                       out["default_left"][sl], out["is_cat"][sl])
@@ -303,7 +342,7 @@ def dart_drop(out: dict, score: torch.Tensor, tids: np.ndarray,
     dcontrib = torch.zeros_like(score)
     for t in tids.tolist():
         c = t % K
-        dcontrib[:, c] = add_tree(table_words(out, t),
+        dcontrib[:, c] = add_tree(table_words(out, t, Xb.shape[1]),
                                   out["value"][t], Xb, dcontrib[:, c],
                                   depth_bound,
                                   None if bitset is None else bitset[t])

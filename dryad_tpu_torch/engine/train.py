@@ -61,8 +61,6 @@ from dryad_tpu_torch.engine.loop_state import (
     update_best,
 )
 from dryad_tpu_torch.engine.predict import (
-    PACKED_CHILD_BITS,
-    PACKED_FEATURE_BITS,
     accumulate,
     add_tree,
     dart_drop,
@@ -283,12 +281,6 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     valids = normalize_valids(valid)
     evaluators = [make_evaluator(p.objective, p.metric, vds, device, K,
                                  p.ndcg_at) for _, vds in valids]
-    if valids and (F > (1 << PACKED_FEATURE_BITS)
-                   or M > (1 << PACKED_CHILD_BITS)):
-        raise NotImplementedError(
-            "valid sets are scored through packed node words; more than "
-            f"{1 << PACKED_FEATURE_BITS} features or {1 << PACKED_CHILD_BITS}"
-            " nodes need the legacy traversal layout, a later slice")
     # a host-scored eval fetches the scores anyway: nothing to defer
     sync_eval = (bool(p.early_stopping_rounds) or callback is not None
                  or any(fn.host_only for _, _, fn in evaluators))
@@ -393,22 +385,22 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                 continue            # the scores are rebuilt below
             score[:, k] = score[:, k] + tree["value"][tree["row_leaf"]]
             if valids:
-                words = table_words(out, t)
+                table = table_words(out, t, Xb.shape[1])
                 bitset = None if is_cat_feat is None else tree["cat_bitset"]
                 for vXb, vs in zip(vXbs, vscores):
-                    vs[:, k] = add_tree(words, tree["value"], vXb, vs[:, k],
+                    vs[:, k] = add_tree(table, tree["value"], vXb, vs[:, k],
                                         depth_bound, bitset)
         if value_scale is not None:
             # the replay-sum over the rescaled table, the function a
             # resumed run rebuilds its scores with (incremental deltas
             # would round differently)
             n_live = (it + 1) * K
-            words = table_words(out, slice(0, n_live))
+            table = table_words(out, slice(0, n_live), Xb.shape[1])
             bitset = (None if is_cat_feat is None
                       else out["cat_bitset"][:n_live])
-            score = accumulate(words, out["value"][:n_live], Xb, init_t,
+            score = accumulate(table, out["value"][:n_live], Xb, init_t,
                                depth_bound, bitset)
-            vscores = [accumulate(words, out["value"][:n_live], vXb, init_t,
+            vscores = [accumulate(table, out["value"][:n_live], vXb, init_t,
                                   depth_bound, bitset) for vXb in vXbs]
 
         info: dict = {"iteration": it}

@@ -20,7 +20,9 @@ the card vs the CPU as each test states; GOSS's uniforms and selection on
 the card bitwise equal to the CPU's, and GOSS, monotone, DART and rf
 training on the card vs the CPU as their test states; the model API
 (pred_leaf, the SoA traversal, TreeSHAP, refit, cv) on the card vs the
-CPU as its test states.
+CPU as its test states; the serving stack (CUDA graphs per bucket) bitwise
+equal to the direct card and CPU predicts, no capture after warmup, and
+evictions and unloads lowering ``torch.cuda.memory_allocated``.
 """
 
 import numpy as np
@@ -539,3 +541,101 @@ def test_model_api_on_card_matches_cpu(cuda_device, kind):
                 np.testing.assert_array_equal(bc.arrays[k], bp.arrays[k])
         np.testing.assert_allclose(card["valid_auc-mean"],
                                    cpu["valid_auc-mean"], rtol=0, atol=1e-6)
+
+
+def _serve_models():
+    """(raw rows, a binary depth-6 model, a 3-class categorical model, its
+    rows), trained on the CPU."""
+    import dryad_tpu_torch as dt
+
+    X, y = datasets.higgs_like(20_000, seed=9)
+    b = dt.train(dict(objective="binary", growth="depthwise", max_depth=6,
+                      num_leaves=63, max_bins=64, num_trees=40),
+                 Dataset(X, y, max_bins=64), device="cpu")
+    Xc, yc = datasets.covertype_like(20_000, 12, 3, seed=5)
+    Xc[:, 0] = np.floor(np.abs(Xc[:, 0]) * 4)
+    bc = dt.train(dict(objective="multiclass", num_class=3, num_trees=4,
+                       num_leaves=15, max_bins=64, categorical_features=[0]),
+                  Dataset(Xc, yc, max_bins=64, categorical_features=[0]),
+                  device="cpu")
+    return X, b, bc, Xc
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_direct_and_captures_only_in_warmup(
+        cuda_device):
+    """The serving stack on the card: served = direct card predict and =
+    CPU predict bitwise at every shape (chunked past 512 rows), raw and
+    transformed, for a packed binary model and a categorical 3-class
+    model (the bitset arm); warmup captures one graph per (version,
+    bucket) and traffic after it captures none; /healthz stays 200."""
+    from dryad_tpu_torch.obs.health import healthz_payload
+    from dryad_tpu_torch.serve import PredictServer
+
+    X, b, bc, Xc = _serve_models()
+    server = PredictServer(device=cuda_device, max_batch_rows=512,
+                           max_wait_ms=0.5)
+    v1 = server.registry.add(b)
+    v2 = server.registry.add(bc, activate=False, name="cat")
+    assert server.warmup() == 2 * len(server.cache.buckets())
+    compiles = server.stats()["cache_compiles"]
+    assert compiles == 2 * len(server.cache.buckets())
+    assert all(s > 0 for s in server.cache.capture_s.values())
+    with server:
+        for n in (0, 1, 7, 8, 9, 100, 512, 513, 1500):
+            for raw in (True, False):
+                got = server.predict(X[:n], raw_score=raw, timeout=60)
+                np.testing.assert_array_equal(
+                    got, b.predict(X[:n], raw_score=raw, device=cuda_device))
+                np.testing.assert_array_equal(
+                    got, b.predict(X[:n], raw_score=raw, device="cpu"))
+                got = server.predict(Xc[:n], model="cat", raw_score=raw,
+                                     timeout=60)
+                np.testing.assert_array_equal(
+                    got, bc.predict(Xc[:n], raw_score=raw, device="cpu"))
+        assert server.stats()["cache_compiles"] == compiles
+        assert healthz_payload()[0] == 200
+        assert server.registry.memory()["staged_versions"] == [v1, v2]
+
+
+@pytest.mark.cuda
+def test_serving_eviction_and_unload_free_card_memory(cuda_device):
+    """A budget eviction drops the model's device tables and graphs
+    (``torch.cuda.memory_allocated`` falls), the model re-stages and
+    answers bitwise; unloading a version frees its graphs as well."""
+    from dryad_tpu_torch.serve import PredictServer
+
+    X, b, bc, Xc = _serve_models()
+    server = PredictServer(device=cuda_device, max_batch_rows=512,
+                           max_wait_ms=0.5)
+    v1 = server.registry.add(b)
+    v2 = server.registry.add(bc, activate=False)
+    server.warmup()
+    want = b.predict(X[:300], raw_score=True, device="cpu")
+    with server:
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        server.activate(v2)
+        server.registry.budget_bytes = 1
+        v3 = server.registry.add(bc, activate=False)
+        server.registry.get(v3).staged()          # evicts v1
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated()
+        assert not server.registry.get(v1).is_staged
+        assert not any(k[0] == v1 for k in server.cache._graphs)
+        assert m1 < m0
+        np.testing.assert_array_equal(
+            server.predict(X[:300], version=v1, raw_score=True, timeout=60),
+            want)
+        assert server.stats()["restages"] >= 1
+        server.registry.budget_bytes = None
+        server.activate(v1)
+        assert any(k[0] == v2 for k in server.cache._graphs)
+        torch.cuda.synchronize()
+        m2 = torch.cuda.memory_allocated()
+        server.unload(v2)
+        torch.cuda.synchronize()
+        assert not any(k[0] == v2 for k in server.cache._graphs)
+        assert torch.cuda.memory_allocated() < m2
+        np.testing.assert_array_equal(
+            server.predict(X[:300], raw_score=True, timeout=60), want)

@@ -151,3 +151,77 @@ def test_reference_dart_model_file_predicts_bitwise(tmp_path, data):
     np.testing.assert_array_equal(tb.predict(X, raw_score=True,
                                              device="cpu"),
                                   jb.predict(X, raw_score=True))
+
+
+# ROADMAP Queue 3's F1 fixture: the key features sit past the packed
+# words' 12-bit feature field
+WIDE_PARAMS = dict(objective="binary", boosting="dart", num_trees=8,
+                   growth="depthwise", max_depth=2, num_leaves=4,
+                   max_bins=16, drop_rate=0.5, skip_drop=0.0,
+                   learning_rate=0.5, seed=1, min_data_in_leaf=5)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2000, 4100)).astype(np.float32)
+    y = (X[:, 4099] + 0.3 * X[:, 4098]
+         + 0.2 * rng.normal(size=2000) > 0).astype(np.float32)
+    return X, y, dt.Dataset(X, y, max_bins=16)
+
+
+def test_dart_wide_features_match_reference(wide):
+    X, y, tds = wide
+    tb = dt.train(WIDE_PARAMS, tds, device="cpu")
+    jb = dryad_tpu.train(WIDE_PARAMS, dryad_tpu.Dataset(X, y, max_bins=16),
+                         backend="cpu")
+    ta, ja = tb.tree_arrays(), jb.tree_arrays()
+    assert (ta["feature"] >= 4096).any()
+    for k in _INT:
+        np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+    np.testing.assert_allclose(ta["value"], ja["value"], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(tb.predict(X, raw_score=True, device="cpu"),
+                               jb.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("boosting", ["gbdt", "dart"])
+def test_valid_set_past_packed_widths(wide, boosting):
+    X, y, tds = wide
+    seen = {}
+    vds = tds.bind(X[:500], y[:500])
+    tb = dt.train(dict(WIDE_PARAMS, boosting=boosting, num_trees=4,
+                       metric="auc"), tds, [vds], device="cpu",
+                  callback=lambda it, info: seen.update(info))
+    assert (tb.tree_arrays()["feature"] >= 4096).any()
+    recomp = auc(y[:500], dt.predict(tb, X[:500], raw_score=True,
+                                     num_iteration=4, device="cpu"))
+    assert abs(seen["valid_auc"] - recomp) < 1e-6
+
+
+def test_table_words_routes_around_packed_widths():
+    from dryad_tpu_torch.engine.predict import (
+        SOA_KEYS, pack_words, packed_fits, table_words, unpack_node_words)
+
+    M = 7
+    out = {k: torch.zeros((3, M), dtype=torch.int64) for k in SOA_KEYS}
+    out["feature"][:] = -1
+    out["feature"][:, 0] = torch.tensor([4099, 3, 4095])
+    out["left"][:, 0], out["right"][:, 0] = 1, 2
+    out["threshold"][:, 0] = 5
+    assert packed_fits(4096, 65536)
+    assert not packed_fits(4097, M) and not packed_fits(10, 65537)
+    # past the width: the SoA dict, every field as it was
+    wide_t = table_words(out, slice(0, 3), 4100)
+    assert isinstance(wide_t, dict)
+    assert wide_t["feature"][0, 0].item() == 4099
+    one = table_words(out, 0, 4100)
+    assert one["feature"].shape == (M,)
+    # within it: the packed words, which read back every field
+    narrow = table_words(out, slice(1, 3), 4096)
+    assert torch.equal(narrow, pack_words(*(out[k][1:3] for k in (
+        "feature", "threshold", "left", "right", "default_left",
+        "is_cat"))))
+    np.testing.assert_array_equal(
+        unpack_node_words(narrow.numpy())["feature"][:, 0], [3, 4095])
