@@ -18,7 +18,9 @@ Phases (any failed check exits non-zero):
    root and at the widest level (P=128): bitwise equal (counts and g/h:
    both sum in the tree's fixed point), two launches bitwise equal; K2
    (row move) at a depth-4 level, bitwise; each with its time, the plain
-   version's, one library call's and the bound;
+   version's, one library call's and the bound; at both K1 shapes the
+   accumulate-only launch (``reduce=``) plus ``sums_to_float`` bitwise
+   the full launch, both timed;
 4. the wired path: the headline config (28 features, 256 bins, depthwise,
    max_depth 8, 255 leaves, learning rate 0.1) with the launch counts set
    to 0 just before: 9 K1 and 8 K2 launches per tree; a second run gives
@@ -31,7 +33,8 @@ Phases (any failed check exits non-zero):
    trees, 128 leaves, depth 8): equal trees;
 8. the legacy plan arm at the headline config (``deep_layout="legacy"``):
    one capture tree; K3 (natural-order pass) at level 4 (P=16) and K1 row
-   mode at level 7 (P=128) vs their plain versions, as in phase 3;
+   mode at level 7 (P=128) vs their plain versions, as in phase 3, with
+   the accumulate-only check;
 9. the legacy path: 5 K3, 4 K1 row-mode and no other launches per tree; a
    second run bitwise equal; card predict bitwise equal to CPU predict; AUC
    above 0.70 and rising; tree 1 equal to the wired run's tree 1 (no
@@ -239,6 +242,25 @@ Phases (any failed check exits non-zero):
    4096-row requests, pipelined against serial (``run_bench_compare``,
    two windows of ``SERVE_BULK["duration_s"]`` seconds an arm).
 
+33. data-parallel training (``dryad_tpu_torch.distributed``), after
+   serving: phase 2's binned rows, the held-out rows binned through the
+   same mapper, the labels and the mapper are written once to a
+   git-ignored directory of the checkout; two rank processes (each
+   reading its own row block, importing nothing of the reference) join a
+   gloo group and share the card, with the 1M held-out rows as every
+   rank's valid set: (a) the headline config ("auto" is the fused
+   all-reduce at F = 28), (a') the same on the feature arm
+   (``hist_reduce="feature"``), (b) the feature arm with ``subsample`` and
+   ``colsample`` 0.8; then this process joins a one-rank NCCL group
+   through ``initialize()`` and trains (a) and (a') through
+   ``train_distributed``.  The yardsticks are one process without a
+   group on all the rows, with the same valid set (its unbagged trees
+   are phase 4's): every rank's trees and eval history are bitwise
+   theirs; 9 K1 and 8 K2 launches per tree per rank; trees/s per run
+   (and of the yardsticks), the histogram collectives' bytes per tree
+   (all-reduced, or reduce-scattered and all-gathered) and their ms per
+   tree (CUDA events around each collective).
+
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
 32 runs after phase 23 on the same rows, kept on the host until then.
@@ -262,6 +284,8 @@ import argparse
 import gc
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -285,6 +309,17 @@ COV_ITERATIONS = 30
 COV_FEATURES = 54
 COV_CLASSES = 7
 OUT = "chiprun_out"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 33's rows, written once for the rank processes and removed after
+# (git-ignored; not under OUT, which comes back from the card)
+DIST_DIR = os.path.join(ROOT, "_dist_rows")
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 300
+# intra-op threads of each rank process: a fixed count, whatever the
+# host's load (half of an 8-core host's cores over the two ranks)
+DIST_RANK_THREADS = 4
+# trees of each profiled run of phase 33's NCCL-against-one-process check
+DIST_PROFILE_TREES = 3
 
 
 def fail(msg: str) -> None:
@@ -415,6 +450,26 @@ def compare(name: str, run, plain) -> tuple[object, float]:
     return k1, err
 
 
+def _accumulate_only(acc):
+    """The ``reduce=`` hook of a single process: the sums as they are, so
+    the launch only accumulates and ``hist.sums_to_float`` converts."""
+    return acc
+
+
+def check_acc_only(name: str, full, acc_only, reps: int) -> dict:
+    """The accumulate-only launch plus ``sums_to_float`` (what a process
+    group's reduction runs between them) bitwise the full launch on the
+    same inputs; both timed."""
+    import torch
+
+    a, f = acc_only(), full()
+    sync()
+    check(torch.equal(a, f), f"{name}: the accumulate-only launch plus "
+          "sums_to_float differs from the full launch")
+    return {"acc_only_ms": time_ms(acc_only, reps),
+            "full_ms": time_ms(full, reps)}
+
+
 def library_ms(leaf, valid, g, h, bins, P, F, B) -> float:
     """The library yardstick: one ``index_add_`` of the live (g, h, 1) rows
     into flat (leaf, feature, bin) cells, on precomputed cells (the port
@@ -437,8 +492,9 @@ def library_ms(leaf, valid, g, h, bins, P, F, B) -> float:
     return ms
 
 
-def check_hist(args, name: str, reps: int) -> dict:
-    """K1 layout mode on the card vs its plain version on captured inputs."""
+def check_hist(args, name: str, reps: int, acc_only: bool = False) -> dict:
+    """K1 layout mode on the card vs its plain version on captured inputs;
+    with ``acc_only``, ``check_acc_only`` too."""
     from dryad_tpu_torch.engine import hist
 
     from dryad_tpu_torch.engine import cuda_build
@@ -447,6 +503,10 @@ def check_hist(args, name: str, reps: int) -> dict:
     _, err = compare(name, lambda: hist.hist_tiles(*args),
                      lambda: hist.hist_tiles_plain(*args))
     shape = dict(cuda_build.launch_info.get("hist", {}))
+    acc = ({"acc_only": check_acc_only(
+        name, lambda: hist.hist_tiles(*args),
+        lambda: hist.hist_tiles(*args, reduce=_accumulate_only), reps)}
+        if acc_only else {})
     ms = time_ms(lambda: hist.hist_tiles(*args), reps)
     plain_ms = time_ms(lambda: hist.hist_tiles_plain(*args), 2)
     T, WB = hist.TILE_ROWS, hist.REC_WB
@@ -464,11 +524,12 @@ def check_hist(args, name: str, reps: int) -> dict:
     del rows, g, h, valid, bins
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
             "max_abs_err": err, "P": P, "live_tiles": live_tiles,
-            "bytes": nbytes, **shape}
+            "bytes": nbytes, **shape, **acc}
 
 
-def check_rows(args, name: str, reps: int) -> dict:
-    """K1 row mode on the card vs its plain version on captured inputs."""
+def check_rows(args, name: str, reps: int, acc_only: bool = False) -> dict:
+    """K1 row mode on the card vs its plain version on captured inputs;
+    with ``acc_only``, ``check_acc_only`` too."""
     import torch
 
     from dryad_tpu_torch.engine import hist
@@ -479,6 +540,10 @@ def check_rows(args, name: str, reps: int) -> dict:
     _, err = compare(name, lambda: hist.hist_rows(*args),
                      lambda: hist.hist_rows_plain(*args))
     shape = dict(cuda_build.launch_info.get("hist_rows", {}))
+    acc = ({"acc_only": check_acc_only(
+        name, lambda: hist.hist_rows(*args),
+        lambda: hist.hist_rows(*args, reduce=_accumulate_only), reps)}
+        if acc_only else {})
     ms = time_ms(lambda: hist.hist_rows(*args), reps)
     plain_ms = time_ms(lambda: hist.hist_rows_plain(*args), 2)
     N = recs.shape[0]
@@ -495,21 +560,29 @@ def check_rows(args, name: str, reps: int) -> dict:
     bound = bound_ms(nbytes, float(n_live) * F)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
             "max_abs_err": err, "P": P, "live_rows": n_live,
-            "plan_tiles": int(tile_leaf.numel()), "bytes": nbytes, **shape}
+            "plan_tiles": int(tile_leaf.numel()), "bytes": nbytes, **shape,
+            **acc}
 
 
-def check_nat(call, name: str, reps: int) -> dict:
-    """K3 on the card vs its plain version on captured inputs."""
+def check_nat(call, name: str, reps: int, acc_only: bool = False) -> dict:
+    """K3 on the card vs its plain version on captured inputs; with
+    ``acc_only``, ``check_acc_only`` too."""
     import torch
 
     from dryad_tpu_torch.engine import cuda_build, hist_nat
 
     (xt, g, h, sel, shift), kw = call
+    kw = {k: v for k, v in kw.items() if k != "reduce"}
     P, B, F = kw["num_cols"], kw["total_bins"], kw["num_features"]
     _, err = compare(
         name, lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift, **kw),
         lambda: hist_nat.build_hist_nat_plain(xt, g, h, sel, shift, P, B, F))
     shape = dict(cuda_build.launch_info.get("nat", {}))
+    acc = ({"acc_only": check_acc_only(
+        name, lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift, **kw),
+        lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift,
+                                        reduce=_accumulate_only, **kw),
+        reps)} if acc_only else {})
     ms = time_ms(lambda: hist_nat.build_hist_nat(xt, g, h, sel, shift, **kw),
                  reps)
     plain_ms = time_ms(lambda: hist_nat.build_hist_nat_plain(
@@ -525,7 +598,7 @@ def check_nat(call, name: str, reps: int) -> dict:
     bound = bound_ms(nbytes, float(n_keep) * F)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, **bound,
             "max_abs_err": err, "P": P, "kept_rows": n_keep, "bytes": nbytes,
-            **shape}
+            **shape, **acc}
 
 
 def check_perm(args, reps: int) -> dict:
@@ -756,9 +829,11 @@ def phase_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
     check(len(calls["hist"]) == 9 and len(calls["perm"]) == 8,
           f"wired capture tree made {len(calls['hist'])} histogram calls "
           f"and {len(calls['perm'])} row moves")
-    root = check_hist(calls["hist"][0][0], "hist root", a.reps)
+    root = check_hist(calls["hist"][0][0], "hist root", a.reps,
+                      acc_only=True)
     print("K1 root: " + json.dumps(root), flush=True)
-    level = check_hist(calls["hist"][-1][0], "hist level", a.reps)
+    level = check_hist(calls["hist"][-1][0], "hist level", a.reps,
+                       acc_only=True)
     print("K1 level: " + json.dumps(level), flush=True)
     perm = check_perm(calls["perm"][4][0], a.reps)
     print("K2 depth-4 move: " + json.dumps(perm), flush=True)
@@ -815,9 +890,10 @@ def phase_legacy(dt, a, ds, Xv, yv, dev, wired_params, wired_booster,
     check(len(calls["rows"]) == n_rows and len(calls["nat"]) == n_nat,
           f"legacy capture tree made {len(calls['rows'])} row-mode and "
           f"{len(calls['nat'])} natural-order calls")
-    nat = check_nat(calls["nat"][4], "nat level 4", a.reps)
+    nat = check_nat(calls["nat"][4], "nat level 4", a.reps, acc_only=True)
     print("K3 level 4: " + json.dumps(nat), flush=True)
-    rows = check_rows(calls["rows"][-1][0], "hist rows level 7", a.reps)
+    rows = check_rows(calls["rows"][-1][0], "hist rows level 7", a.reps,
+                      acc_only=True)
     print("K1 rows level 7: " + json.dumps(rows), flush=True)
     del calls
     torch.cuda.empty_cache()
@@ -3637,6 +3713,283 @@ def phase_serve(dt, a, ds, Xv, yv, dev, report) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _dist_run_report(booster, group, launches, trees: int) -> dict:
+    """One rank's run: trees/s, the histogram collectives' bytes, device
+    ms and host ms per tree (the fixed-point shift's, the combine's and
+    the set-up's beside them), launches."""
+    stats = group.stats
+    per_tree = {what: {k: v / trees for k, v in st.items() if k != "calls"}
+                for what, st in stats.items()}
+    return dict(tree_summary(booster), launches=launches,
+                collective_bytes_per_tree=per_tree,
+                collective_calls=stats,
+                collective_ms_per_tree={
+                    what: group.collective_ms(what) / trees
+                    for what in stats},
+                collective_host_ms_per_tree={
+                    what: group.collective_host_ms(what) / trees
+                    for what in stats},
+                eval_history=booster.train_state.get("eval_history"))
+
+
+def _nccl_vs_single(dt, dd, params, ds, dv, dev) -> dict:
+    """One NCCL rank (the process group already joined) against one
+    process, on the same config and valid set: trees/s of the two
+    interleaved (one process, the rank, three times over), then one whole
+    run of each at ``DIST_PROFILE_TREES`` trees under torch.profiler:
+    device ms by kernel (set-up included), the tables in
+    chiprun_out/profile_dist_{single,nccl}.txt, and the kernels whose
+    device time differs most between the two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dryad_tpu_torch.engine.distributed import RowGroup
+
+    groups: list = []
+
+    def rank(p):
+        groups.append(RowGroup.build(ds.num_rows, device=dev))
+        return dd.train_distributed(p, ds, dv, group=groups[-1], device=dev)
+
+    def runs(p):
+        return {"single": lambda: dt.train(p, ds, [dv], device=dev),
+                "nccl": lambda: rank(p)}
+
+    rates: dict = {"single": [], "nccl": []}
+    for _ in range(3):
+        for name, fn in runs(params).items():
+            rates[name].append(tree_summary(fn())["trees_per_s"])
+    # the host's time inside the rank's collectives, a tree, by purpose
+    out: dict = {"trees_per_s": rates, "collective_host_ms_per_tree": [
+        {w: g.collective_host_ms(w) / params["num_trees"] for w in g.stats}
+        for g in groups]}
+    if dev.type != "cuda":
+        out["device_ms"] = "not measured"
+        return out
+    by: dict = {}
+    short = dict(params, num_trees=DIST_PROFILE_TREES)
+    for name, fn in runs(short).items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        by[name] = {e.key: (dev_us(e) / 1e3, e.count) for e in ev
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+        with open(os.path.join(OUT, f"profile_dist_{name}.txt"), "w") as f:
+            f.write(ev.table(sort_by="self_cuda_time_total", row_limit=60))
+    none = (0.0, 0)
+    diff = sorted(((by["nccl"].get(k, none)[0] - by["single"].get(k, none)[0],
+                    k) for k in set(by["single"]) | set(by["nccl"])),
+                  key=lambda t: -abs(t[0]))
+    out["profiled_trees"] = DIST_PROFILE_TREES
+    out["device_ms_per_run"] = {n: sum(v[0] for v in k.values())
+                                for n, k in by.items()}
+    # [kernel, nccl - single ms, single (ms, calls), nccl (ms, calls)]
+    out["largest_differences"] = [
+        [k[:70], d, by["single"].get(k, none), by["nccl"].get(k, none)]
+        for d, k in diff[:10]]
+    return out
+
+
+def rank_main(spec_path: str, rank: int) -> int:
+    """Phase 33's rank process: join the gloo group, read this rank's row
+    block, train every run of the spec through ``train_distributed`` on
+    the card, and write each run's model file and report."""
+    import numpy as np
+    import torch
+
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch import distributed as dd
+    from dryad_tpu_torch.data.sketch import BinMapper
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.engine.distributed import RowGroup
+
+    torch.set_num_threads(DIST_RANK_THREADS)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    d, world = spec["dir"], spec["world"]
+    dd.initialize(backend="gloo", init_method=f"file://{d}/store",
+                  rank=rank, world_size=world, timeout_s=spec["timeout_s"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        cuda_build.build_all()
+    with open(os.path.join(d, "mapper.bin"), "rb") as f:
+        mapper = BinMapper.from_bytes(f.read())
+    Xb = np.load(os.path.join(d, "X.npy"), mmap_mode="r")
+    lo, hi = dd.host_row_range(Xb.shape[0], rank, world)
+    ds = dt.Dataset.from_binned(np.ascontiguousarray(Xb[lo:hi]), mapper,
+                                np.load(os.path.join(d, "y.npy"))[lo:hi])
+    dv = dt.Dataset.from_binned(np.load(os.path.join(d, "Xv.npy")), mapper,
+                                np.load(os.path.join(d, "yv.npy")))
+    out = {"rows": [lo, hi]}
+    for name, params in spec["runs"].items():
+        group = RowGroup.build(ds.num_rows, device=dev,
+                               time_collectives=True)
+        cuda_build.reset_counts()
+        booster = dd.train_distributed(params, ds, dv, group=group,
+                                       device=dev)
+        launches = dict(cuda_build.counts)
+        booster.save(os.path.join(d, f"{name}.{rank}.dryad"))
+        out[name] = _dist_run_report(booster, group, launches,
+                                     params["num_trees"])
+    with open(os.path.join(d, f"report.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_distributed(dt, a, ds, Xv, yv, dev, report, headline_trees
+                      ) -> dict:
+    """Phase 33: data-parallel training over a process group (docstring);
+    ``headline_trees`` are phase 4's tree arrays."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import distributed as dd
+    from dryad_tpu_torch.engine import cuda_build
+
+    t0 = time.perf_counter()
+    head = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+            "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+            "num_trees": a.trees}
+    runs = {"fused": head, "feature": dict(head, hist_reduce="feature"),
+            "feature_bagged": dict(head, hist_reduce="feature",
+                                   subsample=0.8, colsample=0.8)}
+    dv = ds.bind(Xv, yv)
+    # the yardsticks: one process, no group, the same valid set; the
+    # unbagged one's trees are phase 4's (a valid set changes no tree)
+    single = {"head": dt.train(head, ds, [dv], device=dev),
+              "bagged": dt.train(runs["feature_bagged"], ds, [dv],
+                                 device=dev)}
+    for k, v in headline_trees.items():
+        check(np.array_equal(single["head"].tree_arrays()[k], v),
+              f"distributed: the validated single run's {k!r} differs "
+              "from phase 4's")
+    want = {"fused": single["head"], "feature": single["head"],
+            "feature_bagged": single["bagged"]}
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    np.save(os.path.join(DIST_DIR, "X.npy"), ds.X_binned)
+    np.save(os.path.join(DIST_DIR, "y.npy"), ds.y)
+    np.save(os.path.join(DIST_DIR, "Xv.npy"), dv.X_binned)
+    np.save(os.path.join(DIST_DIR, "yv.npy"), dv.y)
+    with open(os.path.join(DIST_DIR, "mapper.bin"), "wb") as f:
+        f.write(ds.mapper.to_bytes())
+    spec = os.path.join(DIST_DIR, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"dir": DIST_DIR, "world": DIST_RANKS,
+                   "timeout_s": DIST_TIMEOUT_S, "runs": runs,
+                   "device": (f"cuda:{torch.cuda.current_device()}"
+                              if dev.type == "cuda" else "cpu")}, f)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # (a), (a'), (b): two gloo ranks sharing the card
+    t1 = time.perf_counter()
+    logs = [open(os.path.join(DIST_DIR, f"rank{r}.log"), "w")
+            for r in range(DIST_RANKS)]
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.rank_main(sys.argv[1], int(sys.argv[2])))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, spec, str(r)],
+                              cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT_S + 120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(DIST_DIR, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"distributed: rank {r} exited "
+              f"{p.returncode}")
+    group_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(DIST_DIR, f"report.{r}.json")) as f:
+            ranks.append(json.load(f))
+    want_launches = {"hist": 9 * a.trees, "perm": 8 * a.trees}
+    res: dict = {"setup_s": setup_s, "gloo_group_s": group_s,
+                 "rows": [rk["rows"] for rk in ranks],
+                 "single_process": {k: tree_summary(b)
+                                    for k, b in single.items()}}
+    print("distributed: one process with the valid set: " + json.dumps(
+        res["single_process"]), flush=True)
+
+    def same_run(b, evals, name, who):
+        for k, v in want[name].tree_arrays().items():
+            check(np.array_equal(b.tree_arrays()[k], v),
+                  f"distributed {name}: {who}'s {k!r} differs from the "
+                  "single process's")
+        check(evals == want[name].train_state.get("eval_history"),
+              f"distributed {name}: {who}'s evals differ from the single "
+              "process's")
+
+    for name in runs:
+        for r in range(DIST_RANKS):
+            b = dt.Booster.load(os.path.join(DIST_DIR, f"{name}.{r}.dryad"))
+            same_run(b, ranks[r][name]["eval_history"], name, f"rank {r}")
+            check_launches(ranks[r][name]["launches"], want_launches,
+                           f"distributed {name} rank {r}")
+        res[f"gloo_{name}"] = [rk[name] for rk in ranks]
+        print(f"distributed gloo x{DIST_RANKS} {name}: "
+              + json.dumps({k: v for k, v in ranks[0][name].items()
+                            if k != "eval_history"}), flush=True)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+    # (c): one NCCL rank in this process, through initialize() (gloo only
+    # in a CPU rehearsal)
+    from dryad_tpu_torch.engine.distributed import RowGroup
+
+    dd.initialize(backend="nccl" if dev.type == "cuda" else "gloo",
+                  init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                  world_size=1, timeout_s=DIST_TIMEOUT_S)
+    try:
+        for name in ("fused", "feature"):
+            group = RowGroup.build(ds.num_rows, device=dev,
+                                   time_collectives=True)
+            cuda_build.reset_counts()
+            b = dd.train_distributed(runs[name], ds, dv, group=group,
+                                     device=dev)
+            launches = dict(cuda_build.counts)
+            same_run(b, b.train_state.get("eval_history"), name, "NCCL")
+            check_launches(launches, want_launches, f"NCCL {name}")
+            rep = _dist_run_report(b, group, launches, a.trees)
+            res[f"nccl_{name}"] = rep
+            print(f"distributed NCCL x1 {name}: " + json.dumps(
+                {k: v for k, v in rep.items() if k != "eval_history"}),
+                flush=True)
+        # (d): where one NCCL rank's time goes against one process's
+        res["nccl_vs_single"] = _nccl_vs_single(dt, dd, runs["fused"], ds,
+                                                dv, dev)
+        print("distributed NCCL x1 vs one process: "
+              + json.dumps(res["nccl_vs_single"]), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    print("distributed: every rank's trees bitwise the single process's; "
+          f"{res['seconds']:.1f} s", flush=True)
+    report["distributed"] = res
+    # every rank's launches on every run, the NCCL runs' included
+    counted = [rk[n]["launches"] for rk in ranks for n in runs] + [
+        res[f"nccl_{n}"]["launches"] for n in ("fused", "feature")]
+    return {k: sum(c[k] for c in counted) for k in counted[0]}
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -3737,6 +4090,8 @@ def main() -> int:
     # ---- 3-6. the wired path ----------------------------------------------
     w_params, w_booster, w_launches, w_level = phase_wired(
         dt, a, ds, Xv, yv, dev, report)
+    # phase 33's yardstick
+    w_trees = w_booster.tree_arrays()
     mark("3-6")
     # ---- 7. wired vs legacy, tie-free fixture -----------------------------
     phase_fixture(dt, dev, report)
@@ -3826,8 +4181,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sv_launches = phase_serve(dt, a, ds, Xv, yv, dev, report)
-    del ds, Xv, yv
     mark("32")
+    # ---- 33. data-parallel training over a process group -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = phase_distributed(dt, a, ds, Xv, yv, dev, report,
+                                      w_trees)
+    del ds, Xv, yv
+    mark("33")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -3844,7 +4205,7 @@ def main() -> int:
                "goss_fixture_legacy": mf_launches["goss"],
                "monotone_fixture_legacy": mf_launches["monotone"],
                "cv": cv_launches, "estimator_covertype": est_launches,
-               "serve_train": sv_launches}
+               "serve_train": sv_launches, "distributed": dist_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

@@ -45,7 +45,9 @@ predicts scores, leaf ids (``pred_leaf``) and TreeSHAP contributions
 overflow them, the structure-of-arrays traversal (``predict_layout``).
 It refits leaf values on new rows (``Booster.refit``), cross-validates
 (``cv``) and wraps all of this in scikit-learn-style estimators
-(``dryad_tpu_torch.sklearn``).  It imports nothing of ``jax`` or of
+(``dryad_tpu_torch.sklearn``).  It trains over a process group, one rank
+per process, bit for bit as one process would
+(``dryad_tpu_torch.distributed``).  It imports nothing of ``jax`` or of
 ``dryad_tpu``.
 """
 
@@ -62,7 +64,7 @@ from dryad_tpu_torch.cv import cv
 from dryad_tpu_torch.dataset import Dataset
 
 __all__ = ["train", "predict", "cv", "Dataset", "Booster", "Params",
-           "resolve_device"]
+           "resolve_device", "distributed"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,7 +88,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
           init_model: Optional[Booster] = None,
           callback=None, callbacks=None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10,
-          resume: bool = False, device=None, **kw: Any) -> Booster:
+          resume: bool = False, device=None, group=None,
+          **kw: Any) -> Booster:
     """Train a booster on ``device`` (default: the card).
 
     Every valid set is scored on the device after each ``eval_period``-th
@@ -100,7 +103,9 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
     predict-identical copy) on rows binned in its frozen bin space
     (``Dataset(X, y, mapper=model.mapper)``); ``init_booster`` is the
     total-count continuation the checkpoints use.  Pass one or the
-    other."""
+    other.  ``group`` (an ``engine/distributed.RowGroup``) trains this
+    rank's rows as one of a process group; ``distributed.
+    train_distributed`` builds it."""
     from dryad_tpu_torch.callbacks import combine
     from dryad_tpu_torch.engine.train import train_device
 
@@ -150,7 +155,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
 
     cb = combine(([callback] if callback else []) + list(callbacks or []))
     return train_device(p, train_set, valid, init_booster=init_booster,
-                        callback=cb, checkpointer=checkpointer, device=dev)
+                        callback=cb, checkpointer=checkpointer, device=dev,
+                        group=group)
 
 
 def _check_append_compatible(p: Params, train_set: Dataset,
@@ -187,3 +193,7 @@ def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
     return booster.predict(X, raw_score=raw_score,
                            num_iteration=num_iteration, pred_leaf=pred_leaf,
                            pred_contrib=pred_contrib, device=device)
+
+
+# after train: its train_distributed calls it
+from dryad_tpu_torch import distributed  # noqa: E402

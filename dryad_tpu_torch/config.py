@@ -85,7 +85,6 @@ _GROWTH_ALIASES = {
 # other value raises.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
     "hist_backend": "auto",
-    "hist_reduce": "auto",
     "ch_max": 0,
     "rows_per_chunk": 65536,
     "deterministic": True,
@@ -162,6 +161,12 @@ class Params:
     lambdarank_truncation: int = 30
     hist_subtraction: bool = True
     deep_layout: str = "auto"    # auto | legacy (the plan arm on request)
+    # the cross-rank histogram reduction of a process group
+    # (``hist_reduce_resolved``): one int64 all-reduce of every pass
+    # ("fused"), or a reduce-scatter of each level's pass over features
+    # with a combine of the ranks' best splits ("feature"); without a
+    # group it changes nothing
+    hist_reduce: str = "auto"    # auto | fused | feature
     # predict's traversal table: packed node words when every field fits
     # (auto), always (packed: raises on overflow), or structure-of-arrays
     # (legacy)
@@ -269,6 +274,8 @@ class Params:
             raise ValueError("eval_period must be >= 1")
         if self.deep_layout not in ("auto", "legacy"):
             raise ValueError("deep_layout must be auto|legacy")
+        if self.hist_reduce not in ("auto", "fused", "feature"):
+            raise ValueError("hist_reduce must be auto|fused|feature")
         if self.predict_layout not in ("auto", "packed", "legacy"):
             raise ValueError("predict_layout must be auto|packed|legacy")
         return self
@@ -339,6 +346,25 @@ def check_rf_continuation(prev: Params, p: Params) -> None:
 
 
 # ---- growth-policy helpers, the reference's (dryad_tpu/config.py) ----------
+# hist_reduce="auto" takes the feature arm where one slot's histogram
+# column, F * B * bin_bytes, is at least this many bytes (the reference's
+# committed policy default, ``policy/gates.py``)
+HIST_REDUCE_WIDE_BYTES = 262144
+
+
+def hist_reduce_resolved(p: Params, num_features: int, total_bins: int,
+                         n_ranks: int) -> str:
+    """"fused" or "feature": the explicit choice, else "feature" when the
+    histogram column is wide (``HIST_REDUCE_WIDE_BYTES``) and there is more
+    than one rank.  A pure function of params, shape and rank count, never
+    of rows, so every rank picks the same arm."""
+    if p.hist_reduce != "auto":
+        return p.hist_reduce
+    bin_bytes = 1 if total_bins <= 256 else 2
+    wide = num_features * total_bins * bin_bytes >= HIST_REDUCE_WIDE_BYTES
+    return "feature" if (wide and n_ranks > 1) else "fused"
+
+
 # The grower is a pure function of params and data shape, the same on both
 # packages, so their trees agree.  The constants are the reference's.
 LEAFWISE_HIST_BYTES_BUDGET = 256 << 20   # pinned expansion histogram buffer

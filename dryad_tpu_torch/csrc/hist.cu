@@ -425,6 +425,8 @@ extern "C" int dryad_hist_tiles(const void* rec, const void* src,
       words_per_row, nvec, static_cast<const int*>(shift));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // out == nullptr: accumulate only; the caller converts the int64 sums
+  if (out == nullptr) return 0;
   return launch_out(acc, shift, out, (long long)P * 3 * F * B,
                     (long long)F * B, st);
 }
@@ -462,6 +464,8 @@ extern "C" int dryad_hist_rows(const void* recs, int rec_words, int n_rows,
       rows_stage_words(f_chunk, isz), static_cast<const int*>(shift));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // out == nullptr: accumulate only; the caller converts the int64 sums
+  if (out == nullptr) return 0;
   return launch_out(acc, shift, out, (long long)P * 3 * F * B,
                     (long long)F * B, st);
 }

@@ -238,6 +238,8 @@ extern "C" int dryad_hist_nat(const void* xt, int isz, long long n_pad,
       stage_rows, static_cast<const int*>(shift));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // out == nullptr: accumulate only; the caller converts the int64 sums
+  if (out == nullptr) return 0;
   return launch_out(acc, shift, out, (long long)P * 3 * F * B,
                     (long long)F * B, st);
 }

@@ -41,6 +41,8 @@ class Dataset:
                              "csr=(indptr, indices, values, num_features)")
         self.categorical_features = tuple(int(c) for c in
                                           categorical_features)
+        # built from CSR rows (a process group refuses such sets for now)
+        self.sparse_ingest = csr is not None
         if csr is not None:
             indptr, indices, values, num_features = csr
             if mapper is None:
@@ -95,6 +97,7 @@ class Dataset:
         ``__init__``: new labels for rows binned once."""
         ds = cls.__new__(cls)
         ds.categorical_features = tuple(int(c) for c in categorical_features)
+        ds.sparse_ingest = False
         ds.mapper = mapper
         ds.X_binned = X_binned
         ds.num_rows, ds.num_features = X_binned.shape

@@ -14,7 +14,10 @@ and histogram; L-1 trips each split the best slot (leaf-wise: the best
 gain; depthwise: the best gain of the shallowest level), the left child
 keeping the slot and the right child taking slot k+1.  The smaller child's
 histogram is one masked pass over every row (K1, row mode, in the tree's
-fixed-point shift) and the larger one is the parent's minus it.  Under
+fixed-point shift) and the larger one is the parent's minus it.  Under a
+process group each pass is all-reduced across ranks ("fused" whatever
+``hist_reduce`` says, as in the reference: only the level-synchronous
+growers run the feature arm).  Under
 monotone constraints each slot carries output bounds (``child_bounds``)
 that its children inherit and its leaf value is clamped to.  A trip
 without a finite gain is a masked update whose writes go to sentinel rows
@@ -30,22 +33,26 @@ import torch
 
 from dryad_tpu_torch.booster import CAT_WORDS
 from dryad_tpu_torch.config import MAX_FAST_DEPTH, leafwise_fast_supported
-from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import tile_plan
+from dryad_tpu_torch.engine.distributed import global_shift, reducer
 from dryad_tpu_torch.engine.histogram import build_hist, require_kernel_bins
 from dryad_tpu_torch.engine.ops import drop_set
 from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
 
 
 def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
-             learn_missing=False, is_cat_feat=None, bundled_mask=None):
+             learn_missing=False, is_cat_feat=None, bundled_mask=None,
+             group=None):
     """Route to the grower for the growth policy (module doc).
     ``is_cat_feat`` (F,) bool is given when any feature is categorical
     (the reference's static ``has_cat``); ``bundled_mask`` (F,) bool marks
-    EFB bundle columns when the missing-right plane is scanned."""
+    EFB bundle columns when the missing-right plane is scanned; ``group``
+    (``engine/distributed.RowGroup``) grows one tree over the rows of all
+    its ranks.  The grower is chosen from the global row count, so every
+    rank takes the same one."""
     p = params
     kw = {"learn_missing": learn_missing, "is_cat_feat": is_cat_feat,
-          "bundled_mask": bundled_mask}
+          "bundled_mask": bundled_mask, "group": group}
     if p.growth == "depthwise" and p.max_depth > 0:
         from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 
@@ -54,8 +61,9 @@ def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
     if p.growth == "leafwise":
         from dryad_tpu_torch.engine import leafwise_fast
 
-        if leafwise_fast_supported(p, Xb.shape[1], int(total_bins),
-                                   Xb.shape[0]):
+        if leafwise_fast_supported(
+                p, Xb.shape[1], int(total_bins),
+                Xb.shape[0] if group is None else group.global_rows):
             return leafwise_fast.grow_tree_leafwise_batched(
                 p, total_bins, Xb, g, h, bag_mask, feat_mask, **kw)
         if p.max_depth > 0 and p.hist_subtraction:
@@ -151,7 +159,8 @@ def finalize_leaf_values(p, M: int, slot_node, slot_G, slot_H,
 def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
               h: torch.Tensor, bag_mask: torch.Tensor,
               feat_mask: torch.Tensor, *, learn_missing: bool = False,
-              is_cat_feat=None, bundled_mask=None) -> dict[str, Any]:
+              is_cat_feat=None, bundled_mask=None,
+              group=None) -> dict[str, Any]:
     """Grow one tree with the sequential slot machine (module doc)."""
     p = params
     N, F = Xb.shape
@@ -165,14 +174,15 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
     # one record table and one fixed-point shift per tree: every masked
     # pass reads the table (K1, row mode) and sums in the shift
     records = tile_plan.make_records(Xb, g, h)
-    shift = _hist.fixed_point_shift(g, h, N)
+    shift = global_shift(g, h, group, N)
+    red = reducer(group, "fused")
     mono = _monotone_array(p, F, dev)
 
     def hist_of(mask):
         # the bag gates histograms only; every row is routed, so the final
         # row_slot gives each row's leaf
         return build_hist(Xb, g, h, mask & bag_mask, B, shift,
-                          records=records)[None]
+                          records=records, reduce=red)[None]
 
     def best(hist, G, H, C, depth, lo, hi):
         allow = (depth < depth_cap) & (C >= 2 * p.min_data_in_leaf)

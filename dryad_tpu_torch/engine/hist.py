@@ -71,13 +71,26 @@ def fixed_point_shift(g: torch.Tensor, h: torch.Tensor,
     weight gets.  ``num_rows`` (N) defaults to g's length.  Nothing is
     fetched: a non-finite weight fails a device-side assert."""
     n = g.numel() if num_rows is None else int(num_rows)
-    k = max(0, n - 1).bit_length()                  # n <= 2^k
+    return shift_of_max(weight_max(g, h), n)
+
+
+def weight_max(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """(2,) f32 [max|g|, max|h|], zeros for no rows; a non-finite weight
+    fails a device-side assert."""
     if g.numel() == 0:
         m = torch.zeros(2, dtype=torch.float32, device=g.device)
     else:
         m = torch.stack([g.abs().amax(), h.abs().amax()]).to(torch.float32)
     torch._assert_async(torch.isfinite(m).all(),
                         "fixed_point_shift: g or h is not finite")
+    return m
+
+
+def shift_of_max(m: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """``fixed_point_shift`` of (2,) ``weight_max`` values over
+    ``num_rows`` rows (a process group passes its global maxima and row
+    count, so every rank sums in one shift)."""
+    k = max(0, int(num_rows) - 1).bit_length()      # n <= 2^k
     _, e = torch.frexp(m)                           # m < 2^e
     s = torch.where(m > 0, FIXED_POINT_BITS - k - e.to(torch.int64),
                     SHIFT_MAX)
@@ -97,11 +110,22 @@ def quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def sums_to_float(acc: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """(P, 3, F, B) int64 sums -> f32: each rounded once to nearest, g and
-    h then scaled by 2^-s (exact)."""
+    h then scaled by 2^-s (exact).  Bitwise the kernels' own conversion
+    pass (``hist_out_kernel``)."""
     out = acc.to(torch.float32)
     out[:, 0] *= pow2(-shift[0])
     out[:, 1] *= pow2(-shift[1])
     return out
+
+
+def finish(acc: torch.Tensor, shift: torch.Tensor, reduce=None
+           ) -> torch.Tensor:
+    """The int64 sums -> f32 histograms, through ``reduce(acc)`` first when
+    given (a process group's sum over ranks, or this rank's reduced
+    feature slice: ``engine/distributed.reduce_hist``)."""
+    if reduce is not None:
+        acc = reduce(acc)
+    return sums_to_float(acc, shift)
 
 
 def supports(total_bins: int) -> bool:
@@ -167,52 +191,62 @@ def _check_rows(recs, buf, tile_leaf, num_cols, total_bins, num_features,
         raise ValueError("all inputs must lie on one device")
 
 
-def _outputs(P, F, B, dev):
-    """A kernel's zeroed (P, 3, F, B) int64 accumulator, its f32 output and
-    its one-word scratch (the plan tiles in use)."""
+def _outputs(P, F, B, dev, reduce):
+    """A kernel's zeroed (P, 3, F, B) int64 accumulator, its f32 output
+    (None under ``reduce``: the launch then only accumulates) and its
+    one-word scratch (the plan tiles in use)."""
     return (torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev),
+            None if reduce is not None else
             torch.empty((P, 3, F, B), dtype=torch.float32, device=dev),
             torch.empty(1, dtype=torch.int32, device=dev))
 
 
+def out_ptr(out) -> int | None:
+    """A kernel's output pointer: NULL (accumulate only) for None."""
+    return None if out is None else out.data_ptr()
+
+
 def hist_tiles(rec: torch.Tensor, src: torch.Tensor, tile_leaf: torch.Tensor,
                num_cols: int, total_bins: int, num_features: int,
-               itemsize: int, shift: torch.Tensor) -> torch.Tensor:
+               itemsize: int, shift: torch.Tensor, *,
+               reduce=None) -> torch.Tensor:
     """(P, 3, F, B) f32 histograms of the planned layout tiles (module
-    doc, layout mode), with the tree's fixed-point ``shift``."""
+    doc, layout mode), with the tree's fixed-point ``shift``.  Under
+    ``reduce`` the launch only accumulates, and the int64 sums go through
+    ``finish(acc, shift, reduce)``."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(rec, src, tile_leaf, P, B, F, itemsize)
     check_shift(shift, rec.device)
     if rec.device.type == "cpu":
         return hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize,
-                                shift)
+                                shift, reduce)
     if not rec.is_contiguous():
         raise ValueError("rec must be contiguous")
     dev = rec.device
     src = src.to(torch.int32).contiguous()
     tile_leaf = tile_leaf.to(torch.int32).contiguous()
-    acc, out, n_used = _outputs(P, F, B, dev)
+    acc, out, n_used = _outputs(P, F, B, dev, reduce)
     cuda_build.launch_hist(
         "hist", cuda_build.lib("hist").dryad_hist_tiles, dev,
         rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(), src.numel(),
         n_used.data_ptr(), acc.data_ptr(), F, B, int(itemsize),
-        shift.data_ptr(), out.data_ptr(), P)
-    return out
+        shift.data_ptr(), out_ptr(out), P)
+    return out if out is not None else finish(acc, shift, reduce)
 
 
 def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
               tile_leaf: torch.Tensor, num_cols: int, total_bins: int,
               num_features: int, itemsize: int,
-              shift: torch.Tensor) -> torch.Tensor:
+              shift: torch.Tensor, *, reduce=None) -> torch.Tensor:
     """(P, 3, F, B) f32 histograms of the planned rows (module doc, row
     mode), with the tree's fixed-point ``shift``.  Tiles without a live
-    row are skipped."""
+    row are skipped.  ``reduce`` as in ``hist_tiles``."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check_rows(recs, buf, tile_leaf, P, B, F, itemsize)
     check_shift(shift, recs.device)
     if recs.device.type == "cpu":
         return hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize,
-                               shift)
+                               shift, reduce)
     if not recs.is_contiguous():
         raise ValueError("recs must be contiguous")
     dev = recs.device
@@ -222,13 +256,13 @@ def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
     tile_leaf = tile_leaf.to(torch.int32).contiguous()
     # the kernel marks the plan tiles with a live row here
     src = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    acc, out, n_used = _outputs(P, F, B, dev)
+    acc, out, n_used = _outputs(P, F, B, dev, reduce)
     cuda_build.launch_hist(
         "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev,
         recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
         tile_leaf.data_ptr(), n_tiles, n_used.data_ptr(), acc.data_ptr(),
-        F, B, int(itemsize), shift.data_ptr(), out.data_ptr(), P)
-    return out
+        F, B, int(itemsize), shift.data_ptr(), out_ptr(out), P)
+    return out if out is not None else finish(acc, shift, reduce)
 
 
 def unpack_rows(rec: torch.Tensor, num_features: int, itemsize: int):
@@ -253,7 +287,7 @@ def bin_bytes(raw: torch.Tensor, at: int, f0: int, f1: int,
 
 def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                h: torch.Tensor, bins_of, P: int, F: int, B: int,
-               shift: torch.Tensor) -> torch.Tensor:
+               shift: torch.Tensor, reduce=None) -> torch.Tensor:
     """The plain PyTorch histogram, shared by the plain versions of K1 and
     K3: per row ``leaf`` (n,) in [0, P), live flag ``w`` (n,), weights g
     and h; ``bins_of(f0, f1)`` gives the (n, f1 - f0) int64 bins of a
@@ -261,7 +295,7 @@ def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     kernels do; one int64 ``index_add_`` per chunk of (g, h, 1) into flat
     (leaf, feature, bin) cells, exact in any order on the CPU and the card
     alike; rows that add nothing go to one sentinel cell, sliced off; then
-    ``sums_to_float``."""
+    the (P, 3, F, B) int64 sums go through ``finish`` (and ``reduce``)."""
     n = leaf.numel()
     dev = leaf.device
     dead = P * F * B
@@ -279,11 +313,12 @@ def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         cell = torch.where(w[:, None] & (bins < B), cell, dead)
         out.index_add_(0, cell.reshape(-1),
                        vals[:, None, :].expand(-1, f1 - f0, -1).reshape(-1, 3))
-    return sums_to_float(out[:dead].view(P, F, B, 3).permute(0, 3, 1, 2),
-                         shift).contiguous()
+    return finish(out[:dead].view(P, F, B, 3).permute(0, 3, 1, 2)
+                  .contiguous(), shift, reduce)
 
 
-def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize, shift):
+def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize, shift,
+                     reduce=None):
     """The plain PyTorch version of K1's layout mode: gather the planned
     tiles, then ``plain_sums``."""
     T = TILE_ROWS
@@ -296,10 +331,11 @@ def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize, shift):
     leaf = tile_leaf.to(torch.int64).repeat_interleave(T)
     return plain_sums(leaf, valid, g, h,
                       lambda f0, f1: bin_bytes(rows, 9, f0, f1, itemsize),
-                      P, F, B, shift)
+                      P, F, B, shift, reduce)
 
 
-def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize, shift):
+def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize, shift,
+                    reduce=None):
     """The plain PyTorch version of K1's row mode: gather the planned rows
     of the record table, then ``plain_sums``."""
     N = recs.shape[0]
@@ -312,4 +348,4 @@ def hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize, shift):
     leaf = tile_leaf.to(torch.int64).repeat_interleave(TILE_ROWS)
     return plain_sums(leaf, valid, g, h,
                       lambda f0, f1: bin_bytes(raw, 8, f0, f1, itemsize),
-                      P, F, B, shift)
+                      P, F, B, shift, reduce)

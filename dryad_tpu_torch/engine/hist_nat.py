@@ -42,7 +42,7 @@ NAT_GATE_MB = 512
 
 def nat_gate_admits(num_rows: int, num_features: int, itemsize: int) -> bool:
     """The natural-order gate: the bin matrix is at most ``NAT_GATE_MB``."""
-    return num_rows * num_features * itemsize <= (NAT_GATE_MB << 20)
+    return num_rows * num_features * itemsize <= NAT_GATE_MB * (1 << 20)
 
 
 def natural_tiles(Xb: torch.Tensor) -> torch.Tensor:
@@ -53,10 +53,15 @@ def natural_tiles(Xb: torch.Tensor) -> torch.Tensor:
     return nnf.pad(xb.t(), (0, (-N) % hist.TILE_ROWS)).contiguous()
 
 
-def maybe_natural_tiles(Xb: torch.Tensor) -> torch.Tensor | None:
-    """``natural_tiles`` when the gate admits the matrix, else None."""
+def maybe_natural_tiles(Xb: torch.Tensor, gate_rows: int | None = None
+                        ) -> torch.Tensor | None:
+    """``natural_tiles`` when the gate admits the matrix, else None.  The
+    gate reads ``gate_rows`` rows when given (a process group passes its
+    largest rank's, so every rank makes the same choice and runs the same
+    level plan), else the matrix's own."""
     N, F = Xb.shape
-    if not nat_gate_admits(N, F, bin_itemsize(Xb)):
+    if not nat_gate_admits(N if gate_rows is None else int(gate_rows), F,
+                           bin_itemsize(Xb)):
         return None
     return natural_tiles(Xb)
 
@@ -64,10 +69,11 @@ def maybe_natural_tiles(Xb: torch.Tensor) -> torch.Tensor | None:
 def build_hist_small(nat_tiles: torch.Tensor, g: torch.Tensor,
                      h: torch.Tensor, sel: torch.Tensor, num_cols: int,
                      total_bins: int, num_features: int,
-                     shift: torch.Tensor) -> torch.Tensor:
+                     shift: torch.Tensor, *, reduce=None) -> torch.Tensor:
     """(P, 3, F, B) via the natural-order pass for a level's smaller
     children: ``sel`` (N,) in [0, P], where P means "drop"; ``shift`` is
-    the tree's (``hist.fixed_point_shift``)."""
+    the tree's (``hist.fixed_point_shift``); ``reduce`` as in
+    ``build_hist_nat``."""
     P = int(num_cols)
     if P > NAT_SLOTS:
         raise ValueError(f"the natural-order pass holds at most {NAT_SLOTS} "
@@ -75,7 +81,8 @@ def build_hist_small(nat_tiles: torch.Tensor, g: torch.Tensor,
     sel_nat = torch.where(sel >= P, NAT_DROP, sel)
     return build_hist_nat(nat_tiles, g, h, sel_nat, shift,
                           total_bins=total_bins,
-                          num_features=num_features, num_cols=P)
+                          num_features=num_features, num_cols=P,
+                          reduce=reduce)
 
 
 def _check(xt, g, h, sel, P, B, F):
@@ -105,17 +112,19 @@ def build_hist_nat(nat_tiles: torch.Tensor, g: torch.Tensor,
                    h: torch.Tensor, sel: torch.Tensor, shift: torch.Tensor,
                    *, total_bins: int,
                    num_features: int,
-                   num_cols: int = NAT_SLOTS) -> torch.Tensor:
+                   num_cols: int = NAT_SLOTS, reduce=None) -> torch.Tensor:
     """(num_cols, 3, F, B) f32 histograms from natural-order tiles: per
     slot the sums of g, h and 1 per (feature, bin) over the rows whose
     ``sel`` is that slot; a row with ``sel`` outside [0, num_cols) adds
     nothing, and the padded tail past ``g``'s rows is never read.
-    ``shift`` is the tree's fixed-point shift."""
+    ``shift`` is the tree's fixed-point shift.  Under ``reduce`` the
+    launch only accumulates (``hist.finish``)."""
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(nat_tiles, g, h, sel, P, B, F)
     hist.check_shift(shift, nat_tiles.device)
     if nat_tiles.device.type == "cpu":
-        return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F)
+        return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F,
+                                    reduce)
     dev = nat_tiles.device
     N = g.shape[0]
     n_pad = nat_tiles.shape[1]
@@ -123,16 +132,17 @@ def build_hist_nat(nat_tiles: torch.Tensor, g: torch.Tensor,
     h = h.to(torch.float32).contiguous()
     sel = sel.to(torch.int32).contiguous()
     acc = torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev)
-    out = torch.empty((P, 3, F, B), dtype=torch.float32, device=dev)
+    out = (None if reduce is not None else
+           torch.empty((P, 3, F, B), dtype=torch.float32, device=dev))
     cuda_build.launch_hist(
         "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev,
         nat_tiles.data_ptr(), nat_tiles.element_size(), n_pad, g.data_ptr(),
         h.data_ptr(), sel.data_ptr(), N, acc.data_ptr(), F, B, P,
-        shift.data_ptr(), out.data_ptr())
-    return out
+        shift.data_ptr(), hist.out_ptr(out))
+    return out if out is not None else hist.finish(acc, shift, reduce)
 
 
-def build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F):
+def build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F, reduce=None):
     """The plain PyTorch version of K3: ``hist.plain_sums`` over the rows
     in natural order, keyed by ``sel``."""
     N = g.shape[0]
@@ -143,4 +153,4 @@ def build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F):
         return nat_tiles[f0:f1, :N].t().to(torch.int64) & 0xFFFF
 
     return hist.plain_sums(torch.where(keep, s, 0), keep, g, h, bins_of,
-                           P, F, B, shift)
+                           P, F, B, shift, reduce)

@@ -264,11 +264,13 @@ def permute_records_plain(rec, pos, dstl, dstr, n_out_tiles):
 def hist_from_layout(rec: torch.Tensor, seg_first: torch.Tensor,
                      seg_ntiles: torch.Tensor, num_cols: int,
                      total_bins: int, num_features: int, itemsize: int,
-                     n_sel_tiles: int, shift: torch.Tensor) -> torch.Tensor:
+                     n_sel_tiles: int, shift: torch.Tensor, *,
+                     reduce=None) -> torch.Tensor:
     """(P, 3, F, B) histograms of P selected segments of a layout.  Each
     segment is a contiguous tile run; K1 reads the runs in place through
     the per-slot source-tile list (no gathered copy), with the tree's
-    fixed-point ``shift``.
+    fixed-point ``shift``.  ``reduce``: the cross-rank hook
+    (``hist.finish``).
 
     ``n_sel_tiles`` (static) must be at least ``sum(max(seg_ntiles, 1))``
     (every selection reserves a slot, so an empty one still zeroes its
@@ -295,7 +297,7 @@ def hist_from_layout(rec: torch.Tensor, seg_first: torch.Tensor,
         live, torch.clamp(seg_first.to(torch.int64)[lc] + off, 0, n_in - 1),
         -1)
     return hist.hist_tiles(rec, src, lc, P, total_bins, num_features,
-                           itemsize, shift)
+                           itemsize, shift, reduce=reduce)
 
 
 def advance_runs(run_slot: torch.Tensor, run_do: torch.Tensor,

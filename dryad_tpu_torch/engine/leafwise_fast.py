@@ -44,6 +44,12 @@ monotone constraints each heap node carries its output bounds
 in the expansion and clamp the value of the leaf it becomes in the
 selected tree.  A heap node's bounds depend only on its ancestors, so
 the selection needs no bounds of its own.
+
+Under a process group (``group``) the expansion reduces every histogram
+pass across ranks, with the group's shift and without the half bounds,
+as ``levelwise`` does; the feature arm keeps this rank's feature slice of
+the level histograms and scans it with the sliced scan and its combine.
+The selection reads only the heap tables, which every rank holds alike.
 """
 
 from __future__ import annotations
@@ -52,8 +58,8 @@ from typing import Any
 
 import torch
 
-from dryad_tpu_torch.config import MAX_FAST_DEPTH
-from dryad_tpu_torch.engine import hist as _hist
+from dryad_tpu_torch.config import MAX_FAST_DEPTH, hist_reduce_resolved
+from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import (
     _monotone_array,
@@ -110,8 +116,8 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
                                bag_mask: torch.Tensor,
                                feat_mask: torch.Tensor, *,
                                learn_missing: bool = False,
-                               is_cat_feat=None, bundled_mask=None
-                               ) -> dict[str, Any]:
+                               is_cat_feat=None, bundled_mask=None,
+                               group=None) -> dict[str, Any]:
     p = params
     N, F = Xb.shape
     B = int(total_bins)
@@ -134,8 +140,19 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     use_layout = leafwise_layout_supported(p, F, B, isz)
     # one fixed-point shift per tree: every histogram of the tree (root,
     # every level, either arm, any kernel) sums in it
-    shift = _hist.fixed_point_shift(g, h, N)
+    shift = _dist.global_shift(g, h, group, N)
     mono = _monotone_array(p, F, dev)
+    # the cross-rank reductions (None without a group): the root's always
+    # fused, the levels' by the policy
+    mode = (None if group is None
+            else hist_reduce_resolved(p, F, B, group.world))
+    red_root = _dist.reducer(group, "fused")
+    red = _dist.reducer(group, mode)
+    arm = (_dist.FeatureArm(p, group, F, feat_mask=feat_mask,
+                            learn_missing=learn_missing,
+                            is_cat_feat=is_cat_feat,
+                            bundled_mask=bundled_mask, monotone=mono)
+           if mode == "feature" else None)
 
     def best(hist, G, H, C, allow, lo, hi):
         return find_best_split(
@@ -150,9 +167,9 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     d_switch, P_narrow, _ = phase_plan(D)
     T = leafperm.TILE_ROWS
     n_row_tiles = -(-N // T)
-    # smaller children cover <= half the rows while the f32 counts behind
-    # the smaller-child choice are exact (< 2^24 rows)
-    half_ok = N < (1 << 24)
+    # smaller children cover <= half the rows on one device while the f32
+    # counts behind the smaller-child choice are exact (< 2^24 rows)
+    half_ok = group is None and N < (1 << 24)
     if use_layout:
         # ---- root: the natural-order records are the one-run layout, run
         # 0 holding heap node 1; out-of-bag rows are dropped by level 0's
@@ -165,12 +182,15 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         lay_rec, lay_tr, lay_ns = leafperm.natural_root_layout(
             rec_nat, NR, n_buf_tiles, first_slot=1, sentinel=HN)
         del rec_nat
-        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec,
+                           reduce=red_root)
         records = nat_tiles = None
     else:
         records = tile_plan.make_records(Xb, g, h)
-        nat_tiles = hist_nat.maybe_natural_tiles(Xb)
-        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
+        nat_tiles = hist_nat.maybe_natural_tiles(
+            Xb, N if group is None else group.max_rank_rows)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
+                           reduce=red_root)
     G0, H0, C0 = root_stats(hist0)
 
     # ---- heap-node tables (index = heap id; unwritten nodes keep these) --
@@ -203,8 +223,11 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     nd_catmask[1] = root["cat_mask"][0]
     # level-d histograms at offsets 0..2^d-1; one sentinel row (Pf) takes
     # the dropped writes, the final level's children among them
-    hists = torch.zeros((Pf + 1, 3, F, B), dtype=f32, device=dev)
-    hists[0] = hist0
+    # the feature arm keeps this rank's feature slice
+    hists = torch.zeros((Pf + 1, 3, F if arm is None else arm.width, B),
+                        dtype=f32, device=dev)
+    hists[0] = hist0 if arm is None else arm.slice_hist(hist0)
+    level_best = best if arm is None else arm.best
     # every row is routed (the bag gates histograms only)
     row_node = torch.ones(N, dtype=i64, device=dev)
 
@@ -242,11 +265,12 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         if use_layout:
             hist_small, lay_rec, lay_tr, lay_ns = _wired_level(
                 lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B, F,
-                isz, n_sel[P], n_buf_tiles, learn_missing, shift, catmask)
+                isz, n_sel[P], n_buf_tiles, learn_missing, shift, catmask,
+                red)
         else:
             hist_small = _legacy_level(
                 Xb, g, h, bag_mask, records, nat_tiles, row_node, idx, jarr,
-                do, ls, CL, CR, P, HN, B, half_ok, shift)
+                do, ls, CL, CR, P, HN, B, half_ok, shift, red)
         hist_large = torch.index_select(
             hists, 0, torch.clamp(jarr, max=Pf - 1)) - hist_small
         ls4 = ls[:, None, None, None]
@@ -270,8 +294,8 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         ch_H = torch.cat([HL, HR])
         ch_C = torch.cat([CL, CR])
         allow = ch_do & (d + 1 < D) & (ch_C >= 2 * p.min_data_in_leaf)
-        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow,
-                   ch_lo, ch_hi)
+        res = level_best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C,
+                         allow, ch_lo, ch_hi)
         del hist_l, hist_r
         cidx = torch.where(ch_do, torch.cat([2 * idx, 2 * idx + 1]), HN)
         if mono is not None:
@@ -315,12 +339,13 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
 
 def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
                  F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift,
-                 catmask=None):
+                 catmask=None, reduce=None):
     """One wired expansion level: sides off the layout records, one move
     (K2), the run bookkeeping under heap node ids, the smaller children as
     contiguous runs of the new layout (K1, layout mode).  ``catmask`` (HN,
     B) holds the heap nodes' categorical left sets, when any feature is
-    categorical.  Returns (hist_small, lay_rec, lay_tr, lay_ns)."""
+    categorical; ``reduce`` is the cross-rank hook.  Returns (hist_small,
+    lay_rec, lay_tr, lay_ns)."""
     T = leafperm.TILE_ROWS
     dev = lay_rec.device
     i64 = torch.int64
@@ -366,12 +391,14 @@ def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
         sel_ok, torch.where(ls, base_l[rjc], base_r[rjc]), 0)
     seg_nt = torch.where(sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
     hist_small = leafperm.hist_from_layout(
-        lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift)
+        lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift,
+        reduce=reduce)
     return hist_small, lay_rec, lay_tr, lay_ns
 
 
 def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
-                  jarr, do, ls, CL, CR, P, HN, B, half_ok, shift):
+                  jarr, do, ls, CL, CR, P, HN, B, half_ok, shift,
+                  reduce=None):
     """One legacy expansion level: the smaller children's rows are picked
     off the routed natural-order ``row_node`` and histogrammed by K3 when
     it is live and holds P columns, else through a sorted tile plan (K1,
@@ -384,7 +411,7 @@ def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
     smallsel = torch.where(bag_mask, colof[row_node], P)
     if nat_tiles is not None and P <= hist_nat.NAT_SLOTS:
         return hist_nat.build_hist_small(nat_tiles, g, h, smallsel, P, B, F,
-                                         shift)
+                                         shift, reduce=reduce)
     # exact per-column counts (the smaller child's C off the parent
     # histogram, integer-exact in f32 below 2^24 rows) admit the aligned
     # plan where it applies
@@ -392,7 +419,8 @@ def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
                  .to(torch.int64) if half_ok else None)
     return build_hist_segmented(
         Xb, g, h, smallsel, P, B, shift, records=records,
-        rows_bound=(N // 2 + 1) if half_ok else None, sel_counts=small_cnt)
+        rows_bound=(N // 2 + 1) if half_ok else None, sel_counts=small_cnt,
+        reduce=reduce)
 
 
 def select_tree(L: int, M: int, HN: int, nd_gain, nd_feature, nd_thresh,

@@ -31,6 +31,14 @@ a full candidate width (``phase_plan``); here the levels are a Python loop
 with the same per-phase widths, which fix each phase's static histogram
 plan size.  Nothing is fetched to the host inside the loop: every
 data-dependent size is a static bound, as in the reference.
+
+Under a process group (``group``, ``engine/distributed.py``) the shift is
+the group's, every histogram pass is reduced across ranks, and the
+smaller child is picked from global counts, so on one rank it can hold
+more than half the local rows: the half bounds are off, as in the
+reference.  On the feature arm the level state holds this rank's feature
+slice of the histograms, and each level's scan is the sliced scan and
+its combine; the root stays on the fused all-reduce and the full scan.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from typing import Any
 
 import torch
 
+from dryad_tpu_torch.config import hist_reduce_resolved
+from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import (
@@ -131,7 +141,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
                         g: torch.Tensor, h: torch.Tensor,
                         bag_mask: torch.Tensor, feat_mask: torch.Tensor, *,
                         learn_missing: bool = False, is_cat_feat=None,
-                        bundled_mask=None) -> dict[str, Any]:
+                        bundled_mask=None, group=None) -> dict[str, Any]:
     p = params
     N, F = Xb.shape
     B = int(total_bins)
@@ -152,8 +162,19 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     i64, f32 = torch.int64, torch.float32
     # one fixed-point shift per tree, kept on the device: every histogram
     # of the tree (root, every level, either arm, either kernel) sums in it
-    shift = _hist.fixed_point_shift(g, h, N)
+    shift = _dist.global_shift(g, h, group, N)
     mono = _monotone_array(p, F, dev)
+    # the cross-rank reductions (None without a group): the root's always
+    # fused, the levels' by the policy
+    mode = (None if group is None
+            else hist_reduce_resolved(p, F, B, group.world))
+    red_root = _dist.reducer(group, "fused")
+    red = _dist.reducer(group, mode)
+    arm = (_dist.FeatureArm(p, group, F, feat_mask=feat_mask,
+                            learn_missing=learn_missing,
+                            is_cat_feat=is_cat_feat,
+                            bundled_mask=bundled_mask, monotone=mono)
+           if mode == "feature" else None)
 
     def best(hist, G, H, C, allow, lo, hi):
         return find_best_split(
@@ -170,7 +191,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     # smaller children cover <= half the real rows on one device while the
     # f32 counts behind the smaller-child choice are exact (< 2^24 rows);
     # the wired plan's half bound and the legacy arm's rows_bound share it
-    half_ok = N < (1 << 24)
+    half_ok = group is None and N < (1 << 24)
     if use_layout:
         # ---- root: the natural-order records are the one-segment layout --
         n_buf_tiles = leafperm.wired_tiles_bound(n_row_tiles, L)
@@ -178,14 +199,18 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         lay_rec, lay_tr, lay_rs = leafperm.natural_root_layout(
             rec_nat, L, n_buf_tiles)
         del rec_nat
-        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, layout=lay_rec,
+                           reduce=red_root)
         nat_tiles = None
     else:
         # ---- legacy: one record table per tree (g/h change per tree) and
         # the natural-order tiles for the shallow levels, where admitted
+        # (the gate reads the largest rank's rows, so every rank agrees)
         records = tile_plan.make_records(Xb, g, h)
-        nat_tiles = hist_nat.maybe_natural_tiles(Xb)
-        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records)
+        nat_tiles = hist_nat.maybe_natural_tiles(
+            Xb, N if group is None else group.max_rank_rows)
+        hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
+                           reduce=red_root)
     G0, H0, C0 = root_stats(hist0)
     if mono is not None:
         # per-slot monotone output bounds, unbounded at the root
@@ -216,9 +241,12 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
                                  dtype=torch.bool, device=dev)
     for k in sp:
         sp[k][0] = root[k][0]
-    # one sentinel row (index L) takes the dropped histogram writes
-    hists = torch.zeros((L + 1, 3, F, B), dtype=f32, device=dev)
-    hists[0] = hist0
+    # one sentinel row (index L) takes the dropped histogram writes; the
+    # feature arm keeps this rank's slice
+    hists = torch.zeros((L + 1, 3, F if arm is None else arm.width, B),
+                        dtype=f32, device=dev)
+    hists[0] = hist0 if arm is None else arm.slice_hist(hist0)
+    level_best = best if arm is None else arm.best
 
     cover = torch.zeros(M, dtype=f32, device=dev)
     cover[0] = C0
@@ -309,11 +337,12 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             hist_l, hist_r, lay_rec, lay_tr, lay_rs = _wired_level(
                 p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
                 B, F, isz, sel_bound[P], n_buf_tiles, learn_missing, shift,
-                None if is_cat_feat is None else sp["cat_mask"])
+                None if is_cat_feat is None else sp["cat_mask"], red)
         else:
             hist_l, hist_r = _legacy_level(
                 p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
-                right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift)
+                right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift,
+                red)
         hists[torch.where(do, sj, L)] = hist_l
         hists[torch.where(do, right_slot, L)] = hist_r
 
@@ -330,8 +359,8 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         ch_H = torch.cat([HL, HR])
         ch_C = torch.cat([CL, CR])
         allow = ch_do & (d + 1 < depth_cap) & (ch_C >= 2 * p.min_data_in_leaf)
-        res = best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C, allow,
-                   ch_lo, ch_hi)
+        res = level_best(torch.cat([hist_l, hist_r]), ch_G, ch_H, ch_C,
+                         allow, ch_lo, ch_hi)
 
         cidx = torch.where(ch_do, ch_slot, L)
         if mono is not None:
@@ -373,12 +402,12 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
 
 def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
                  B, F, isz, n_sel_tiles, n_buf_tiles, learn_missing, shift,
-                 catmask=None):
+                 catmask=None, reduce=None):
     """One wired level: sides off the layout records, one move (K2), the
     children as contiguous runs of the new layout (K1, layout mode).
     ``catmask`` (L, B) holds the slots' categorical left sets, when any
-    feature is categorical.  Returns (hist_l, hist_r) and the advanced
-    layout."""
+    feature is categorical; ``reduce`` is the cross-rank hook.  Returns
+    (hist_l, hist_r) and the advanced layout."""
     T = leafperm.TILE_ROWS
     dev = lay_rec.device
     i64 = torch.int64
@@ -427,7 +456,8 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
         seg_nt = torch.where(
             sel_ok, torch.where(ls, lt_l[rjc], lt_r[rjc]), 0)
         hist_small = leafperm.hist_from_layout(
-            lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift)
+            lay_rec, seg_first, seg_nt, P, B, F, isz, n_sel_tiles, shift,
+            reduce=reduce)
         hist_large = torch.index_select(hists, 0, sj) - hist_small
         ls4 = ls[:, None, None, None]
         hist_l = torch.where(ls4, hist_small, hist_large)
@@ -439,13 +469,15 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
         segn2 = torch.cat([torch.where(sel_ok, lt_l[rjc], 0),
                            torch.where(sel_ok, lt_r[rjc], 0)])
         h2 = leafperm.hist_from_layout(
-            lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles, shift)
+            lay_rec, segf2, segn2, 2 * P, B, F, isz, n_sel_tiles, shift,
+            reduce=reduce)
         hist_l, hist_r = h2[:P], h2[P:]
     return hist_l, hist_r, lay_rec, lay_tr, lay_rs
 
 
 def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
-                  right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift):
+                  right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift,
+                  reduce=None):
     """One legacy level (the reference's plan arm): the smaller children's
     rows are selected off the natural-order ``row_slot`` (already routed
     to this level's children) and histogrammed by the natural-order pass
@@ -464,8 +496,8 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
                      torch.where(do, small_slot, L + 1), arange_P)
     smallsel = torch.where(bag_mask, colof[torch.clamp(row_slot, max=L)], P)
     if nat_tiles is not None and P <= hist_nat.NAT_SLOTS:
-        hist_small = hist_nat.build_hist_small(nat_tiles, g, h, smallsel, P,
-                                               B, F, shift)
+        hist_small = hist_nat.build_hist_small(
+            nat_tiles, g, h, smallsel, P, B, F, shift, reduce=reduce)
     else:
         # exact per-slot counts (the smaller child's C off the parent
         # histogram, integer-exact in f32 below 2^24 rows) admit the
@@ -475,7 +507,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         hist_small = build_hist_segmented(
             Xb, g, h, smallsel, P, B, shift, records=records,
             rows_bound=(N // 2 + 1) if half_ok else None,
-            sel_counts=small_cnt)
+            sel_counts=small_cnt, reduce=reduce)
     if p.hist_subtraction:
         hist_large = torch.index_select(hists, 0, sj) - hist_small
     else:
@@ -484,7 +516,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         hist_large = build_hist_multi(
             Xb, g, h,
             torch.where(bag_mask, largesel[torch.clamp(row_slot, max=L)], P),
-            P, B, shift, records=records)
+            P, B, shift, records=records, reduce=reduce)
     ls4 = ls[:, None, None, None]
     return (torch.where(ls4, hist_small, hist_large),
             torch.where(ls4, hist_large, hist_small))

@@ -11,10 +11,14 @@ import numpy as np
 from dryad_tpu_torch.dataset import Dataset
 
 
-def sample_masks(params, iteration: int, num_rows: int, num_features: int):
+def sample_masks(params, iteration: int, num_rows: int, num_features: int,
+                 row_range: tuple[int, int] | None = None):
     """(row mask or None, feature mask or None) of one iteration: the
     Philox(seed, iteration) draw of the reference, bit for bit, so bagged
-    runs agree across packages and a resumed run redraws the same bags."""
+    runs agree across packages and a resumed run redraws the same bags.
+    ``row_range`` [start, stop) keeps a rank's rows of the bag drawn over
+    all ``num_rows`` rows of its process group, so the ranks' bags are the
+    single process's."""
     row_mask = None
     feat_mask = None
     if params.subsample < 1.0 or params.colsample < 1.0:
@@ -22,6 +26,8 @@ def sample_masks(params, iteration: int, num_rows: int, num_features: int):
                                                    counter=iteration))
         if params.subsample < 1.0:
             row_mask = rng.uniform(size=num_rows) < params.subsample
+            if row_range is not None:
+                row_mask = row_mask[row_range[0]:row_range[1]]
         if params.colsample < 1.0:
             k = max(1, int(round(params.colsample * num_features)))
             feat_mask = np.zeros(num_features, bool)

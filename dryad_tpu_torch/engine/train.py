@@ -34,6 +34,18 @@ order, the order in which the straight run added them, so a resumed run
 reproduces the straight one bit for bit.  The reference's chunked
 dispatch arm is not ported: it exists for a remote TPU's program-length
 limit.
+
+Under a process group (``group``, ``engine/distributed.RowGroup``) each
+rank trains on its own rows and every rank ends with the same booster,
+bit for bit the single process's on all the rows: the depth policy and
+the grower see the global row count, the init score comes from every
+rank's labels and weights gathered in rank order, the missing-value
+planes are scanned where any rank has a missing value, the bags are
+drawn over the global rows, each histogram pass is reduced across ranks
+(``grow_any``), and valid sets are whole on every rank, so evals, early
+stopping and the best iteration agree.  Rank 0 alone writes checkpoints,
+and every rank waits for the file.  What needs cross-rank work of its own
+raises (``check_group_supported``).
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from dryad_tpu_torch.config import (
     effective_depth_params,
 )
 from dryad_tpu_torch.dataset import Dataset
+from dryad_tpu_torch.engine.distributed import all_gather_host
 from dryad_tpu_torch.engine.goss import goss_columns
 from dryad_tpu_torch.engine.grower import grow_any
 from dryad_tpu_torch.engine.lambdarank import PaddingPlan, grad_hess_ranking
@@ -147,6 +160,25 @@ def renew_values(value: torch.Tensor, feature: torch.Tensor,
     return torch.where((feature < 0) & (cnt > 0), stat, value)
 
 
+def check_group_supported(p: Params, data: Dataset) -> None:
+    """Refuse under a process group what needs cross-rank work beyond the
+    histogram reduction (ROADMAP M12b)."""
+    why = None
+    if p.boosting == "goss":
+        why = "GOSS (a global top-k of |g|)"
+    elif p.objective == "lambdarank":
+        why = "lambdarank (queries across ranks)"
+    elif renew_alpha(p, weighted=data.weight is not None) is not None:
+        why = f"the leaf renewal of {p.objective} (global per-leaf quantiles)"
+    elif (getattr(data.mapper, "bundled_mask", None) is not None
+          or getattr(data, "sparse_ingest", False)):
+        why = "bundled or CSR datasets (a sketch and a bundle plan per group)"
+    if why is not None:
+        raise NotImplementedError(
+            f"{why} does not train over a process group yet "
+            "(ROADMAP M12b)")
+
+
 def _empty_out(T: int, M: int, device) -> dict[str, torch.Tensor]:
     i64 = torch.int64
     return {
@@ -193,15 +225,19 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                  num_trees: Optional[int] = None,
                  init_booster: Optional[Booster] = None,
                  callback: Optional[Callable[[int, dict], None]] = None,
-                 checkpointer=None, device: torch.device) -> Booster:
+                 checkpointer=None, device: torch.device,
+                 group=None) -> Booster:
     p = params.validate()
     if data.y is None:
         raise ValueError("training needs labels")
     N, F = data.num_rows, data.num_features
     B = data.mapper.total_bins
+    if group is not None:
+        check_group_supported(p, data)
+    n_all = N if group is None else group.global_rows
     # the max_depth=-1 policy of leaf-wise growth, as the reference applies
     # it; the booster keeps the effective params
-    p = effective_depth_params(p, F, B, N)
+    p = effective_depth_params(p, F, B, n_all)
     obj = get_objective(p)
     K = p.num_outputs
     n_iters = num_trees if num_trees is not None else p.num_trees
@@ -220,8 +256,15 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     y = torch.from_numpy(data.y).to(device)
     weight = (None if data.weight is None
               else torch.from_numpy(data.weight).to(device))
-    init = np.asarray(obj.init_score(data.y, data.weight),
-                      np.float32).reshape(-1)
+    y_all, w_all = data.y, data.weight
+    if group is not None:
+        # every rank's labels and weights in rank order: the single
+        # process's arrays, so the same init score bit for bit
+        y_all = np.concatenate(all_gather_host(data.y, group))
+        if data.weight is not None:
+            w_all = np.concatenate(all_gather_host(data.weight, group))
+    init = np.asarray(obj.init_score(y_all, w_all), np.float32).reshape(-1)
+    del y_all, w_all
     if init_booster is not None:
         # the carried base score is part of the model: a continuation on
         # fresh rows must not re-derive it from their labels
@@ -245,6 +288,11 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     # L1-family leaf renewal; the whole gate lives in renew_alpha
     renew_a = renew_alpha(p, weighted=data.weight is not None)
     learn_missing = data.has_missing
+    if group is not None:
+        # any rank's missing values switch on the missing-right plane on
+        # every rank, or the ranks would scan different grids
+        learn_missing = bool(np.concatenate(all_gather_host(
+            np.array([learn_missing]), group)).any())
     is_cat_feat, bundled_mask = feature_kinds(data.mapper, learn_missing,
                                               device)
     # a static bound at or above every tree's depth; traversal is exact for
@@ -339,7 +387,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             n_iters = it
             break
         t0 = time.perf_counter()
-        row_mask, feat_mask = sample_masks(p, it, N, F)
+        row_mask, feat_mask = sample_masks(
+            p, it, n_all, F, None if group is None
+            else (group.row_offset, group.row_offset + N))
         bag = (ones_rows if row_mask is None
                else torch.from_numpy(row_mask).to(device))
         fmask = (ones_feat if feat_mask is None
@@ -368,7 +418,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             tree = grow_any(p, B, Xb, g, h, bag, fmask,
                             learn_missing=learn_missing,
                             is_cat_feat=is_cat_feat,
-                            bundled_mask=bundled_mask)
+                            bundled_mask=bundled_mask, group=group)
             if renew_a is not None:
                 # before the score update, the tree table and the valid
                 # scores, so all three carry the renewed values
@@ -437,7 +487,10 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                                 stale)
             if eval_history is not None:
                 ckpt.train_state["eval_history"] = eval_history
-            checkpointer.save(ckpt, it + 1)
+            if group is None or group.rank == 0:
+                checkpointer.save(ckpt, it + 1)
+            if group is not None:
+                group.barrier()     # the file exists before any rank goes on
         if cuda:
             # per-iteration wall time; a synchronisation, not a fetch
             torch.cuda.synchronize(device)

@@ -22,7 +22,11 @@ training on the card vs the CPU as their test states; the model API
 (pred_leaf, the SoA traversal, TreeSHAP, refit, cv) on the card vs the
 CPU as its test states; the serving stack (CUDA graphs per bucket) bitwise
 equal to the direct card and CPU predicts, no capture after warmup, and
-evictions and unloads lowering ``torch.cuda.memory_allocated``.
+evictions and unloads lowering ``torch.cuda.memory_allocated``; K1 (both
+modes) and K3 through the accumulate-only launch (``reduce=``, what a
+process group's reduction runs between launch and conversion) bitwise
+the full launch; two gloo ranks sharing the card grow bitwise the trees
+of one process, on both reduction arms.
 """
 
 import numpy as np
@@ -639,3 +643,102 @@ def test_serving_eviction_and_unload_free_card_memory(cuda_device):
         assert torch.cuda.memory_allocated() < m2
         np.testing.assert_array_equal(
             server.predict(X[:300], raw_score=True, timeout=60), want)
+
+
+def _identity(acc):
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layout", "rows", "nat"])
+def test_accumulate_only_launch_equals_full_launch(cuda_device, kind):
+    """The launch that skips its conversion, plus ``sums_to_float``, gives
+    the full launch's bits, and each counts as one launch."""
+    from dryad_tpu_torch.engine import cuda_build
+
+    rng = np.random.default_rng(7)
+    N, F, B, P = 30000, 28, 256, 5
+    Xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.uint8))
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.1, 1, N).astype(np.float32))
+    sel = torch.from_numpy(rng.integers(0, P + 1, N))
+    shift = hist.fixed_point_shift(g, h).to(cuda_device)
+    if kind == "layout":
+        rec, lt, base, sh = _grouped_layout(rng, N, F, B, P)
+        src = torch.arange(rec.shape[0] // T, device=cuda_device)
+        tl = torch.from_numpy(np.repeat(np.arange(P), lt)).to(cuda_device)
+        args = (torch.from_numpy(rec).to(cuda_device), src, tl, P, B, F, 1,
+                sh.to(cuda_device))
+        key = "hist"
+
+        def run(**kw):
+            return hist.hist_tiles(*args, **kw)
+    elif kind == "rows":
+        recs = tile_plan.make_records(Xb, g, h).to(cuda_device)
+        buf, tl, _ = tile_plan.tile_plan(sel.to(cuda_device), N, P)
+        key = "hist_rows"
+
+        def run(**kw):
+            return hist.hist_rows(recs, buf, tl, P, B, F, 1, shift, **kw)
+    else:
+        xt = hist_nat.natural_tiles(Xb).to(cuda_device)
+        gd, hd = g.to(cuda_device), h.to(cuda_device)
+        sd = torch.where(sel < P, sel, hist_nat.NAT_DROP).to(cuda_device)
+        key = "nat"
+
+        def run(**kw):
+            return hist_nat.build_hist_nat(xt, gd, hd, sd, shift,
+                                           total_bins=B, num_features=F,
+                                           num_cols=P, **kw)
+    full = run()
+    before = cuda_build.counts[key]
+    acc = run(reduce=_identity)
+    assert cuda_build.counts[key] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(acc, full)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda_device,
+                                                      tmp_path):
+    """Two rank processes share the card through a gloo group
+    (``tests/torch_dist_worker.py``) and grow, on both reduction arms,
+    the trees one process grows on all 50k rows, bit for bit."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    import torch_dist_worker as W
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    spec = {"world": 2, "store": str(tmp_path / "store"), "timeout_s": 120,
+            "configs": list(W.CARD_CONFIGS), "device": "cuda:0"}
+    path = str(tmp_path / "spec.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(tests), tests, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable,
+                               os.path.join(tests, "torch_dist_worker.py"),
+                               path, str(r)], env=env)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs)
+    data = W.make_data(card=True)
+    for name in W.CARD_CONFIGS:
+        want = W.run_config(name, data, group=False, device="cuda")
+        for r in range(2):
+            with open(f"{path}.{r}.out", "rb") as f:
+                out = pickle.load(f)
+            assert "error" not in out, out.get("error")
+            for k, v in want.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(out[name][k], v,
+                                                  err_msg=f"{name} {k}")
