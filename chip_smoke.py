@@ -261,6 +261,33 @@ Phases (any failed check exits non-zero):
    (all-reduced, or reduce-scattered and all-gathered) and their ms per
    tree (CUDA events around each collective).
 
+34. streamed training and the grower's reach, last, on phase 2's rows at
+   the headline config: (a) the 10M-row binned matrix spilled to a
+   git-ignored ``_stream_rows/`` (removed at the end of the phase) with
+   ``StreamedDataset.from_dataset`` at ``DEFAULT_CHUNK_ROWS`` (1,048,576)
+   and at 999,983 rows a chunk; 10 trees from each spill: trees bitwise a
+   resident run's, 9 K1 and 8 K2 launches a tree, held-out card predict
+   bitwise the CPU predict; (b) ``dataset_from_chunks(..., mapper=,
+   spill=)`` over the raw rows in 1M-row chunks: the file bitwise
+   ``ds.X_binned``, chunk by chunk, and the bin pass's seconds; (c) the
+   upload seconds of the resident tensor and of the streamed assembly
+   (fresh sets, ending in ``torch.cuda.synchronize``), the host's peak-RSS
+   growth during each (VmRSS sampled every 0.5 ms), trees/s of fresh
+   resident and streamed sets in three interleaved pairs, and each run's
+   peak device memory above what was allocated before it; (d) the first 2M rows (``WIDE_ROWS``, cut
+   from 10M for the script's time) binned at 2048 bins: 5 trees on the
+   legacy arm through arm A1 (no kernel launch), a second run bitwise,
+   held-out AUC above 0.70, card predict bitwise CPU; the same rows at
+   1024 bins: one tree on the wired kernels (9 K1, 8 K2) bitwise one
+   under ``hist_backend="xla"`` (arm A1), and the widest level's pass
+   timed on both (K1 against its plain version, ``index_add_`` and the
+   bound, arm A1's ms beside it); (e) the same 2M rows at 256 bins,
+   depthwise depth 16 and 65536 leaves, 2 trees: the unpacked route on
+   every level (asserted), the legacy arm's K3 and K1 row-mode launches,
+   a second run bitwise, card predict of 200k held-out rows on the SoA
+   arm bitwise CPU; ms a tree, peak memory and the widest level's
+   histogram bytes.
+
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
 32 runs after phase 23 on the same rows, kept on the host until then.
@@ -655,14 +682,11 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
 
     import dryad_tpu_torch as dt
     from dryad_tpu_torch.config import effective_depth_params
+    from dryad_tpu_torch.dataset import binned_to_device
     from dryad_tpu_torch.engine.goss import goss_columns
     from dryad_tpu_torch.engine.grower import grow_any
     from dryad_tpu_torch.engine.loop_state import sample_masks
-    from dryad_tpu_torch.engine.train import (
-        binned_to_device,
-        class_grads,
-        feature_kinds,
-    )
+    from dryad_tpu_torch.engine.train import class_grads, feature_kinds
     from dryad_tpu_torch.objectives import get_objective
 
     B = ds.mapper.total_bins
@@ -724,6 +748,30 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
                         for e in top_k],
             "ops": [[e.key, str(e.input_shapes)[:80], dev_us(e) / 1e3,
                      e.count] for e in top_o]}
+
+
+# (X, mapper bytes) -> X's bins: ``predict_rows`` bins each held-out set
+# once per mapper, not once per predict
+_BINNED: list = []
+
+
+def predict_rows(booster, X, **kw):
+    """``dt.predict(booster, X, **kw)``: the same bins through the
+    booster's frozen mapper and the same ``predict_binned``, with X's bins
+    kept for the next call on the same rows and mapper (binning 1M raw
+    Higgs rows takes seconds of host time, and the phases predict those
+    rows dozens of times)."""
+    import numpy as np
+
+    key = booster.mapper.to_bytes()
+    for x, k, xb in _BINNED:
+        if x is X and k == key:
+            break
+    else:
+        xb = booster.mapper.transform(np.asarray(X, np.float32))
+        _BINNED.append((X, key, xb))
+        del _BINNED[:-4]
+    return booster.predict_binned(xb, **kw)
 
 
 def train_counted(dt, params, ds, dev):
@@ -791,16 +839,16 @@ def train_and_check(dt, params, ds, Xv, yv, dev, want: dict,
     from dryad_tpu_torch.metrics import auc
 
     booster, launches, peak = train_counted(dt, params, ds, dev)
-    raw_gpu = dt.predict(booster, Xv, raw_score=True, device=dev)
+    raw_gpu = predict_rows(booster, Xv, raw_score=True, device=dev)
     check_launches(launches, want, what)
     same_trees(booster, dt.train(params, ds, device=dev), what)
     check(raw_gpu.shape == (len(yv),) and bool(np.isfinite(raw_gpu).all()),
           f"{what}: predict shape or finiteness")
-    check(np.array_equal(raw_gpu, dt.predict(booster, Xv, raw_score=True,
+    check(np.array_equal(raw_gpu, predict_rows(booster, Xv, raw_score=True,
                                              device="cpu")),
           f"{what}: card predict != CPU predict")
-    auc1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
-    auc_last = auc(yv, dt.predict(booster, Xv, device=dev))
+    auc1 = auc(yv, predict_rows(booster, Xv, num_iteration=1, device=dev))
+    auc_last = auc(yv, predict_rows(booster, Xv, device=dev))
     check(auc_last > auc1, f"{what}: AUC did not rise")
     check(auc_last > 0.70, f"{what}: AUC {auc_last} <= 0.70")
     rep = dict(tree_summary(booster), peak_bytes=peak, launches=launches,
@@ -929,7 +977,7 @@ def selection_cost(args, params, ds, dev) -> dict:
     from dryad_tpu_torch.config import effective_depth_params
     from dryad_tpu_torch.engine import leafwise_fast
     from dryad_tpu_torch.engine.grower import grow_any
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
     from dryad_tpu_torch.objectives import get_objective
 
     B = ds.mapper.total_bins
@@ -1244,7 +1292,7 @@ def valid_path_costs(dt, booster, ds, dv, dev, reps: int) -> dict:
 
     from dryad_tpu_torch.engine.loop_state import sample_masks
     from dryad_tpu_torch.engine.predict import add_tree, pack_words
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
     from dryad_tpu_torch.metrics.device import make_evaluator
 
     t = booster.num_iterations - 1
@@ -1366,7 +1414,7 @@ def phase_bagged(dt, a, ds, Xv, yv, dev, report) -> tuple:
     same_trees(booster, b2, "bagged")
     check(again == infos and b2.best_iteration == booster.best_iteration,
           "bagged: a second run's evals or best iteration differ")
-    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+    raw = predict_rows(booster, Xv, raw_score=True, num_iteration=n,
                      device=dev)
     check(np.array_equal(kept[-1].cpu().numpy(), raw),
           "bagged: the trainer's valid scores differ from predict's")
@@ -1457,14 +1505,14 @@ def phase_resume(dt, ds, dv, Xv, dev, params, report) -> dict:
         check(infos == straight_infos[crash_at:]
               and resumed.best_iteration == straight.best_iteration,
               "resume: evals or best iteration differ from the straight run")
-        raw = dt.predict(straight, Xv, raw_score=True, device=dev)
-        check(np.array_equal(dt.predict(resumed, Xv, raw_score=True,
+        raw = predict_rows(straight, Xv, raw_score=True, device=dev)
+        check(np.array_equal(predict_rows(resumed, Xv, raw_score=True,
                                         device=dev), raw),
               "resume: predict differs from the straight run")
         path = os.path.join(ckdir, "model.dryad")
         resumed.save(path)
         loaded = dt.Booster.load(path)
-        check(np.array_equal(dt.predict(loaded, Xv, raw_score=True,
+        check(np.array_equal(predict_rows(loaded, Xv, raw_score=True,
                                         device=dev), raw),
               "resume: the loaded model file predicts differently")
     rep = {"trees": T, "crash_at": crash_at, "resume_seconds": resume_s,
@@ -1703,10 +1751,10 @@ def phase_covertype(dt, a, ds, Xv, yv, dv, dev, report) -> tuple:
     del kept
     same_trees(booster, dt.train(params, ds, [dv], device=dev),
                "covertype")
-    raw = dt.predict(booster, Xv, raw_score=True, device=dev)
+    raw = predict_rows(booster, Xv, raw_score=True, device=dev)
     check(raw.shape == (len(yv), K) and bool(np.isfinite(raw).all()),
           f"covertype: predict shape {raw.shape} or finiteness")
-    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+    check(np.array_equal(raw, predict_rows(booster, Xv, raw_score=True,
                                          device="cpu")),
           "covertype: card predict != CPU predict")
     check(np.array_equal(vscore, raw),
@@ -1715,12 +1763,12 @@ def phase_covertype(dt, a, ds, Xv, yv, dv, dev, report) -> tuple:
              booster.train_state["eval_history"]["valid_multi_logloss"]]
     check(len(curve) == n and curve[-1] < curve[0],
           f"covertype: multi_logloss {curve[0]} -> {curve[-1]}")
-    prob = dt.predict(booster, Xv, device=dev)
+    prob = predict_rows(booster, Xv, device=dev)
     host = multi_logloss(yv, prob)
     check(abs(curve[-1] - host) <= 1e-5,
           f"covertype: last valid_multi_logloss {curve[-1]} vs host {host}")
     acc = accuracy(yv, prob)
-    acc1 = accuracy(yv, dt.predict(booster, Xv, num_iteration=1,
+    acc1 = accuracy(yv, predict_rows(booster, Xv, num_iteration=1,
                                    device=dev))
     check(acc > 0.55, f"covertype: held-out accuracy {acc} <= 0.55")
     no_valid = tree_summary(dt.train(params, ds, device=dev))
@@ -1861,17 +1909,17 @@ def phase_covertype_defaults(dt, a, ds, Xv, dv, dev, report) -> tuple:
               and resumed.best_iteration == straight.best_iteration,
               "covertype resume: evals or best iteration differ from the "
               "straight run")
-        raw = dt.predict(straight, Xv, raw_score=True, device=dev)
+        raw = predict_rows(straight, Xv, raw_score=True, device=dev)
         check(raw.shape == (len(Xv), K), f"covertype defaults: predict "
               f"shape {raw.shape}")
-        check(np.array_equal(dt.predict(resumed, Xv, raw_score=True,
+        check(np.array_equal(predict_rows(resumed, Xv, raw_score=True,
                                         device=dev), raw),
               "covertype resume: predict differs from the straight run")
         path = os.path.join(ckdir, "covertype.dryad")
         resumed.save(path)
         loaded = dt.Booster.load(path)
         check(loaded.num_outputs == K
-              and np.array_equal(dt.predict(loaded, Xv, raw_score=True,
+              and np.array_equal(predict_rows(loaded, Xv, raw_score=True,
                                             device=dev), raw),
               "covertype: the loaded model file predicts differently")
     prof = profile_tree(params, ds, dev, "profile_covertype_defaults.txt")
@@ -1996,7 +2044,7 @@ def profile_ranking(p, ds, dev, fname: str) -> dict:
         PaddingPlan,
         grad_hess_ranking,
     )
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
     from dryad_tpu_torch.objectives import get_objective
 
     B, N, F = ds.mapper.total_bins, ds.num_rows, ds.num_features
@@ -2135,11 +2183,11 @@ def phase_mslr(dt, a, dev, report) -> tuple:
     vscore = kept[-1].cpu().numpy()
     del kept
     same_trees(booster, dt.train(MSLR, ds, [dv], device=dev), "mslr")
-    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+    raw = predict_rows(booster, Xv, raw_score=True, num_iteration=n,
                      device=dev)
     check(raw.shape == (len(yv),) and bool(np.isfinite(raw).all()),
           f"mslr: predict shape {raw.shape} or finiteness")
-    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+    check(np.array_equal(raw, predict_rows(booster, Xv, raw_score=True,
                                          num_iteration=n, device="cpu")),
           "mslr: card predict != CPU predict")
     check(np.array_equal(vscore, raw),
@@ -2731,8 +2779,8 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
     check(any(f < len(m.bundles) for f in used),
           "EFB fixture: no subset split on a categorical bundle")
     Xd = densify(ecsr)
-    raw = dt.predict(b_card, Xd, raw_score=True, device=dev)
-    check(np.array_equal(raw, dt.predict(b_card, Xd, raw_score=True,
+    raw = predict_rows(b_card, Xd, raw_score=True, device=dev)
+    check(np.array_equal(raw, predict_rows(b_card, Xd, raw_score=True,
                                          device=cpu)),
           "EFB fixture: card predict != CPU predict")
     check(np.array_equal(raw, predict_binned(b_card, eds.X_binned,
@@ -2747,14 +2795,14 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
         with np.load(path_card) as zc, np.load(path_cpu) as zp:
             same_mapper = bytes(zc["mapper"]) == bytes(zp["mapper"])
     check(isinstance(loaded.mapper, BundledMapper)
-          and np.array_equal(raw, dt.predict(loaded, Xd, raw_score=True,
+          and np.array_equal(raw, predict_rows(loaded, Xd, raw_score=True,
                                              device=dev)),
           "EFB fixture: the loaded model file predicts differently")
     check(same_mapper, "EFB fixture: card and CPU model files' mapper "
           "bytes differ")
     text = dt.Booster.from_text(b_card.dump_text())
     check(isinstance(text.mapper, BundledMapper)
-          and np.array_equal(raw, dt.predict(text, Xd, raw_score=True,
+          and np.array_equal(raw, predict_rows(text, Xd, raw_score=True,
                                              device=dev)),
           "EFB fixture: the text model predicts differently")
     rep = {"wired_vs_legacy_max_value_diff": dv, "launches": launches,
@@ -2891,8 +2939,8 @@ def phase_goss(dt, a, ds, dv, Xv, yv, dev, report) -> tuple:
     b2, _, curve2 = train_valid(dt, params, ds, dv, dev)
     same_trees(booster, b2, "goss")
     check(curve2 == curve, "goss: a second run's evals differ")
-    raw = dt.predict(booster, Xv, raw_score=True, device=dev)
-    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+    raw = predict_rows(booster, Xv, raw_score=True, device=dev)
+    check(np.array_equal(raw, predict_rows(booster, Xv, raw_score=True,
                                          device="cpu")),
           "goss: card predict != CPU predict")
     host = auc(yv, raw)
@@ -2946,8 +2994,8 @@ def phase_monotone(dt, a, ds, Xv, yv, dev, report) -> tuple:
             worst = min(worst, d)
             check(d >= -1e-6, f"monotone {what}: feature {f} moves against "
                   f"its sign by {d}")
-        a1 = auc(yv, dt.predict(booster, Xv, num_iteration=1, device=dev))
-        a_last = auc(yv, dt.predict(booster, Xv, device=dev))
+        a1 = auc(yv, predict_rows(booster, Xv, num_iteration=1, device=dev))
+        a_last = auc(yv, predict_rows(booster, Xv, device=dev))
         check(a_last > a1, f"monotone {what}: AUC {a1} -> {a_last}")
         rep[what] = dict(tree_summary(booster), launches=launches,
                          auc={"tree_1": a1, "last": a_last},
@@ -3017,7 +3065,7 @@ def phase_dart(dt, a, ds, dv, Xv, yv, dev, report) -> dict:
     check(drops == [w for w in want if w],
           f"dart: drops {drops} differ from dart_drop_set's {want}")
     final = valid_out[0].reshape(n_valid, -1)[:, 0].cpu().numpy()
-    check(np.array_equal(final, dt.predict(booster, Xv, raw_score=True,
+    check(np.array_equal(final, predict_rows(booster, Xv, raw_score=True,
                                            device="cpu")),
           "dart: the trainer's final valid scores differ from CPU predict")
     check(booster.best_iteration == -1, "dart: a best iteration was kept")
@@ -3056,9 +3104,9 @@ def phase_rf(dt, a, ds, dv, Xv, yv, dev, report) -> tuple:
     booster, launches, curve = train_valid(dt, params, ds, dv, dev)
     n = booster.num_iterations
     check_launches(launches, {"hist": 9 * n, "perm": 8 * n}, "rf")
-    raw = dt.predict(booster, Xv, raw_score=True, num_iteration=n,
+    raw = predict_rows(booster, Xv, raw_score=True, num_iteration=n,
                      device=dev)
-    check(np.array_equal(raw, dt.predict(booster, Xv, raw_score=True,
+    check(np.array_equal(raw, predict_rows(booster, Xv, raw_score=True,
                                          num_iteration=n, device="cpu")),
           "rf: card predict != CPU predict")
     host = auc(yv, raw)
@@ -3470,7 +3518,7 @@ def phase_serve(dt, a, ds, Xv, yv, dev, report) -> dict:
     import torch
 
     from dryad_tpu_torch.engine import predict as P
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
     from dryad_tpu_torch.metrics import auc
     from dryad_tpu_torch.obs.health import healthz_payload
     from dryad_tpu_torch.serve import (PredictServer, bucket_rows,
@@ -3990,6 +4038,331 @@ def phase_distributed(dt, a, ds, Xv, yv, dev, report, headline_trees
     return {k: sum(c[k] for c in counted) for k in counted[0]}
 
 
+# ---- phase 34: streamed training and the grower's reach ---------------------
+# the spills of phase 34 (git-ignored; removed at the end of the phase)
+STREAM_DIR = os.path.join(ROOT, "_stream_rows")
+STREAM_RAGGED_ROWS = 999_983           # a chunking that divides nothing
+STREAM_PAIRS = 3                       # interleaved resident/streamed runs
+# (d) and (e) run on the first WIDE_ROWS rows of phase 2 (cut from 10M for
+# the script's time)
+WIDE_ROWS = 2_000_000
+WIDE_BINS = 2048
+WIDE_TREES = 5
+DEEP_DEPTH = 16
+DEEP_LEAVES = 65536
+DEEP_TREES = 2
+DEEP_PREDICT_ROWS = 200_000
+
+
+def rss_kb() -> int:
+    """VmRSS of this process, kB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def upload_cost(fn) -> tuple:
+    """``fn()`` (an upload), its seconds (ending in
+    ``torch.cuda.synchronize``) and the host's peak-RSS growth while it
+    ran: a thread samples VmRSS every 0.5 ms (a container may refuse the
+    VmHWM reset through /proc/self/clear_refs)."""
+    import threading
+
+    import torch
+
+    gc.collect()
+    base = rss_kb()
+    peak = [base, 0]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss_kb())
+            peak[1] += 1
+            stop.wait(0.0005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        stop.set()
+        sampler.join()
+    return out, {"seconds": seconds, "rss_before_mb": base / 1024,
+                 "peak_rss_growth_mb": (max(peak[0], rss_kb()) - base)
+                 / 1024, "rss_samples": peak[1]}
+
+
+def run_memory(dt, params, ds, dev) -> tuple:
+    """``train_counted`` on ``ds``, with its peak device memory above what
+    was allocated before the run (``ds``'s own upload, made in the run,
+    included)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    booster, launches, peak = train_counted(dt, params, ds, dev)
+    return booster, launches, peak - before
+
+
+def _stream_spills(dt, a, ds, Xv, dev, params, rep) -> dict:
+    """(a) and (c): spill, upload, train from each spill against fresh
+    resident sets; returns the launch counts of the streamed runs."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.data.stream_dataset import (
+        DEFAULT_CHUNK_ROWS,
+        StreamedDataset,
+    )
+    from dryad_tpu_torch.dataset import Dataset
+
+    t0 = time.perf_counter()
+    paths = {}
+    for n in (DEFAULT_CHUNK_ROWS, STREAM_RAGGED_ROWS):
+        paths[n] = os.path.join(STREAM_DIR, f"{n}.bins")
+        StreamedDataset.from_dataset(ds, paths[n], chunk_rows=n)
+    rep["spill_seconds"] = time.perf_counter() - t0
+
+    # fresh sets for every run, so each uploads its own matrix and no
+    # other set's memoized tensors sit in a run's peak
+    def resident():
+        return Dataset.from_binned(ds.X_binned, ds.mapper, ds.y)
+
+    def streamed(n=DEFAULT_CHUNK_ROWS):
+        return StreamedDataset(paths[n], ds.mapper, ds.y, chunk_rows=n)
+
+    res, fresh = resident(), streamed()
+    (xr, _, _), rep["upload_resident"] = upload_cost(
+        lambda: res.device_arrays(dev))
+    (xs, _, _), rep["upload_streamed"] = upload_cost(
+        lambda: fresh.device_arrays(dev))
+    check(torch.equal(xr, xs), "streamed: the chunk by chunk assembly "
+          "differs from the resident upload")
+    rep["host_matrix_mb"] = ds.X_binned.nbytes / 2 ** 20
+    del res, fresh, xr, xs
+    print("streamed uploads: " + json.dumps(
+        {k: rep[k] for k in ("spill_seconds", "upload_resident",
+                             "upload_streamed", "host_matrix_mb")}),
+        flush=True)
+
+    want = {"hist": 9 * a.trees, "perm": 8 * a.trees}
+    ref, r_launches, r_peak = run_memory(dt, params, resident(), dev)
+    check_launches(r_launches, want, "streamed yardstick")
+    raw_cpu = predict_rows(ref, Xv, raw_score=True, device="cpu")
+    launches = None
+    for n in paths:
+        sds = streamed(n)
+        booster, got, peak = run_memory(dt, params, sds, dev)
+        check_launches(got, want, f"streamed {n}-row chunks")
+        same_trees(booster, ref, f"streamed {n}-row chunks vs resident")
+        check(np.array_equal(predict_rows(booster, Xv, raw_score=True,
+                                        device=dev), raw_cpu),
+              f"streamed {n}-row chunks: card predict != CPU predict")
+        launches = got if launches is None else {
+            k: launches[k] + got[k] for k in got}
+        rep[f"chunks_{n}"] = {"chunks": sds.num_chunks, "peak_bytes": peak}
+        del sds
+    rep["resident_peak_bytes"] = r_peak
+    # trees/s in interleaved pairs
+    pairs = []
+    for _ in range(STREAM_PAIRS):
+        r = dt.train(params, resident(), device=dev)
+        s = dt.train(params, streamed(), device=dev)
+        pairs.append({"resident": tree_summary(r)["trees_per_s"],
+                      "streamed": tree_summary(s)["trees_per_s"]})
+    rep["trees_per_s_pairs"] = pairs
+    print("streamed runs: bitwise the resident run at chunks of "
+          f"{DEFAULT_CHUNK_ROWS} and {STREAM_RAGGED_ROWS} rows; card "
+          "predict bitwise CPU; " + json.dumps(
+              {"pairs": pairs, "resident_peak_bytes": r_peak,
+               **{k: rep[k] for k in rep if k.startswith("chunks_")}}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stream_rebuild(ds, Xraw, rep) -> None:
+    """(b): the chunk builder's bin pass over the raw rows, onto disk,
+    bitwise ``ds.X_binned`` chunk by chunk."""
+    import numpy as np
+
+    from dryad_tpu_torch.data.streaming import dataset_from_chunks
+
+    step = 1 << 20
+    n = ds.num_rows
+
+    def chunks():
+        for lo in range(0, n, step):
+            yield Xraw[lo:lo + step]
+
+    t0 = time.perf_counter()
+    sb = dataset_from_chunks(chunks, ds.y, n, ds.num_features,
+                             mapper=ds.mapper,
+                             spill=os.path.join(STREAM_DIR, "rebuilt.bins"))
+    rep["rebuild_seconds"] = time.perf_counter() - t0
+    for lo, hi, buf in sb.iter_chunks():
+        check(np.array_equal(buf, ds.X_binned[lo:hi]),
+              f"rebuilt spill differs from ds.X_binned in rows [{lo}, {hi})")
+    print(f"rebuilt from {-(-n // step)} raw chunks onto disk in "
+          f"{rep['rebuild_seconds']:.1f} s; bitwise ds.X_binned", flush=True)
+
+
+def _wide_bins(dt, a, Xraw, y, Xv, yv, dev, params, reps, rep) -> tuple:
+    """(d): 2048 bins on the legacy arm through arm A1; then 1024 bins,
+    the wired kernels against ``hist_backend="xla"``.  Returns (launches
+    of the 1024-bin kernel run, K1's level measurements)."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import hist, histogram
+    from dryad_tpu_torch.metrics import auc
+
+    n = min(WIDE_ROWS, Xraw.shape[0])
+    t0 = time.perf_counter()
+    dw = dt.Dataset(Xraw[:n], y[:n], max_bins=WIDE_BINS)
+    Xvb = dw.mapper.transform(Xv)
+    rep["wide_bin_seconds"] = time.perf_counter() - t0
+    check(dw.mapper.total_bins > hist.MAX_BINS
+          and dw.X_binned.dtype == np.uint16,
+          f"wide bins: {dw.mapper.total_bins} total bins")
+    wp = dict(params, max_bins=WIDE_BINS, num_trees=WIDE_TREES)
+    bw, launches, peak = run_memory(dt, wp, dw, dev)
+    check_launches(launches, {}, "wide bins (arm A1, no kernel)")
+    same_trees(bw, dt.train(wp, dw, device=dev), "wide bins")
+    raw = bw.predict_binned(Xvb, raw_score=True, device=dev)
+    check(np.array_equal(raw, bw.predict_binned(Xvb, raw_score=True,
+                                                device="cpu")),
+          "wide bins: card predict != CPU predict")
+    a_last = auc(yv, raw)
+    check(a_last > 0.70, f"wide bins: held-out AUC {a_last} <= 0.70")
+    rep["wide"] = dict(tree_summary(bw), rows=n,
+                       total_bins=int(dw.mapper.total_bins),
+                       peak_bytes=peak, auc=a_last, launches=launches)
+    print("wide bins: second run bitwise; card predict bitwise CPU; "
+          + json.dumps(rep["wide"]), flush=True)
+    del dw, Xvb, bw
+    gc.collect()
+
+    d10 = dt.Dataset(Xraw[:n], y[:n], max_bins=1024)
+    check(256 < d10.mapper.total_bins <= hist.MAX_BINS,
+          f"1024 bins: {d10.mapper.total_bins} total bins")
+    p10 = dict(params, max_bins=1024, num_trees=1)
+    bk, k_launches, _ = train_counted(dt, p10, d10, dev)
+    check_launches(k_launches, {"hist": 9, "perm": 8}, "1024 bins, kernels")
+    ba, a_launches, _ = train_counted(dt, dict(p10, hist_backend="xla"),
+                                      d10, dev)
+    check_launches(a_launches, {}, "1024 bins, arm A1")
+    same_trees(ba, bk, "1024 bins: arm A1 vs the wired kernels")
+    k1 = capture(dt, p10, d10, dev, {"hist": (hist, "hist_tiles")})["hist"]
+    a1 = capture(dt, dict(p10, hist_backend="xla"), d10, dev,
+                 {"a1": (histogram, "build_hist_a1")})["a1"]
+    check(len(k1) == 9 and len(a1) == 9,
+          f"1024 bins: {len(k1)} K1 and {len(a1)} arm A1 passes a tree")
+    (k_args, _), (a_args, a_kw) = k1[-1], a1[-1]
+    level = check_hist(k_args, "hist 1024-bin level", reps)
+    out_a1 = histogram.build_hist_a1(*a_args, **a_kw)
+    check(torch.equal(out_a1, hist.hist_tiles(*k_args)),
+          "1024 bins: arm A1's level pass != K1's")
+    level["a1_ms"] = time_ms(
+        lambda: histogram.build_hist_a1(*a_args, **a_kw), reps)
+    level["a1_rows_per_chunk"] = a_kw["rows_per_chunk"]
+    rep["bins_1024_level"] = level
+    print("1024 bins: arm A1 trees bitwise the wired kernels'; level pass "
+          + json.dumps(brief(level) | {"a1_ms": level["a1_ms"]}),
+          flush=True)
+    del d10, k1, a1, k_args, a_args, out_a1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k_launches, level
+
+
+def _deep_leaves(dt, ds, Xv, dev, params, rep) -> dict:
+    """(e): depth 16 and 65536 leaves on the first rows of phase 2's bins:
+    the unpacked route."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.dataset import Dataset
+    from dryad_tpu_torch.engine import levelwise, predict
+
+    n = min(WIDE_ROWS, ds.num_rows)
+    de = Dataset.from_binned(ds.X_binned[:n], ds.mapper, ds.y[:n])
+    pe = dict(params, max_depth=DEEP_DEPTH, num_leaves=DEEP_LEAVES,
+              num_trees=DEEP_TREES)
+    routed = []
+    real = levelwise.gather_left
+
+    def spy(*args, **kw):
+        routed.append(1)
+        return real(*args, **kw)
+
+    levelwise.gather_left = spy
+    try:
+        be, launches, peak = run_memory(dt, pe, de, dev)
+    finally:
+        levelwise.gather_left = real
+    check(len(routed) == DEEP_DEPTH * DEEP_TREES,
+          f"65536 leaves: the unpacked route ran {len(routed)} levels")
+    n_nat, n_rows = legacy_calls(n, de.num_features, DEEP_DEPTH,
+                                 DEEP_LEAVES)
+    check_launches(launches, {"nat": n_nat * DEEP_TREES,
+                              "hist_rows": n_rows * DEEP_TREES},
+                   "65536 leaves")
+    same_trees(be, dt.train(pe, de, device=dev), "65536 leaves")
+    M = be.params.max_nodes
+    check(not predict.packed_fits(de.num_features, M),
+          "65536 leaves: the model should overflow the packed words")
+    Xvb = ds.mapper.transform(Xv[:DEEP_PREDICT_ROWS])
+    check(np.array_equal(be.predict_binned(Xvb, raw_score=True, device=dev),
+                         be.predict_binned(Xvb, raw_score=True,
+                                           device="cpu")),
+          "65536 leaves: card predict (SoA) != CPU predict")
+    P_full = levelwise.phase_plan(DEEP_DEPTH, DEEP_LEAVES, n_nat > 0)[2]
+    rep["deep"] = dict(
+        tree_summary(be), rows=n, peak_bytes=peak, launches=launches,
+        leaves_per_tree=float((be.arrays["feature"] >= 0).sum(1).mean())
+        + 1,
+        widest_level_slots=P_full,
+        widest_level_hist_bytes=P_full * 3 * de.num_features
+        * de.mapper.total_bins * 8)
+    print("65536 leaves: unpacked route; second run bitwise; card predict "
+          "(SoA) bitwise CPU; " + json.dumps(rep["deep"]), flush=True)
+    del de, be
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_stream(dt, a, ds, Xraw, Xv, yv, dev, report) -> tuple:
+    """Phase 34: out-of-core streamed training and the grower's reach
+    (docstring).  Returns (launches by path, K1's 1024-bin level)."""
+    params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+              "num_trees": a.trees}
+    rep: dict = {}
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    os.makedirs(STREAM_DIR)
+    try:
+        s_launches = _stream_spills(dt, a, ds, Xv, dev, params, rep)
+        _stream_rebuild(ds, Xraw, rep)
+    finally:
+        shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    k_launches, level = _wide_bins(dt, a, Xraw, ds.y, Xv, yv, dev, params,
+                                   a.reps, rep)
+    d_launches = _deep_leaves(dt, ds, Xv, dev, params, rep)
+    report["stream"] = rep
+    return ({"streamed": s_launches, "bins_1024": k_launches,
+             "leaves_65536": d_launches}, level)
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -4077,7 +4450,8 @@ def main() -> int:
     t0 = time.perf_counter()
     X, y = datasets.higgs_like(a.rows + HOLDOUT_ROWS, seed=a.seed)
     ds = dt.Dataset(X[:a.rows], y[:a.rows], max_bins=256)
-    Xv, yv = X[a.rows:], y[a.rows:]
+    # the raw training rows stay for phase 34
+    Xraw, Xv, yv = X[:a.rows], X[a.rows:], y[a.rows:]
     del X
     report["data_seconds"] = time.perf_counter() - t0
     check(ds.num_features == 28 and ds.mapper.total_bins == 256,
@@ -4187,8 +4561,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_launches = phase_distributed(dt, a, ds, Xv, yv, dev, report,
                                       w_trees)
-    del ds, Xv, yv
     mark("33")
+    # ---- 34. streamed training, wide bins, 65536 leaves ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_paths, bins_1024 = phase_stream(dt, a, ds, Xraw, Xv, yv, dev, report)
+    del ds, Xraw, Xv, yv
+    mark("34")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -4205,7 +4584,8 @@ def main() -> int:
                "goss_fixture_legacy": mf_launches["goss"],
                "monotone_fixture_legacy": mf_launches["monotone"],
                "cv": cv_launches, "estimator_covertype": est_launches,
-               "serve_train": sv_launches, "distributed": dist_launches}
+               "serve_train": sv_launches, "distributed": dist_launches,
+               **st_paths}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())
@@ -4227,7 +4607,9 @@ def main() -> int:
                       "criteo_root": brief(ct_root),
                       "criteo_level": brief(ct_level),
                       "goss_root": brief(g_root),
-                      "rf_root": brief(rf_root)}),
+                      "rf_root": brief(rf_root),
+                      "bins_1024_level": brief(bins_1024)
+                      | {"a1_ms": bins_1024["a1_ms"]}}),
         kernel_entry("hist_rows", "dryad_tpu_torch/csrc/hist.cu",
                      "dryad_tpu/engine/pallas_hist.py:140",
                      launches("hist_rows"), paths("hist_rows"), rows,

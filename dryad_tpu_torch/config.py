@@ -80,15 +80,12 @@ _GROWTH_ALIASES = {
     "depth_wise": "depthwise",
 }
 
-# Reference parameters this slice does not run, at the reference's default
-# values.  Given at these values they change nothing and are accepted; any
-# other value raises.
+# Reference parameters the port leaves out by design, at the reference's
+# default values.  Given at these values they change nothing and are
+# accepted; any other value raises.  ``ch_max`` caps the reference's chunked
+# dispatch, a TPU program-length workaround the port does not have.
 _OUTSIDE_SLICE_DEFAULTS: dict[str, Any] = {
-    "hist_backend": "auto",
     "ch_max": 0,
-    "rows_per_chunk": 65536,
-    "deterministic": True,
-    "hist_precision": "exact",
 }
 
 
@@ -171,6 +168,28 @@ class Params:
     # (auto), always (packed: raises on overflow), or structure-of-arrays
     # (legacy)
     predict_layout: str = "auto"
+    # the histogram passes' arm.  "auto" and "pallas" take the kernels (K1,
+    # K3, and the wired layout's K1 and K2) wherever K1 holds the bins
+    # (``hist.MAX_BINS``), and arm A1 past them, as the reference's "auto"
+    # does on its accelerator.  "xla" takes arm A1
+    # (``histogram.build_hist_a1``: plain torch int64 scatter-adds, the
+    # counterpart of the reference's XLA arm) for every pass, and with it
+    # the legacy plan arm, since the wired layout feeds the kernels: the
+    # reference's device-against-device comparison arm.  An explicit
+    # choice, never a fallback; both arms sum one fixed point, so their
+    # histograms agree bit for bit
+    hist_backend: str = "auto"   # auto | xla | pallas
+    # arm A1's row chunk: its scratch is (chunk, F) cells at a time.  The
+    # chunking changes no bit (integer sums); values below 1 count as 1,
+    # as the reference's chunker reads them
+    rows_per_chunk: int = 65536
+    # accepted for the reference's params dicts; the reference never reads
+    # it, and the port is always deterministic (fixed-point integer sums)
+    deterministic: bool = True
+    # "fast" is the reference's single-pass bf16 MXU product.  The port's
+    # fixed-point sums are exact at either value, so "fast" trees equal
+    # "exact" trees: accepted, and changes nothing
+    hist_precision: str = "exact"
 
     @property
     def effective_num_leaves(self) -> int:
@@ -278,6 +297,10 @@ class Params:
             raise ValueError("hist_reduce must be auto|fused|feature")
         if self.predict_layout not in ("auto", "packed", "legacy"):
             raise ValueError("predict_layout must be auto|packed|legacy")
+        if self.hist_backend not in ("auto", "xla", "pallas"):
+            raise ValueError("hist_backend must be auto|xla|pallas")
+        if self.hist_precision not in ("exact", "fast"):
+            raise ValueError("hist_precision must be exact|fast")
         return self
 
     def replace(self, **kw: Any) -> "Params":

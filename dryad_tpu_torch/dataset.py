@@ -6,8 +6,11 @@ optional categorical features, sample weights and, for ranking, query
 groups (``group[i]`` rows in query i, consecutive, the LightGBM
 convention).  CSR ingest folds strictly exclusive sparse columns into
 bundles (EFB, ``bundle=True``).  The binned matrix stays on the host as
-numpy; the trainer uploads it to its device.  Validation sets bin through
-the training set's frozen mapper (``bind``), as predict does.
+numpy; the trainer takes it on its device through ``device_arrays``, which
+uploads once per device and keeps the tensors, so repeated ``train`` calls
+on one Dataset upload once.  Validation sets bin through the training
+set's frozen mapper (``bind``), as predict does.  A Dataset whose bins
+live on disk is a ``data/stream_dataset.StreamedDataset``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from dryad_tpu_torch.data.binning import bin_csr, bin_matrix, column_order
 from dryad_tpu_torch.data.bundling import BundledMapper, plan_bundles
@@ -28,7 +32,18 @@ from dryad_tpu_torch.data.sketch import (
 )
 
 
+def binned_to_device(X_binned: np.ndarray, device) -> torch.Tensor:
+    """u8 bins stay uint8; wider bins travel as int32 (torch's uint16
+    support is thin)."""
+    if X_binned.dtype == np.uint8:
+        return torch.from_numpy(np.ascontiguousarray(X_binned)).to(device)
+    return torch.from_numpy(X_binned.astype(np.int32)).to(device)
+
+
 class Dataset:
+    # the binned matrix lives on disk (``StreamedDataset``)
+    is_streamed = False
+
     def __init__(self, X: Optional[np.ndarray] = None,
                  y: Optional[np.ndarray] = None, *,
                  weight: Optional[np.ndarray] = None,
@@ -85,6 +100,29 @@ class Dataset:
         if self.group is not None and int(self.group.sum()) != self.num_rows:
             raise ValueError("group sizes must sum to num_rows")
         self._has_missing: Optional[bool] = None
+        self._device_cache: dict = {}
+
+    def device_arrays(self, device) -> tuple:
+        """(Xb, y, weight) on ``device``, uploaded once per device and kept
+        (y and weight None when absent).  The arrays are treated as
+        immutable once uploaded: a set whose arrays change is a new
+        Dataset.  The counterpart of the reference's memoized
+        ``device_arrays``."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available to upload the "
+                               "dataset to")
+        key = str(dev)
+        if key not in self._device_cache:
+            self._device_cache[key] = (
+                self._upload_matrix(dev),
+                None if self.y is None else torch.from_numpy(self.y).to(dev),
+                None if self.weight is None
+                else torch.from_numpy(self.weight).to(dev))
+        return self._device_cache[key]
+
+    def _upload_matrix(self, device: torch.device) -> torch.Tensor:
+        return binned_to_device(self.X_binned, device)
 
     @classmethod
     def from_binned(cls, X_binned: np.ndarray, mapper,

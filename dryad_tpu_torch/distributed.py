@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dryad_tpu_torch.data.streaming import keyed_uniform
 from dryad_tpu_torch.engine.distributed import RowGroup, all_gather_host
 
 DEFAULT_TIMEOUT_S = 600
@@ -78,20 +79,6 @@ def host_row_range(num_rows: int, rank: int,
     base, rem = divmod(int(num_rows), int(world_size))
     start = rank * base + min(rank, rem)
     return start, start + base + (1 if rank < rem else 0)
-
-
-def keyed_uniform(row_offset: int, n: int, seed: int) -> np.ndarray:
-    """uniform(0, 1) per row, a pure function of (seed, global row id): a
-    stateless splitmix64 finalizer, so any split of the rows draws the
-    same values.  A copy of ``dryad_tpu/data/streaming.py::
-    _keyed_uniform``, bit for bit."""
-    r = np.arange(row_offset, row_offset + n, dtype=np.uint64)
-    z = r + np.uint64(seed) * np.uint64(0x9E3779B97F4A7C15) + np.uint64(
-        0x9E3779B97F4A7C15)
-    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-    z = z ^ (z >> np.uint64(31))
-    return (z >> np.uint64(11)).astype(np.float64) * (1.0 / (1 << 53))
 
 
 def sketch_distributed(X_local: np.ndarray, total_rows: int,

@@ -13,7 +13,8 @@ row's leaf slot; L slots hold a node id, stats, depth, cached best split
 and histogram; L-1 trips each split the best slot (leaf-wise: the best
 gain; depthwise: the best gain of the shallowest level), the left child
 keeping the slot and the right child taking slot k+1.  The smaller child's
-histogram is one masked pass over every row (K1, row mode, in the tree's
+histogram is one masked pass over every row (K1, row mode, or arm A1
+past K1's bins cap and under ``hist_backend="xla"``, in the tree's
 fixed-point shift) and the larger one is the parent's minus it.  Under a
 process group each pass is all-reduced across ranks ("fused" whatever
 ``hist_reduce`` says, as in the reference: only the level-synchronous
@@ -35,7 +36,7 @@ from dryad_tpu_torch.booster import CAT_WORDS
 from dryad_tpu_torch.config import MAX_FAST_DEPTH, leafwise_fast_supported
 from dryad_tpu_torch.engine import tile_plan
 from dryad_tpu_torch.engine.distributed import global_shift, reducer
-from dryad_tpu_torch.engine.histogram import build_hist, require_kernel_bins
+from dryad_tpu_torch.engine.histogram import a1_rows, build_hist
 from dryad_tpu_torch.engine.ops import drop_set
 from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
 
@@ -170,10 +171,11 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
     depth_cap = p.max_depth if p.max_depth > 0 else L
     dev = Xb.device
     i64, f32 = torch.int64, torch.float32
-    require_kernel_bins(B)
     # one record table and one fixed-point shift per tree: every masked
-    # pass reads the table (K1, row mode) and sums in the shift
-    records = tile_plan.make_records(Xb, g, h)
+    # pass reads the table (K1, row mode), or the bins as they are (arm
+    # A1, in chunks of ``a1`` rows), and sums in the shift
+    a1 = a1_rows(p, B)
+    records = tile_plan.make_records(Xb, g, h) if a1 is None else None
     shift = global_shift(g, h, group, N)
     red = reducer(group, "fused")
     mono = _monotone_array(p, F, dev)
@@ -182,7 +184,7 @@ def grow_tree(params, total_bins: int, Xb: torch.Tensor, g: torch.Tensor,
         # the bag gates histograms only; every row is routed, so the final
         # row_slot gives each row's leaf
         return build_hist(Xb, g, h, mask & bag_mask, B, shift,
-                          records=records, reduce=red)[None]
+                          records=records, reduce=red, a1_rows=a1)[None]
 
     def best(hist, G, H, C, depth, lo, hi):
         allow = (depth < depth_cap) & (C >= 2 * p.min_data_in_leaf)

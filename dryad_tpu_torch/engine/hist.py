@@ -285,36 +285,52 @@ def bin_bytes(raw: torch.Tensor, at: int, f0: int, f1: int,
     return lo | (hi << 8)
 
 
-def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-               h: torch.Tensor, bins_of, P: int, F: int, B: int,
-               shift: torch.Tensor, reduce=None) -> torch.Tensor:
-    """The plain PyTorch histogram, shared by the plain versions of K1 and
-    K3: per row ``leaf`` (n,) in [0, P), live flag ``w`` (n,), weights g
-    and h; ``bins_of(f0, f1)`` gives the (n, f1 - f0) int64 bins of a
-    feature chunk.  g and h are quantised with the tree's ``shift`` as the
-    kernels do; one int64 ``index_add_`` per chunk of (g, h, 1) into flat
-    (leaf, feature, bin) cells, exact in any order on the CPU and the card
-    alike; rows that add nothing go to one sentinel cell, sliced off; then
-    the (P, 3, F, B) int64 sums go through ``finish`` (and ``reduce``)."""
+def add_cells(acc: torch.Tensor, leaf: torch.Tensor, w: torch.Tensor,
+              g: torch.Tensor, h: torch.Tensor, bins_of, F: int, B: int,
+              shift: torch.Tensor) -> torch.Tensor:
+    """Add rows into ``acc`` (P * F * B, 3) int64, the flat (leaf,
+    feature, bin) cells, in place: per row ``leaf`` (n,), live flag ``w``
+    (n,) and weights g and h; ``bins_of(f0, f1)`` gives the (n, f1 - f0)
+    int64 bins of a feature chunk.  A live pair with a bin below B adds
+    rint(g 2^s_g), rint(h 2^s_h) and 1 (``quantize`` with the tree's
+    ``shift``, as the kernels do); every other pair adds zeros to a cell
+    of its own row, so no shared dump cell serialises the card's atomics.
+    One int64 ``index_add_`` per feature chunk, exact in any order on the
+    CPU and the card alike."""
     n = leaf.numel()
     dev = leaf.device
-    dead = P * F * B
-    leaf = leaf.to(torch.int64)
+    P = acc.shape[0] // (F * B)
+    leaf = leaf.to(torch.int64).clamp(0, P - 1)
     vals = torch.stack([quantize(g, shift[0]), quantize(h, shift[1]),
                         torch.ones(n, dtype=torch.int64, device=dev)], -1)
-    vals = torch.where(w[:, None], vals, 0)
-    out = torch.zeros((dead + 1, 3), dtype=torch.int64, device=dev)
     fc = max(1, _PLAIN_CELLS // max(n, 1))
     for f0 in range(0, F, fc):
         f1 = min(F, f0 + fc)
         bins = bins_of(f0, f1)
+        live = w[:, None] & (bins < B)
         cell = ((leaf[:, None] * F + torch.arange(f0, f1, device=dev)) * B
-                + bins)
-        cell = torch.where(w[:, None] & (bins < B), cell, dead)
-        out.index_add_(0, cell.reshape(-1),
-                       vals[:, None, :].expand(-1, f1 - f0, -1).reshape(-1, 3))
-    return finish(out[:dead].view(P, F, B, 3).permute(0, 3, 1, 2)
-                  .contiguous(), shift, reduce)
+                + bins.clamp(max=B - 1))
+        acc.index_add_(0, cell.reshape(-1),
+                       torch.where(live[..., None], vals[:, None, :], 0)
+                       .reshape(-1, 3))
+    return acc
+
+
+def cells_to_hist(acc: torch.Tensor, P: int, F: int, B: int
+                  ) -> torch.Tensor:
+    """``add_cells``' flat cells -> the (P, 3, F, B) int64 sums."""
+    return acc.view(P, F, B, 3).permute(0, 3, 1, 2).contiguous()
+
+
+def plain_sums(leaf: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+               h: torch.Tensor, bins_of, P: int, F: int, B: int,
+               shift: torch.Tensor, reduce=None) -> torch.Tensor:
+    """The plain PyTorch histogram, shared by the plain versions of K1 and
+    K3: ``add_cells`` of the rows (``leaf`` in [0, P)), then the (P, 3, F,
+    B) int64 sums through ``finish`` (and ``reduce``)."""
+    acc = torch.zeros((P * F * B, 3), dtype=torch.int64, device=leaf.device)
+    add_cells(acc, leaf, w, g, h, bins_of, F, B, shift)
+    return finish(cells_to_hist(acc, P, F, B), shift, reduce)
 
 
 def hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize, shift,

@@ -53,14 +53,17 @@ def natural_tiles(Xb: torch.Tensor) -> torch.Tensor:
     return nnf.pad(xb.t(), (0, (-N) % hist.TILE_ROWS)).contiguous()
 
 
-def maybe_natural_tiles(Xb: torch.Tensor, gate_rows: int | None = None
+def maybe_natural_tiles(Xb: torch.Tensor, total_bins: int,
+                        gate_rows: int | None = None
                         ) -> torch.Tensor | None:
-    """``natural_tiles`` when the gate admits the matrix, else None.  The
-    gate reads ``gate_rows`` rows when given (a process group passes its
-    largest rank's, so every rank makes the same choice and runs the same
-    level plan), else the matrix's own."""
+    """``natural_tiles`` when the gate admits the matrix, else None: no
+    natural tiles past the kernels' bins cap (``hist.supports``), as the
+    reference's gate returns none there.  The gate reads ``gate_rows`` rows
+    when given (a process group passes its largest rank's, so every rank
+    makes the same choice and runs the same level plan), else the
+    matrix's own."""
     N, F = Xb.shape
-    if not nat_gate_admits(N if gate_rows is None else int(gate_rows), F,
+    if not hist.supports(total_bins) or not nat_gate_admits(N if gate_rows is None else int(gate_rows), F,
                            bin_itemsize(Xb)):
         return None
     return natural_tiles(Xb)

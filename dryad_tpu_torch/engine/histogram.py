@@ -1,4 +1,4 @@
-"""Histogram passes of the growers, through K1.
+"""Histogram passes of the growers, through K1 or arm A1.
 
 The counterpart of ``dryad_tpu/engine/histogram.py`` on its Pallas arm:
 
@@ -23,8 +23,18 @@ sums the int64 pass across ranks, whole or as this rank's feature slice,
 before its conversion to f32.  A rank without rows still takes part, with
 zero sums.
 
-Bins past ``hist.MAX_BINS`` (1024) raise: the reference histograms those
-on its XLA (non-Pallas) arm, which is a later slice of the port.
+Arm A1 (``build_hist_a1``) is the counterpart of the reference's XLA arm
+(its ``build_hist``, ``build_hist_multi`` and ``build_hist_segmented``
+outside any Pallas kernel): plain torch ops, not a kernel.  The live rows
+(a slot in [0, P)) are selected once; each chunk of ``rows_per_chunk`` of
+them adds its fixed-point int64 g, h and count into
+the flat (slot, feature, bin) cells with one ``index_add_``
+(``hist.add_cells``), and the sums go through ``hist.finish``.  Integer
+adds are order-free, so arm A1 is bit for bit K1 on the same rows, and
+deterministic on the card.  It takes every pass of a config past K1's
+bins cap (``hist.MAX_BINS``, 1024) and every pass under
+``hist_backend="xla"`` (``a1_rows``): the growers pass its row chunk as
+``a1_rows=`` to each entry point, and None for the kernels.
 """
 
 from __future__ import annotations
@@ -34,12 +44,37 @@ import torch
 from dryad_tpu_torch.engine import hist, leafperm, tile_plan
 
 
-def require_kernel_bins(total_bins: int) -> None:
-    if not hist.supports(total_bins):
-        raise NotImplementedError(
-            f"total_bins={total_bins} exceeds the histogram kernels' cap of "
-            f"{hist.MAX_BINS}; the reference histograms such configs on its "
-            "XLA (non-Pallas) arm, which is a later slice of the port")
+def a1_rows(p, total_bins: int) -> int | None:
+    """Arm A1's row chunk when it takes this config's passes, else None
+    (the kernels take them): A1 under ``hist_backend="xla"`` and past
+    K1's bins cap.  Static for a config, so every rank of a group runs
+    one program."""
+    if p.hist_backend == "xla" or not hist.supports(total_bins):
+        return max(1, int(p.rows_per_chunk))
+    return None
+
+
+def build_hist_a1(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                  sel: torch.Tensor, num_cols: int, total_bins: int,
+                  shift: torch.Tensor, *, rows_per_chunk: int,
+                  reduce=None) -> torch.Tensor:
+    """Arm A1 (module doc): (P, 3, F, B) f32 sums of the rows whose ``sel``
+    (N,) is a slot in [0, P); any other ``sel`` drops the row."""
+    N, F = Xb.shape
+    P, B = int(num_cols), int(total_bins)
+    acc = torch.zeros((P * F * B, 3), dtype=torch.int64, device=Xb.device)
+    # the live rows, selected once; dropped rows cost nothing
+    live = ((sel >= 0) & (sel < P)).nonzero().squeeze(1)
+    step = max(1, int(rows_per_chunk))
+    for r0 in range(0, live.numel(), step):
+        idx = live[r0:r0 + step]
+        xs = Xb.index_select(0, idx)
+        hist.add_cells(acc, sel.index_select(0, idx),
+                       torch.ones_like(idx, dtype=torch.bool),
+                       g.index_select(0, idx), h.index_select(0, idx),
+                       lambda f0, f1: xs[:, f0:f1].to(torch.int64), F, B,
+                       shift)
+    return hist.finish(hist.cells_to_hist(acc, P, F, B), shift, reduce)
 
 
 def empty_pass(P: int, F: int, total_bins: int, shift: torch.Tensor,
@@ -55,7 +90,7 @@ def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                mask: torch.Tensor, total_bins: int, shift: torch.Tensor,
                *, layout: torch.Tensor | None = None,
                records: torch.Tensor | None = None,
-               reduce=None) -> torch.Tensor:
+               reduce=None, a1_rows: int | None = None) -> torch.Tensor:
     """Masked per-(feature, bin) sums -> (3, F, B) fp32: grad, hess, count.
 
     ``layout`` may pass the natural-order layout records of exactly these
@@ -63,8 +98,12 @@ def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     with zero rows); ``records`` the tree's record table
     (``tile_plan.make_records(Xb, g, h)``).  A caller that already holds
     either does not build it twice; with neither, the record table is
-    built here.  ``reduce``: the cross-rank hook (module doc)."""
-    require_kernel_bins(total_bins)
+    built here.  ``reduce``: the cross-rank hook (module doc).
+    ``a1_rows``: arm A1 in chunks of this many rows instead of K1."""
+    if a1_rows is not None:
+        return build_hist_a1(Xb, g, h, (~mask).to(torch.int64), 1,
+                             total_bins, shift, rows_per_chunk=a1_rows,
+                             reduce=reduce)[0]
     N, F = Xb.shape
     T = hist.TILE_ROWS
     n_tiles = -(-N // T)
@@ -95,14 +134,18 @@ def build_hist_segmented(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                          records: torch.Tensor | None = None,
                          rows_bound: int | None = None,
                          sel_counts: torch.Tensor | None = None,
-                         reduce=None) -> torch.Tensor:
+                         reduce=None, a1_rows: int | None = None
+                         ) -> torch.Tensor:
     """Histograms of ``num_cols`` slots -> (P, 3, F, B) fp32; ``sel`` (N,)
     in [0, P], P drops the row.  ``records`` is the tree's record table
     (built here when not given); ``rows_bound`` is ``tile_plan``'s.
     ``sel_counts`` (P,), the exact per-slot row counts, switches to the
     aligned plan where it is admissible (the reference's
-    ``build_hist_segmented_pallas``).  ``reduce`` as in ``build_hist``."""
-    require_kernel_bins(total_bins)
+    ``build_hist_segmented_pallas``).  ``reduce`` and ``a1_rows`` as in
+    ``build_hist``."""
+    if a1_rows is not None:
+        return build_hist_a1(Xb, g, h, sel, num_cols, total_bins, shift,
+                             rows_per_chunk=a1_rows, reduce=reduce)
     N, F = Xb.shape
     P = int(num_cols)
     if N == 0:
@@ -123,9 +166,12 @@ def build_hist_multi(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                      sel: torch.Tensor, num_cols: int, total_bins: int,
                      shift: torch.Tensor, *,
                      records: torch.Tensor | None = None,
-                     reduce=None) -> torch.Tensor:
+                     reduce=None, a1_rows: int | None = None
+                     ) -> torch.Tensor:
     """Histograms of ``num_cols`` slots in one pass -> (P, 3, F, B) fp32;
     ``sel`` (N,) in [0, P], P drops the row.  No bound on the selection:
-    the generic plan covers every row.  ``reduce`` as in ``build_hist``."""
+    the generic plan covers every row.  ``reduce`` and ``a1_rows`` as in
+    ``build_hist``."""
     return build_hist_segmented(Xb, g, h, sel, num_cols, total_bins, shift,
-                                records=records, reduce=reduce)
+                                records=records, reduce=reduce,
+                                a1_rows=a1_rows)

@@ -30,7 +30,14 @@ The expansion runs on one of two arms, as the depthwise grower does:
 * legacy plan arm: levels with at most 16 columns read every row once in
   natural order with its slot id (K3, when the bin matrix passes the
   natural-order gate); the others sort the selected rows into a tile plan
-  read from the per-tree record table (K1, row mode).
+  read from the per-tree record table (K1, row mode).  Past K1's bins cap
+  and under ``hist_backend="xla"``, arm A1 (``histogram.build_hist_a1``)
+  takes every pass.
+
+Rows are routed off a packed per-node word (13-bit threshold); past
+``levelwise.MAX_PACKED_BINS`` bins they read their node's split from the
+heap tables instead (``levelwise.gather_left``), as the reference does.
+Heap node ids are not packed, so the leaf budget never forces it.
 
 The reference runs the levels in two ``fori_loop`` phases at a narrow and
 a full width (``phase_plan``) and the selection in a ``fori_loop`` whose
@@ -68,14 +75,16 @@ from dryad_tpu_torch.engine.grower import (
     finish_cat_fields,
     root_stats,
 )
+from dryad_tpu_torch.engine import levelwise
 from dryad_tpu_torch.engine.histogram import (
+    a1_rows,
     build_hist,
     build_hist_segmented,
-    require_kernel_bins,
 )
 from dryad_tpu_torch.engine.levelwise import (
     cat_lookup,
     deep_layout_supported,
+    gather_left,
     packed_route,
 )
 from dryad_tpu_torch.engine.ops import drop_set
@@ -130,7 +139,6 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     if not p.hist_subtraction:
         raise ValueError("the batched leaf-wise grower derives the larger "
                          "children by subtraction (hist_subtraction=True)")
-    require_kernel_bins(B)
     HN = 1 << (D + 1)                 # heap slots (1-based; 0 unused)
     Pf = 1 << (D - 1)                 # widest expansion level
     NR = 1 << D                       # run capacity of the wired layout
@@ -138,6 +146,9 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     isz = leafperm.bin_itemsize(Xb)
     i64, f32 = torch.int64, torch.float32
     use_layout = leafwise_layout_supported(p, F, B, isz)
+    # arm A1's row chunk, None where the kernels take the passes
+    a1 = a1_rows(p, B)
+    packed = B <= levelwise.MAX_PACKED_BINS
     # one fixed-point shift per tree: every histogram of the tree (root,
     # every level, either arm, any kernel) sums in it
     shift = _dist.global_shift(g, h, group, N)
@@ -186,11 +197,13 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
                            reduce=red_root)
         records = nat_tiles = None
     else:
-        records = tile_plan.make_records(Xb, g, h)
-        nat_tiles = hist_nat.maybe_natural_tiles(
-            Xb, N if group is None else group.max_rank_rows)
+        records = nat_tiles = None
+        if a1 is None:
+            records = tile_plan.make_records(Xb, g, h)
+            nat_tiles = hist_nat.maybe_natural_tiles(
+                Xb, B, N if group is None else group.max_rank_rows)
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
-                           reduce=red_root)
+                           reduce=red_root, a1_rows=a1)
     G0, H0, C0 = root_stats(hist0)
 
     # ---- heap-node tables (index = heap id; unwritten nodes keep these) --
@@ -245,19 +258,28 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         # node with a finite gain at its level, so a row can only sit at
         # such a node while that node is at the current level: the valid
         # bit needs no level check.
-        w0_t = (((nd_gain > NEG_INF).to(i64) << 31)
-                | (nd_dleft.to(i64) << 30)
-                | (torch.clamp(nd_thresh, 0, B - 1) << 16))
-        if is_cat_feat is not None:
-            w0_t |= is_cat_feat[torch.clamp(nd_feature, min=0)].to(i64) << 29
-        rec_t = torch.cat([w0_t | (torch.clamp(nd_feature, min=0) << 32),
-                           torch.zeros(1, dtype=i64, device=dev)])
         catmask = None if is_cat_feat is None else nd_catmask
-        do_n, left_n, _ = packed_route(
-            rec_t[row_node],
-            lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
-            learn_missing,
-            None if catmask is None else cat_lookup(catmask, row_node))
+        if packed:
+            w0_t = (((nd_gain > NEG_INF).to(i64) << 31)
+                    | (nd_dleft.to(i64) << 30)
+                    | (torch.clamp(nd_thresh, 0, B - 1) << 16))
+            if is_cat_feat is not None:
+                w0_t |= (is_cat_feat[torch.clamp(nd_feature, min=0)]
+                         .to(i64) << 29)
+            rec_t = torch.cat([w0_t | (torch.clamp(nd_feature, min=0) << 32),
+                               torch.zeros(1, dtype=i64, device=dev)])
+            do_n, left_n, _ = packed_route(
+                rec_t[row_node],
+                lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
+                learn_missing,
+                None if catmask is None else cat_lookup(catmask, row_node))
+        else:
+            # unpacked: the heap tables by node, the row's bin gathered at
+            # its node's feature
+            do_n = (nd_gain > NEG_INF)[row_node]
+            left_n = gather_left(Xb, row_node, nd_feature, nd_thresh,
+                                 nd_dleft, learn_missing, is_cat_feat,
+                                 catmask)
         row_node = torch.where(do_n, 2 * row_node + (~left_n).to(i64),
                                row_node)
 
@@ -270,7 +292,7 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
         else:
             hist_small = _legacy_level(
                 Xb, g, h, bag_mask, records, nat_tiles, row_node, idx, jarr,
-                do, ls, CL, CR, P, HN, B, half_ok, shift, red)
+                do, ls, CL, CR, P, HN, B, half_ok, shift, red, a1)
         hist_large = torch.index_select(
             hists, 0, torch.clamp(jarr, max=Pf - 1)) - hist_small
         ls4 = ls[:, None, None, None]
@@ -398,11 +420,12 @@ def _wired_level(lay_rec, lay_tr, lay_ns, rec_t, idx, do, ls, P, HN, NR, B,
 
 def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
                   jarr, do, ls, CL, CR, P, HN, B, half_ok, shift,
-                  reduce=None):
+                  reduce=None, a1=None):
     """One legacy expansion level: the smaller children's rows are picked
     off the routed natural-order ``row_node`` and histogrammed by K3 when
     it is live and holds P columns, else through a sorted tile plan (K1,
-    row mode).  Out-of-bag rows are routed but never summed."""
+    row mode), or by arm A1 in chunks of ``a1`` rows when given (no
+    natural tiles then).  Out-of-bag rows are routed but never summed."""
     N, F = Xb.shape
     small_heap = 2 * idx + (~ls).to(torch.int64)
     colof = drop_set(
@@ -420,7 +443,7 @@ def _legacy_level(Xb, g, h, bag_mask, records, nat_tiles, row_node, idx,
     return build_hist_segmented(
         Xb, g, h, smallsel, P, B, shift, records=records,
         rows_bound=(N // 2 + 1) if half_ok else None, sel_counts=small_cnt,
-        reduce=reduce)
+        reduce=reduce, a1_rows=a1)
 
 
 def select_tree(L: int, M: int, HN: int, nd_gain, nd_feature, nd_thresh,

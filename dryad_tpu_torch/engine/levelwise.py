@@ -15,7 +15,16 @@ from the parent.  The two arms differ in how the smaller children are read:
   once in natural order with its slot id (K3, when the bin matrix passes
   ``hist_nat.nat_gate_admits``); the other levels sort the selected rows
   into a tile plan and read them from a per-tree record table of any
-  width (K1, row mode).
+  width (K1, row mode).  Past K1's bins cap (1024), and for every pass
+  under ``hist_backend="xla"``, arm A1 (``histogram.build_hist_a1``, plain
+  torch) takes the root and every level instead.
+
+Each level routes the rows off a packed per-slot word (``packed_route``:
+a 13-bit threshold and a 16-bit slot).  Past those widths (bins above
+``MAX_PACKED_BINS`` or leaf budgets of ``MAX_PACKED_LEAVES`` and more) the
+rows read their slot's split from per-slot tables instead
+(``gather_left``), the reference's gather formulation; the choice is
+static for a config.
 
 Under monotone constraints each slot carries its output bounds
 (``grower.child_bounds``), which bound its split scan and clamp its leaf
@@ -59,10 +68,10 @@ from dryad_tpu_torch.engine.grower import (
     root_stats,
 )
 from dryad_tpu_torch.engine.histogram import (
+    a1_rows,
     build_hist,
     build_hist_multi,
     build_hist_segmented,
-    require_kernel_bins,
 )
 from dryad_tpu_torch.engine.ops import drop_set
 from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
@@ -82,8 +91,10 @@ def deep_layout_supported(p, num_features: int, total_bins: int,
     """Static gate for the wired grower: a pure function of params and the
     feature/bin shape, never of the row count.  Its verdicts are the
     reference's on its Pallas arm; what it refuses, the legacy plan arm
-    takes."""
-    if p.deep_layout == "legacy" or not _hist.supports(total_bins):
+    takes.  A non-kernel backend (``hist_backend="xla"``) is refused: the
+    layout feeds the kernels."""
+    if (p.deep_layout == "legacy" or p.hist_backend == "xla"
+            or not _hist.supports(total_bins)):
         return False
     L = p.effective_num_leaves
     if not (total_bins <= MAX_PACKED_BINS and L < MAX_PACKED_LEAVES):
@@ -137,6 +148,24 @@ def cat_lookup(catmask: torch.Tensor, node: torch.Tensor):
     return lambda bins: flat[node * B + torch.clamp(bins, max=B - 1)]
 
 
+def gather_left(Xb: torch.Tensor, node: torch.Tensor, feature, threshold,
+                dleft, learn_missing: bool, is_cat_feat=None, catmask=None):
+    """The unpacked routing, for shapes past the packed word: each row
+    reads its node's split (``feature``, ``threshold``, ``dleft`` and, with
+    categorical features, ``catmask``, all indexed by ``node`` (N,)) and
+    its own bin at that feature.  Returns goes-left?, the reference's
+    gather formulation."""
+    rf = torch.clamp(feature[node], min=0)
+    bins = Xb.gather(1, rf[:, None])[:, 0].to(torch.int64)
+    gl = bins <= threshold[node]
+    if learn_missing:
+        gl &= dleft[node] | (bins > 0)
+    if is_cat_feat is not None:
+        gl = torch.where(is_cat_feat[rf], cat_lookup(catmask, node)(bins),
+                         gl)
+    return gl
+
+
 def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
                         g: torch.Tensor, h: torch.Tensor,
                         bag_mask: torch.Tensor, feat_mask: torch.Tensor, *,
@@ -152,13 +181,10 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     isz = leafperm.bin_itemsize(Xb)
     if depth_cap <= 0:
         raise ValueError("levelwise growth requires max_depth > 0")
-    require_kernel_bins(B)
-    if L >= MAX_PACKED_LEAVES:
-        raise NotImplementedError(
-            f"num_leaves={L} overflows the packed routing word's 16-bit slot; "
-            "the reference's unpacked routing for such budgets is a later "
-            "slice of the port")
     use_layout = deep_layout_supported(p, F, B, isz)
+    # arm A1's row chunk, None where the kernels take the passes
+    a1 = a1_rows(p, B)
+    packed = B <= MAX_PACKED_BINS and L < MAX_PACKED_LEAVES
     i64, f32 = torch.int64, torch.float32
     # one fixed-point shift per tree, kept on the device: every histogram
     # of the tree (root, every level, either arm, either kernel) sums in it
@@ -205,12 +231,15 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     else:
         # ---- legacy: one record table per tree (g/h change per tree) and
         # the natural-order tiles for the shallow levels, where admitted
-        # (the gate reads the largest rank's rows, so every rank agrees)
-        records = tile_plan.make_records(Xb, g, h)
-        nat_tiles = hist_nat.maybe_natural_tiles(
-            Xb, N if group is None else group.max_rank_rows)
+        # (the gate reads the largest rank's rows, so every rank agrees);
+        # arm A1 reads the bins as they are
+        records = nat_tiles = None
+        if a1 is None:
+            records = tile_plan.make_records(Xb, g, h)
+            nat_tiles = hist_nat.maybe_natural_tiles(
+                Xb, B, N if group is None else group.max_rank_rows)
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
-                           reduce=red_root)
+                           reduce=red_root, a1_rows=a1)
     G0, H0, C0 = root_stats(hist0)
     if mono is not None:
         # per-slot monotone output bounds, unbounded at the root
@@ -311,26 +340,42 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         cover = drop_set(cover, torch.where(do, left_id, M), CL)
         cover = drop_set(cover, torch.where(do, right_id, M), CR)
 
-        # ---- packed per-slot routing table (L+1,): w0 | feature << 32 -----
-        w0_c = ((1 << 31) | (sp["default_left"][sj].to(i64) << 30)
-                | (torch.clamp(thr, 0, B - 1) << 16) | right_slot)
-        if is_cat_feat is not None:
-            w0_c |= is_cat_feat[torch.clamp(sf, min=0)].to(i64) << 29
-        rec_t = drop_set(
-            torch.zeros(L + 1, dtype=i64, device=dev),
-            torch.where(do, sj, L + 1),
-            w0_c | (torch.clamp(sf, min=0) << 32))
-
         # natural-order routing of every row (each row's final leaf; the
         # legacy arm's histogram selection reads it too)
         rs = torch.clamp(row_slot, max=L - 1)
-        cat_of = (None if is_cat_feat is None
-                  else cat_lookup(sp["cat_mask"], rs))
-        do_n, left_n, w0r = packed_route(
-            rec_t[rs], lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
-            learn_missing, cat_of)
-        row_do = do_n & (row_slot < L)
-        row_slot = torch.where(row_do & ~left_n, w0r & 0xFFFF, row_slot)
+        if packed:
+            # ---- packed per-slot routing table (L+1,): w0 | feature << 32
+            w0_c = ((1 << 31) | (sp["default_left"][sj].to(i64) << 30)
+                    | (torch.clamp(thr, 0, B - 1) << 16) | right_slot)
+            if is_cat_feat is not None:
+                w0_c |= is_cat_feat[torch.clamp(sf, min=0)].to(i64) << 29
+            rec_t = drop_set(
+                torch.zeros(L + 1, dtype=i64, device=dev),
+                torch.where(do, sj, L + 1),
+                w0_c | (torch.clamp(sf, min=0) << 32))
+            cat_of = (None if is_cat_feat is None
+                      else cat_lookup(sp["cat_mask"], rs))
+            do_n, left_n, w0r = packed_route(
+                rec_t[rs],
+                lambda rf: Xb.gather(1, rf[:, None])[:, 0].to(i64),
+                learn_missing, cat_of)
+            row_do = do_n & (row_slot < L)
+            row_slot = torch.where(row_do & ~left_n, w0r & 0xFFFF,
+                                   row_slot)
+        else:
+            # ---- unpacked: (L,) split flags and right slots by slot, the
+            # row's bin gathered at its slot's feature
+            tgt = torch.where(do, sj, L)
+            slot_do = drop_set(torch.zeros(L, dtype=torch.bool, device=dev),
+                               tgt, torch.ones_like(do))
+            slot_right = drop_set(torch.full((L,), L, dtype=i64, device=dev),
+                                  tgt, right_slot)
+            row_do = slot_do[rs] & (row_slot < L)
+            left_n = gather_left(Xb, rs, sp["feature"], sp["threshold"],
+                                 sp["default_left"], learn_missing,
+                                 is_cat_feat, sp["cat_mask"])
+            row_slot = torch.where(row_do & ~left_n, slot_right[rs],
+                                   row_slot)
 
         ls = CL <= CR
         if use_layout:
@@ -342,7 +387,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
             hist_l, hist_r = _legacy_level(
                 p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
                 right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift,
-                red)
+                red, a1)
         hists[torch.where(do, sj, L)] = hist_l
         hists[torch.where(do, right_slot, L)] = hist_r
 
@@ -477,13 +522,14 @@ def _wired_level(p, lay_rec, lay_tr, lay_rs, rec_t, sj, do, ls, hists, P, L,
 
 def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
                   right_slot, do, ls, CL, CR, hists, P, L, B, half_ok, shift,
-                  reduce=None):
+                  reduce=None, a1=None):
     """One legacy level (the reference's plan arm): the smaller children's
     rows are selected off the natural-order ``row_slot`` (already routed
     to this level's children) and histogrammed by the natural-order pass
     (K3) when it is live and holds P slots, else through a sorted tile
-    plan (K1, row mode).  The larger children come by subtraction, or by
-    their own pass when ``hist_subtraction`` is off."""
+    plan (K1, row mode), or by arm A1 in chunks of ``a1`` rows when given
+    (no natural tiles then).  The larger children come by subtraction, or by their own pass when
+    ``hist_subtraction`` is off."""
     N, F = Xb.shape
     dev = Xb.device
     i64 = torch.int64
@@ -507,7 +553,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         hist_small = build_hist_segmented(
             Xb, g, h, smallsel, P, B, shift, records=records,
             rows_bound=(N // 2 + 1) if half_ok else None,
-            sel_counts=small_cnt, reduce=reduce)
+            sel_counts=small_cnt, reduce=reduce, a1_rows=a1)
     if p.hist_subtraction:
         hist_large = torch.index_select(hists, 0, sj) - hist_small
     else:
@@ -516,7 +562,7 @@ def _legacy_level(p, Xb, g, h, bag_mask, records, nat_tiles, row_slot, sj,
         hist_large = build_hist_multi(
             Xb, g, h,
             torch.where(bag_mask, largesel[torch.clamp(row_slot, max=L)], P),
-            P, B, shift, records=records, reduce=reduce)
+            P, B, shift, records=records, reduce=reduce, a1_rows=a1)
     ls4 = ls[:, None, None, None]
     return (torch.where(ls4, hist_small, hist_large),
             torch.where(ls4, hist_large, hist_small))

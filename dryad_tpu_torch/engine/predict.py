@@ -376,7 +376,7 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
     """Raw scores (N, K) float32 of pre-binned rows (K = the booster's
     outputs), computed on ``device``; an rf model's are averaged
     (``rf_average``, on the host)."""
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
 
     table, value, bitset, init, n_iter = stage_trees(booster, num_iteration)
     raw = accumulate(table_to(table, device),
@@ -396,7 +396,7 @@ def predict_leaves(booster, Xb: np.ndarray, *, device: torch.device,
     """(N, T) int32 leaf node ids of pre-binned rows in the first T =
     n_iter * K trees (``pred_leaf``; the ``num_iteration`` and
     ``best_iteration`` rule of the scores), traversed on ``device``."""
-    from dryad_tpu_torch.engine.train import binned_to_device
+    from dryad_tpu_torch.dataset import binned_to_device
 
     table, _, bitset, _, _ = stage_trees(booster, num_iteration)
     table = table_to(table, device)

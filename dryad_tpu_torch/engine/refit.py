@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dryad_tpu_torch.dataset import binned_to_device
 from dryad_tpu_torch.engine.hist import fixed_point_shift, pow2, quantize
 from dryad_tpu_torch.engine.predict import (
     stage_trees,
@@ -37,11 +38,7 @@ from dryad_tpu_torch.engine.predict import (
     table_to,
     tree_leaves,
 )
-from dryad_tpu_torch.engine.train import (
-    binned_to_device,
-    class_grads,
-    renew_values,
-)
+from dryad_tpu_torch.engine.train import class_grads, renew_values
 from dryad_tpu_torch.objectives import get_objective, renew_alpha
 
 

@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dryad_tpu_torch.engine.train import binned_to_device
+from dryad_tpu_torch.dataset import binned_to_device
 
 
 def node_decisions(tree: dict, Xb: torch.Tensor,

@@ -23,6 +23,12 @@ books -> callback -> checkpoint when due.
 Iteration counts (``best_iteration``, ``eval_period``, checkpoints,
 ``num_iteration``) count iterations; the tree tables count trees.
 
+The binned matrix, labels and weights come from ``Dataset.device_arrays``
+(one upload per set and device; a ``StreamedDataset`` assembles the
+matrix chunk by chunk from disk), so streamed and resident training run
+one program on one tensor and agree bit for bit.  A streamed valid set
+raises: ``materialize()`` it.
+
 Evals stay on the device when nothing needs their value mid-run (no early
 stopping, no callback, no evaluator that scores on the host): they are
 fetched in bulk before each due checkpoint and at the end.  Otherwise
@@ -87,14 +93,6 @@ from dryad_tpu_torch.objectives import get_objective, renew_alpha
 
 TREE_KEYS = ("feature", "threshold", "left", "right", "value", "gain",
              "default_left", "cover", "is_cat", "cat_bitset")
-
-
-def binned_to_device(X_binned: np.ndarray, device) -> torch.Tensor:
-    """u8 bins stay uint8; wider bins travel as int32 (torch's uint16
-    support is thin)."""
-    if X_binned.dtype == np.uint8:
-        return torch.from_numpy(np.ascontiguousarray(X_binned)).to(device)
-    return torch.from_numpy(X_binned.astype(np.int32)).to(device)
 
 
 def feature_kinds(mapper, learn_missing: bool, device):
@@ -163,6 +161,11 @@ def renew_values(value: torch.Tensor, feature: torch.Tensor,
 def check_group_supported(p: Params, data: Dataset) -> None:
     """Refuse under a process group what needs cross-rank work beyond the
     histogram reduction (ROADMAP M12b)."""
+    if data.is_streamed:
+        raise ValueError(
+            "streamed datasets cannot train over a process group yet: each "
+            "rank would assemble its rows from its own file (ROADMAP "
+            "M12b); materialize() the rank's rows or train one process")
     why = None
     if p.boosting == "goss":
         why = "GOSS (a global top-k of |g|)"
@@ -234,6 +237,13 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     B = data.mapper.total_bins
     if group is not None:
         check_group_supported(p, data)
+    valids = normalize_valids(valid)
+    for vname, vds in valids:
+        if getattr(vds, "is_streamed", False):
+            raise ValueError(
+                f"valid set {vname!r} is streamed: the device eval scores "
+                "the resident matrix, so materialize() it (valid sets are "
+                "small beside the training set)")
     n_all = N if group is None else group.global_rows
     # the max_depth=-1 policy of leaf-wise growth, as the reference applies
     # it; the booster keeps the effective params
@@ -252,10 +262,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             raise ValueError("new num_trees must cover the init_booster's "
                              "iterations")
         check_rf_continuation(prev.params, p)
-    Xb = binned_to_device(data.X_binned, device)
-    y = torch.from_numpy(data.y).to(device)
-    weight = (None if data.weight is None
-              else torch.from_numpy(data.weight).to(device))
+    # uploaded once per Dataset and device; a StreamedDataset assembles it
+    # chunk by chunk from disk
+    Xb, y, weight = data.device_arrays(device)
     y_all, w_all = data.y, data.weight
     if group is not None:
         # every rank's labels and weights in rank order: the single
@@ -326,7 +335,6 @@ def train_device(params: Params, data: Dataset, valid=None, *,
 
     # ---- valid sets: scored on the device, the first drives early
     # stopping ---------------------------------------------------------------
-    valids = normalize_valids(valid)
     evaluators = [make_evaluator(p.objective, p.metric, vds, device, K,
                                  p.ndcg_at) for _, vds in valids]
     # a host-scored eval fetches the scores anyway: nothing to defer
@@ -339,7 +347,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         # resume keeps the prior segment's deferred history
         eval_history = {k: list(v) for k, v in
                         init_booster.train_state["eval_history"].items()}
-    vXbs = [binned_to_device(v.X_binned, device) for _, v in valids]
+    vXbs = [v.device_arrays(device)[0] for _, v in valids]
     if replay is None:
         vscores = [init_t.reshape(1, K).expand(v.num_rows, K).clone()
                    for _, v in valids]

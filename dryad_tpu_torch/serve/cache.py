@@ -73,7 +73,7 @@ def bucket_rows(n: int, min_bucket: int = 8,
 
 def device_bins(Xb: np.ndarray) -> np.ndarray:
     """Binned rows in the dtype the device tensors hold (uint8 stays,
-    wider bins become int32, as ``train.binned_to_device`` uploads
+    wider bins become int32, as ``dataset.binned_to_device`` uploads
     them)."""
     return Xb if Xb.dtype == np.uint8 else Xb.astype(np.int32)
 

@@ -26,7 +26,10 @@ evictions and unloads lowering ``torch.cuda.memory_allocated``; K1 (both
 modes) and K3 through the accumulate-only launch (``reduce=``, what a
 process group's reduction runs between launch and conversion) bitwise
 the full launch; two gloo ranks sharing the card grow bitwise the trees
-of one process, on both reduction arms.
+of one process, on both reduction arms; a streamed set's chunk by chunk
+device assembly and its trees bitwise the resident set's; arm A1 on the
+card bitwise the CPU and K1; the unpacked routing on the card as the
+other card-vs-CPU tree tests.
 """
 
 import numpy as np
@@ -742,3 +745,94 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda_device,
                 if isinstance(v, np.ndarray):
                     np.testing.assert_array_equal(out[name][k], v,
                                                   err_msg=f"{name} {k}")
+
+
+@pytest.mark.cuda
+def test_streamed_training_on_card_equals_resident(cuda_device, tmp_path):
+    """A spilled 60k-row set at two ragged chunkings: its device matrix,
+    assembled chunk by chunk through pinned buffers on a side stream, is
+    the resident upload bit for bit, and its trees equal a resident run's
+    on the card bit for bit (every array); the upload is memoized."""
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.data.stream_dataset import StreamedDataset
+
+    X, y = datasets.higgs_like(60_000, seed=7)
+    ds = Dataset(X, y, max_bins=64)
+    params = dict(objective="binary", growth="depthwise", max_depth=6,
+                  num_leaves=40, max_bins=64, num_trees=3)
+    ref = dt.train(params, ds, device=cuda_device).tree_arrays()
+    want = ds.device_arrays(cuda_device)[0]
+    for chunk_rows in (7_001, 25_000):
+        sds = StreamedDataset.from_dataset(
+            ds, str(tmp_path / f"{chunk_rows}.bins"), chunk_rows=chunk_rows)
+        got = sds.device_arrays(cuda_device)[0]
+        assert got.is_cuda and torch.equal(got.cpu(), want.cpu())
+        assert sds.device_arrays(cuda_device)[0] is got
+        out = dt.train(params, sds, device=cuda_device).tree_arrays()
+        for k, v in ref.items():
+            np.testing.assert_array_equal(out[k], v, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 2048])
+def test_arm_a1_on_card_matches_cpu(cuda_device, B):
+    """Arm A1 (plain torch int64 scatter-adds) on the card equals the CPU
+    bit for bit, root and segmented passes, and equals K1 on the card at
+    256 bins (the same fixed-point sums)."""
+    from dryad_tpu_torch.engine import histogram
+
+    rng = np.random.default_rng(B)
+    N, F, P = 50_000, 7, 6
+    Xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(
+        np.uint8 if B <= 256 else np.int32))
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.25, N).astype(np.float32))
+    sel = torch.from_numpy(rng.integers(0, P + 1, N))
+    shift = hist.fixed_point_shift(g, h)
+    cpu = histogram.build_hist_a1(Xb, g, h, sel, P, B, shift,
+                                  rows_per_chunk=4096)
+    dev = [t.to(cuda_device) for t in (Xb, g, h, sel, shift)]
+    card = histogram.build_hist_a1(*dev[:4], P, B, dev[4],
+                                   rows_per_chunk=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), cpu)
+    if B <= hist.MAX_BINS:
+        k1 = histogram.build_hist_segmented(*dev[:4], P, B, dev[4])
+        assert torch.equal(k1.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [{"MAX_PACKED_LEAVES": 8},
+                                    {"MAX_PACKED_BINS": 16}])
+def test_unpacked_route_on_card_matches_cpu(cuda_device, forced,
+                                            monkeypatch):
+    """The unpacked routing, forced at a small leaf budget or bin count
+    (either forces the legacy arm: K3 and K1 row mode on the card): card
+    trees equal the CPU's, integer arrays and row_leaf equal, values
+    within 1e-4."""
+    from dryad_tpu_torch.engine import levelwise
+
+    for name, value in forced.items():
+        monkeypatch.setattr(levelwise, name, value)
+    rng = np.random.default_rng(11)
+    N, F, B = 40_000, 6, 32
+    Xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.uint8))
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.25, N).astype(np.float32))
+    p = Params(growth="depthwise", max_depth=5, num_leaves=24, max_bins=B,
+               min_data_in_leaf=10)
+    seen = []
+    real = levelwise.gather_left
+    monkeypatch.setattr(levelwise, "gather_left",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    args = (torch.ones(N, dtype=torch.bool), torch.ones(F, dtype=torch.bool))
+    cpu = grow_tree_levelwise(p, B, Xb, g, h, *args)
+    card = grow_tree_levelwise(
+        p, B, *(t.to(cuda_device) for t in (Xb, g, h)),
+        *(t.to(cuda_device) for t in args))
+    assert seen
+    for k in ("feature", "threshold", "left", "right", "default_left",
+              "row_leaf"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    np.testing.assert_allclose(card["value"].cpu().numpy(),
+                               cpu["value"].numpy(), atol=1e-4)

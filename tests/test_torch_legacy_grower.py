@@ -137,10 +137,30 @@ def test_legacy_root_reads_the_record_table(monkeypatch):
     assert int(tree["max_depth"]) == 3
 
 
-def test_bins_past_the_kernel_cap_raise():
+def test_bins_past_the_kernel_cap_raise(monkeypatch):
+    """Past K1's bins cap the kernels' wrappers raise, and the grower does
+    not call them: it takes arm A1 (no record table, no K1 pass) and
+    grows the tree."""
+    from dryad_tpu_torch.engine import hist
+
+    B, F, N = 1500, 3, 600
     p = TParams(growth="depthwise", max_depth=3, num_leaves=8, max_bins=2000)
-    Xb = torch.zeros((600, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="XLA"):
-        tlw.grow_tree_levelwise(
-            p, 1500, Xb, torch.zeros(600), torch.ones(600),
-            torch.ones(600, dtype=torch.bool), torch.ones(3, dtype=torch.bool))
+    rng = np.random.default_rng(3)
+    Xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    h = torch.ones(N)
+    recs = tile_plan.make_records(Xb, g, h)
+    shift = hist.fixed_point_shift(g, h)
+    with pytest.raises(ValueError, match="1024"):
+        hist.hist_rows(recs, torch.arange(hist.TILE_ROWS * 2),
+                       torch.zeros(2, dtype=torch.int64), 1, B, F, 2, shift)
+
+    def refuse(*a, **k):
+        raise AssertionError("a K1 pass past the bins cap")
+
+    monkeypatch.setattr(tile_plan, "make_records", refuse)
+    monkeypatch.setattr(hist, "hist_rows", refuse)
+    tree = tlw.grow_tree_levelwise(
+        p, B, Xb, g, h, torch.ones(N, dtype=torch.bool),
+        torch.ones(F, dtype=torch.bool))
+    assert int(tree["max_depth"]) == 3
