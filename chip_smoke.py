@@ -115,7 +115,7 @@ Phases (any failed check exits non-zero):
 20. MSLR-WEB30K LambdaMART (``mslr_like(18,919 + 6,306 queries, (5, 234)
    documents, 136 features, seed=17)``: the train queries of one fold and
    the next 6,306 as the valid set; the acceptance config: leaf-wise, 31
-   leaves, max_depth 10, 50 trees cut to 25, 256 bins, NDCG@10 every
+   leaves, max_depth 10, 50 trees cut to 15, 256 bins, NDCG@10 every
    iteration).
    145-byte records refuse the wired layout, so the batched grower's
    legacy arm: on a capture tree K3 (level 3, P=8) and K1 row mode (root
@@ -287,6 +287,34 @@ Phases (any failed check exits non-zero):
    a second run bitwise, card predict of 200k held-out rows on the SoA
    arm bitwise CPU; ms a tree, peak memory and the widest level's
    histogram bytes.
+
+35. the rest of distribution, last: two gloo ranks sharing the card (the
+   rank processes of phase 33, ``rank_main``, one set each at a time,
+   written to the git-ignored ``_dist_modes/`` and removed after), each
+   run against one process without a group on all the rows: trees, eval
+   history and best iteration bitwise, the launches of its path by the
+   largest rank's rows, trees/s beside one process's, and the bytes,
+   device ms and host ms each collective purpose adds a tree (GOSS's
+   radix rounds, the renewal's gathers, lambdarank's padded width, the
+   mapper digests) with the run's ``comm_stats``: (a) GOSS (rates 0.2 and
+   0.1) at the headline config on phase 2's rows, 5 trees, the 1M
+   held-out rows as the valid set, on both arms; (b) lambdarank on phase
+   20's MSLR sets (18,919 training queries, 136 features, leaf-wise 31
+   leaves, depth 10, 3 trees), split at query boundaries
+   (``query_row_range``), NDCG@10 on the valid queries; (c) l1 and
+   quantile (alpha 0.9) on phase 16's Epsilon matrix at full width (2000
+   features, 256 bins, depth 6, 63 leaves, the feature arm), its rows cut
+   to 100k (``REST_EPS_ROWS``) for the script's time, 3 trees each, the
+   held-out rows as the valid set; (d) phase 23's 50k-row Criteo CSR
+   fixture (39 features, 26 categorical) and its bundled EFB fixture,
+   each rank binning its CSR rows through the one mapper, 5 trees each;
+   then this process as one NCCL rank trains (a) fused and (c) l1; (e)
+   phase 32's 500-tree model predicts the 1M held-out rows split over
+   ``[cuda:0, cuda:0]`` and over every visible card, bitwise the
+   single-device predict; a cache whose sharded family splits each
+   4096-row bucket over ``[cuda:0, cuda:0]`` (two CUDA graphs) serves 16
+   buckets bitwise the unsharded cache with no new entry; each path's
+   ms and launches a call.
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
@@ -1991,7 +2019,7 @@ def phase_covertype_fixture(dt, a, dev, report) -> tuple:
 # script's time), 256 bins, NDCG@10 of the valid set every iteration.  MSLR-WEB30K holds 31,531 queries of ~120
 # documents, 136 features, relevance 0-4; a fold trains on 3/5 of its
 # queries (18,919) and validates on 1/5 (6,306)
-MSLR = {"objective": "lambdarank", "num_trees": 25, "num_leaves": 31,
+MSLR = {"objective": "lambdarank", "num_trees": 15, "num_leaves": 31,
         "max_depth": 10, "max_bins": 256}
 MSLR_TRAIN_QUERIES = 18_919
 MSLR_VALID_QUERIES = 6_306
@@ -2166,7 +2194,7 @@ def phase_mslr(dt, a, dev, report) -> tuple:
     del calls
     torch.cuda.empty_cache()
 
-    # the main path: 25 trees, the valid set's NDCG@10 every iteration
+    # the main path: 15 trees, the valid set's NDCG@10 every iteration
     kept, restore = spy_valid_scores(engine_train, 1)
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2250,7 +2278,10 @@ def phase_mslr(dt, a, dev, report) -> tuple:
     print("mslr train: " + json.dumps(rep), flush=True)
     rep.update(nat_level=nat, rows_root=root, rows_level=rows)
     report["mslr"] = rep
-    return launches, nat, root, rows
+    # phase 35 trains on the same sets, kept on the host
+    ds._device_cache.clear()
+    dv._device_cache.clear()
+    return launches, nat, root, rows, (ds, dv)
 
 
 ROBUST = ("l1", "huber", "fair", "quantile", "poisson")
@@ -2375,7 +2406,8 @@ def phase_robust(dt, a, eds, Xv_b, yv, dev, report) -> tuple:
             # tree 1's renewed leaves vs a numpy type-1 quantile of each
             # leaf's in-bag residuals, times the learning rate
             args, res = renewals[0]
-            value, feature, leaves, y_t, score_k, bag, alpha, lr, M = args
+            # one process: the tenth argument, the group, is None
+            value, feature, leaves, y_t, score_k, bag, alpha, lr, M = args[:9]
             r = (y_t.cpu().numpy() - score_k.cpu().numpy()).astype(
                 np.float32)
             lv = leaves.cpu().numpy()
@@ -3492,7 +3524,7 @@ def serve_launches(fn) -> int:
 
 def device_table_bytes(entry, dev) -> int:
     """Bytes of one staged model's tables on the card."""
-    state = entry._device[dev]
+    state = entry.device_state(dev)      # staged already: no upload
     tensors = ([*state["table"].values()] if isinstance(state["table"], dict)
                else [state["table"]])
     tensors += [state["value"], state["init"]]
@@ -3599,15 +3631,16 @@ def phase_serve(dt, a, ds, Xv, yv, dev, report) -> dict:
     split = {}
     with server.cache._device_lock:
         for n in SERVE_BUCKETS:
-            g = server.cache._graphs.get((v1, bucket_rows(n), 1))
-            check(g is not None, f"serve: no graph of bucket {n}")
+            gs = server.cache._graphs.get((v1, bucket_rows(n), 1))
+            check(gs is not None, f"serve: no graph of bucket {n}")
+            g = gs[0]
             t0 = time.perf_counter()
             for _ in range(10):
                 booster.mapper.transform(pool[:n])
             split[n] = {"bucket": bucket_rows(n),
                         "replay_ms": time_ms(g.graph.replay, 20),
                         "binning_ms": (time.perf_counter() - t0) / 10 * 1e3}
-    del g                  # a graph holds its version's tables alive
+    del g, gs              # a graph holds its version's tables alive
     rep["bucket_call_split"] = split
     lap("bucket_call_split")
 
@@ -3758,7 +3791,7 @@ def phase_serve(dt, a, ds, Xv, yv, dev, report) -> dict:
     report["serve"] = rep
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, booster
 
 
 def _free_port() -> int:
@@ -3845,16 +3878,82 @@ def _nccl_vs_single(dt, dd, params, ds, dv, dev) -> dict:
     return out
 
 
-def rank_main(spec_path: str, rank: int) -> int:
-    """Phase 33's rank process: join the gloo group, read this rank's row
-    block, train every run of the spec through ``train_distributed`` on
-    the card, and write each run's model file and report."""
+def write_set(d: str, ds, dv=None, split: str = "rows",
+              csr=None) -> dict:
+    """Write one training set for the rank processes into directory ``d``
+    (the mapper, the labels, the binned rows or, with ``csr``, the CSR
+    rows; the query offsets; the valid set's binned rows, labels and
+    groups) and return its spec entry."""
     import numpy as np
-    import torch
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "mapper.bin"), "wb") as f:
+        f.write(ds.mapper.to_bytes())
+    np.save(os.path.join(d, "y.npy"), ds.y)
+    if csr is not None:
+        np.savez(os.path.join(d, "csr.npz"), indptr=csr[0], indices=csr[1],
+                 values=csr[2], F=np.int64(csr[3]))
+    else:
+        np.save(os.path.join(d, "X.npy"), ds.X_binned)
+    if ds.group is not None:
+        np.save(os.path.join(d, "offsets.npy"), ds.query_offsets)
+    if dv is not None:
+        np.save(os.path.join(d, "Xv.npy"), dv.X_binned)
+        np.save(os.path.join(d, "yv.npy"), dv.y)
+        if dv.group is not None:
+            np.save(os.path.join(d, "vgroup.npy"), dv.group)
+    return {"kind": "csr" if csr is not None else "binned", "split": split}
+
+
+def read_set(d: str, meta: dict, rank: int, world: int) -> tuple:
+    """This rank's Dataset of a set ``write_set`` wrote (its row block, or
+    whole queries for ``split == "query"``), the whole valid set or None,
+    and the block's [start, stop)."""
+    import numpy as np
 
     import dryad_tpu_torch as dt
     from dryad_tpu_torch import distributed as dd
     from dryad_tpu_torch.data.sketch import BinMapper
+
+    with open(os.path.join(d, "mapper.bin"), "rb") as f:
+        mapper = BinMapper.from_bytes(f.read())
+    y = np.load(os.path.join(d, "y.npy"))
+    if meta["kind"] == "csr":
+        z = np.load(os.path.join(d, "csr.npz"))
+        csr = (z["indptr"], z["indices"], z["values"], int(z["F"]))
+        lo, hi = dd.host_row_range(y.shape[0], rank, world)
+        ds = dt.Dataset(None, y[lo:hi], csr=csr_rows(csr, lo, hi),
+                        mapper=mapper)
+    else:
+        Xb = np.load(os.path.join(d, "X.npy"), mmap_mode="r")
+        group = None
+        if meta["split"] == "query":
+            off = np.load(os.path.join(d, "offsets.npy"))
+            lo, hi = dd.query_row_range(off, rank, world)
+            group = dd.rank_queries(off, lo, hi)
+        else:
+            lo, hi = dd.host_row_range(Xb.shape[0], rank, world)
+        ds = dt.Dataset.from_binned(np.ascontiguousarray(Xb[lo:hi]), mapper,
+                                    y[lo:hi], group=group)
+    dv = None
+    if os.path.exists(os.path.join(d, "Xv.npy")):
+        vg = os.path.join(d, "vgroup.npy")
+        dv = dt.Dataset.from_binned(
+            np.load(os.path.join(d, "Xv.npy")), mapper,
+            np.load(os.path.join(d, "yv.npy")),
+            group=np.load(vg) if os.path.exists(vg) else None)
+    return ds, dv, (lo, hi)
+
+
+def rank_main(spec_path: str, rank: int) -> int:
+    """The rank process of phases 33 and 35: join the gloo group, read
+    this rank's part of each set of the spec (phase 33: the one set in
+    the spec's directory), train every run of the spec on its set
+    through ``train_distributed`` on the card, and write each run's model
+    file and report."""
+    import torch
+
+    from dryad_tpu_torch import distributed as dd
     from dryad_tpu_torch.engine import cuda_build
     from dryad_tpu_torch.engine.distributed import RowGroup
 
@@ -3868,16 +3967,18 @@ def rank_main(spec_path: str, rank: int) -> int:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         cuda_build.build_all()
-    with open(os.path.join(d, "mapper.bin"), "rb") as f:
-        mapper = BinMapper.from_bytes(f.read())
-    Xb = np.load(os.path.join(d, "X.npy"), mmap_mode="r")
-    lo, hi = dd.host_row_range(Xb.shape[0], rank, world)
-    ds = dt.Dataset.from_binned(np.ascontiguousarray(Xb[lo:hi]), mapper,
-                                np.load(os.path.join(d, "y.npy"))[lo:hi])
-    dv = dt.Dataset.from_binned(np.load(os.path.join(d, "Xv.npy")), mapper,
-                                np.load(os.path.join(d, "yv.npy")))
-    out = {"rows": [lo, hi]}
-    for name, params in spec["runs"].items():
+    sets = spec.get("sets", {"": {"kind": "binned", "split": "rows"}})
+    out: dict = {}
+    loaded: dict = {}
+    for name, run in spec["runs"].items():
+        sname, params = ((run["set"], run["params"]) if "set" in run
+                         else ("", run))
+        if sname not in loaded:
+            loaded.clear()      # one set's rows held at a time
+            loaded[sname] = read_set(os.path.join(d, sname), sets[sname],
+                                     rank, world)
+            out.setdefault("rows", {})[sname] = list(loaded[sname][2])
+        ds, dv, _ = loaded[sname]
         group = RowGroup.build(ds.num_rows, device=dev,
                                time_collectives=True)
         cuda_build.reset_counts()
@@ -3887,6 +3988,8 @@ def rank_main(spec_path: str, rank: int) -> int:
         booster.save(os.path.join(d, f"{name}.{rank}.dryad"))
         out[name] = _dist_run_report(booster, group, launches,
                                      params["num_trees"])
+        out[name]["max_rank_rows"] = group.max_rank_rows
+        out[name]["comm_stats"] = booster.comm_stats
     with open(os.path.join(d, f"report.{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -3972,7 +4075,7 @@ def phase_distributed(dt, a, ds, Xv, yv, dev, report, headline_trees
             ranks.append(json.load(f))
     want_launches = {"hist": 9 * a.trees, "perm": 8 * a.trees}
     res: dict = {"setup_s": setup_s, "gloo_group_s": group_s,
-                 "rows": [rk["rows"] for rk in ranks],
+                 "rows": [rk["rows"][""] for rk in ranks],
                  "single_process": {k: tree_summary(b)
                                     for k, b in single.items()}}
     print("distributed: one process with the valid set: " + json.dumps(
@@ -4363,6 +4466,307 @@ def phase_stream(dt, a, ds, Xraw, Xv, yv, dev, report) -> tuple:
              "leaves_65536": d_launches}, level)
 
 
+# ---- phase 35: the rest of distribution -------------------------------------
+# the sets of phase 35's rank processes (git-ignored; removed after it)
+REST_DIR = os.path.join(ROOT, "_dist_modes")
+REST_GOSS = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+             "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+             "boosting": "goss", "goss_top_rate": 0.2,
+             "goss_other_rate": 0.1, "num_trees": 5}
+REST_RANK = dict(MSLR, num_trees=3)
+REST_EPS_ROWS = 100_000          # cut from Epsilon's 400k for the time
+REST_ROBUST = {"growth": "depthwise", "max_depth": 6, "num_leaves": 63,
+               "max_bins": 256, "learning_rate": 0.1, "num_trees": 3}
+REST_CSR = {"objective": "binary", "num_trees": 5, "num_leaves": 63,
+            "max_bins": 64, "growth": "depthwise", "max_depth": 6}
+REST_BUCKET = 4096               # the sharded cache's bucket
+REST_BUCKET_CALLS = 16           # timed bucket calls a path
+
+
+def rest_runs(crit_cat) -> dict:
+    """Phase 35's runs: name -> (set, params); ``crit_cat`` the Criteo
+    fixture's categorical features."""
+    return {
+        "goss_fused": ("higgs", REST_GOSS),
+        "goss_feature": ("higgs", dict(REST_GOSS, hist_reduce="feature")),
+        "lambdarank": ("mslr", REST_RANK),
+        "l1": ("epsilon", dict(REST_ROBUST, objective="l1")),
+        "quantile": ("epsilon", dict(REST_ROBUST, objective="quantile",
+                                     alpha=0.9)),
+        "criteo_csr": ("criteo", dict(REST_CSR, categorical_features=list(
+            crit_cat))),
+        "efb_csr": ("efb", REST_CSR),
+    }
+
+
+def _rest_want(name: str, params: dict, F: int, rows: int) -> dict:
+    """The launches a rank of ``rows`` rows (the group's largest) makes on
+    run ``name``, per its path: wired 9 K1 + 8 K2 a tree at depth 8 (7 + 6
+    at depth 6), MSLR's legacy leaf-wise arm and Epsilon's legacy arm by
+    their gates."""
+    T = params["num_trees"]
+    if name == "lambdarank":
+        n_nat, n_rows = leafwise_legacy_calls(rows, F, params["max_depth"])
+        return {"nat": n_nat * T, "hist_rows": n_rows * T}
+    if name in ("l1", "quantile"):
+        n_nat, n_rows = legacy_calls(rows, F, params["max_depth"],
+                                     params["num_leaves"])
+        return {"nat": n_nat * T, "hist_rows": n_rows * T}
+    D = params["max_depth"]
+    return {"hist": (D + 1) * T, "perm": D * T}
+
+
+def _rest_sharded(dt, booster, Xvb, dev, rep) -> dict:
+    """(e): the 500-tree model's predict of the held-out rows split over
+    [cuda:0, cuda:0] and over every visible card, bitwise the
+    single-device predict; a cache whose sharded family splits each
+    4096-row bucket over [cuda:0, cuda:0] serves bitwise the unsharded
+    cache; each path's ms and launches per call."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.engine import predict as P
+    from dryad_tpu_torch.serve.cache import CompiledPredictCache
+    from dryad_tpu_torch.serve.registry import ModelRegistry
+
+    out: dict = {}
+    two = [torch.device("cuda", dev.index or 0)] * 2 if dev.type == "cuda" \
+        else [dev, dev]
+    every = None if dev.type == "cuda" else [dev]
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    single, out["single_ms"] = timed(
+        lambda: P.predict_binned(booster, Xvb, device=dev))
+    for label, devs in (("two_blocks", two), ("every_card", every)):
+        got, ms = timed(lambda: P.predict_binned_sharded(booster, Xvb,
+                                                          devices=devs))
+        check(got.shape == single.shape and np.array_equal(got, single),
+              f"rest (e): sharded predict over {label} differs from the "
+              "single-device predict")
+        out[f"{label}_ms"] = ms
+    out["every_card_devices"] = (torch.cuda.device_count()
+                                 if dev.type == "cuda" else 1)
+    # one device's count for these 4096 rows is phase 32's (accumulate)
+    out["two_blocks_launches"] = serve_launches(
+        lambda: P.predict_binned_sharded(booster, Xvb[:REST_BUCKET],
+                                         devices=two))
+    reg = ModelRegistry()
+    entry = reg.get(reg.add(booster))
+    caches = {"unsharded": CompiledPredictCache(dev, max_bucket=REST_BUCKET),
+              "sharded": CompiledPredictCache(
+                  dev, max_bucket=REST_BUCKET, devices=two,
+                  sharded_threshold=0)}
+    rows = Xvb[:REST_BUCKET * REST_BUCKET_CALLS]
+    answers = {}
+    for label, cache in caches.items():
+        t0 = time.perf_counter()
+        cache.predict_raw(entry, rows[:REST_BUCKET])       # the capture
+        out[f"{label}_capture_s"] = time.perf_counter() - t0
+        answers[label], ms = timed(lambda: cache.predict_raw(entry, rows))
+        out[f"{label}_bucket_call_ms"] = ms / REST_BUCKET_CALLS
+        out[f"{label}_bucket_launches"] = serve_launches(
+            lambda: cache.predict_raw(entry, rows[:REST_BUCKET]))
+    check(np.array_equal(answers["sharded"], answers["unsharded"]),
+          "rest (e): the sharded cache's answers differ from the unsharded "
+          "cache's")
+    check(np.array_equal(answers["unsharded"],
+                         single[:rows.shape[0]].reshape(
+                             answers["unsharded"].shape)),
+          "rest (e): the cache differs from the direct predict")
+    key = (entry.version, REST_BUCKET, 2)
+    check(dev.type != "cuda" or len(caches["sharded"]._graphs[key]) == 2,
+          "rest (e): the sharded bucket does not hold two graphs")
+    check(caches["sharded"].num_entries == 1,
+          "rest (e): warm traffic added a cache entry")
+    rep["sharded_predict"] = out
+    print("rest (e) sharded predict: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_rest(dt, a, ds, Xv, yv, dev, report, mslr, eps, serve_model
+               ) -> dict:
+    """Phase 35: the rest of distribution (docstring).  ``mslr`` is phase
+    20's (train, valid) sets, ``eps`` phase 16's binned Epsilon rows cut
+    to ``REST_EPS_ROWS`` (X, y, mapper, valid X, valid y),
+    ``serve_model`` phase 32's 500-tree booster."""
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch import distributed as dd
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.engine.distributed import RowGroup
+
+    t0 = time.perf_counter()
+    rep: dict = {}
+    dv = ds.bind(Xv, yv)
+    eX, ey, emapper, eXv, eyv = eps
+    eds = dt.Dataset.from_binned(eX, emapper, ey)
+    edv = dt.Dataset.from_binned(eXv, emapper, eyv)
+    ccsr, cy, ccat = datasets.criteo_like(50_000, seed=43)
+    cds = dt.Dataset(None, cy, csr=ccsr, categorical_features=ccat,
+                     max_bins=64)
+    fcsr, fy, fcat = efb_csr()
+    fds = dt.Dataset(None, fy, csr=fcsr, categorical_features=fcat,
+                     max_bins=64)
+    check(type(fds.mapper).__name__ == "BundledMapper",
+          "rest (d): the EFB fixture did not bundle")
+    sets = {"higgs": (ds, dv, "rows", None), "mslr": (*mslr, "query", None),
+            "epsilon": (eds, edv, "rows", None),
+            "criteo": (cds, None, "rows", ccsr),
+            "efb": (fds, None, "rows", fcsr)}
+    runs = rest_runs(ccat)
+    shutil.rmtree(REST_DIR, ignore_errors=True)
+    os.makedirs(REST_DIR)
+    spec_sets = {n: write_set(os.path.join(REST_DIR, n), s, v, split, csr)
+                 for n, (s, v, split, csr) in sets.items()}
+    spec = os.path.join(REST_DIR, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"dir": REST_DIR, "world": DIST_RANKS,
+                   "timeout_s": DIST_TIMEOUT_S, "sets": spec_sets,
+                   "runs": {n: {"set": sn, "params": p}
+                            for n, (sn, p) in runs.items()},
+                   "device": (f"cuda:{torch.cuda.current_device()}"
+                              if dev.type == "cuda" else "cpu")}, f)
+    rep["setup_s"] = time.perf_counter() - t0
+
+    # the yardsticks, one process on all the rows: the arms are one run
+    t1 = time.perf_counter()
+    single: dict = {}
+    for name, (sn, p) in runs.items():
+        key = (sn, json.dumps({k: v for k, v in p.items()
+                               if k != "hist_reduce"}, sort_keys=True))
+        if key not in single:
+            s, v = sets[sn][0], sets[sn][1]
+            single[key] = dt.train(p, s, None if v is None else [v],
+                                   device=dev)
+        single[name] = single[key]
+    rep["single_s"] = time.perf_counter() - t1
+    rep["single_process"] = {n: tree_summary(single[n]) for n in runs}
+    print("rest: one process: " + json.dumps(rep["single_process"]),
+          flush=True)
+    # the rank processes hold their own copies of the sets
+    for s in (ds, dv, eds, edv, mslr[0], mslr[1], cds, fds):
+        s._device_cache.clear()
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    logs = [open(os.path.join(REST_DIR, f"rank{r}.log"), "w")
+            for r in range(DIST_RANKS)]
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.rank_main(sys.argv[1], int(sys.argv[2])))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, spec, str(r)],
+                              cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT_S + 120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(REST_DIR, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"rest: rank {r} exited {p.returncode}")
+    rep["gloo_group_s"] = time.perf_counter() - t2
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(REST_DIR, f"report.{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def same_run(b, evals, name, who):
+        want = single[name]
+        for k, v in want.tree_arrays().items():
+            check(np.array_equal(b.tree_arrays()[k], v),
+                  f"rest {name}: {who}'s {k!r} differs from the single "
+                  "process's")
+        check(evals == want.train_state.get("eval_history"),
+              f"rest {name}: {who}'s evals {evals} differ from the single "
+              f"process's {want.train_state.get('eval_history')}")
+        check(b.best_iteration == want.best_iteration,
+              f"rest {name}: {who}'s best iteration differs")
+
+    def brief_run(rk, name) -> dict:
+        keep = ("trees_per_s", "launches", "collective_bytes_per_tree",
+                "collective_ms_per_tree", "collective_host_ms_per_tree")
+        return {k: rk[name][k] for k in keep}
+
+    counted = []
+    for name, (sn, p) in runs.items():
+        F = sets[sn][0].num_features
+        for r in range(DIST_RANKS):
+            b = dt.Booster.load(os.path.join(REST_DIR, f"{name}.{r}.dryad"))
+            same_run(b, ranks[r][name]["eval_history"], name, f"rank {r}")
+            check_launches(ranks[r][name]["launches"],
+                           _rest_want(name, p, F,
+                                      ranks[r][name]["max_rank_rows"]),
+                           f"rest {name} rank {r}")
+            counted.append(ranks[r][name]["launches"])
+        res = {"rows": [rk["rows"][sn] for rk in ranks],
+               "single_trees_per_s": rep["single_process"][name][
+                   "trees_per_s"],
+               "ranks": [brief_run(rk, name) for rk in ranks],
+               "comm_stats": ranks[0][name]["comm_stats"]}
+        rep[f"gloo_{name}"] = res
+        print(f"rest gloo x{DIST_RANKS} {name}: " + json.dumps(res),
+              flush=True)
+    shutil.rmtree(REST_DIR, ignore_errors=True)
+
+    # one NCCL rank in this process: GOSS and the renewal through NCCL's
+    # all-reduce and all-gather of card tensors (gloo in a CPU rehearsal)
+    t3 = time.perf_counter()
+    dd.initialize(backend="nccl" if dev.type == "cuda" else "gloo",
+                  init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                  world_size=1, timeout_s=DIST_TIMEOUT_S)
+    try:
+        for name in ("goss_fused", "l1"):
+            sn, p = runs[name]
+            s, v = sets[sn][0], sets[sn][1]
+            group = RowGroup.build(s.num_rows, device=dev,
+                                   time_collectives=True)
+            cuda_build.reset_counts()
+            b = dd.train_distributed(p, s, v, group=group, device=dev)
+            launches = dict(cuda_build.counts)
+            same_run(b, b.train_state.get("eval_history"), name, "NCCL")
+            check_launches(launches, _rest_want(name, p, s.num_features,
+                                                s.num_rows),
+                           f"rest NCCL {name}")
+            counted.append(launches)
+            rr = _dist_run_report(b, group, launches, p["num_trees"])
+            rep[f"nccl_{name}"] = {k: rr[k] for k in (
+                "trees_per_s", "launches", "collective_bytes_per_tree",
+                "collective_ms_per_tree")}
+            print(f"rest NCCL x1 {name}: " + json.dumps(rep[f"nccl_{name}"]),
+                  flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    rep["nccl_s"] = time.perf_counter() - t3
+
+    # (e) sharded predict and the sharded cache
+    t4 = time.perf_counter()
+    _rest_sharded(dt, serve_model, dv.X_binned, dev, rep)
+    rep["sharded_s"] = time.perf_counter() - t4
+    rep["seconds"] = time.perf_counter() - t0
+    print("rest: every rank's trees, evals and best iteration bitwise the "
+          f"single process's; sharded predict bitwise; {rep['seconds']:.1f} "
+          "s", flush=True)
+    report["rest_of_distribution"] = rep
+    return {k: sum(c.get(k, 0) for c in counted)
+            for k in ("hist", "perm", "nat", "hist_rows")}
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -4389,13 +4793,14 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--eps-rows", type=int, default=EPS_ROWS)
     ap.add_argument("--eps-holdout", type=int, default=EPS_HOLDOUT)
-    ap.add_argument("--eps-trees", type=int, default=20)
+    ap.add_argument("--eps-trees", type=int, default=12)
     ap.add_argument("--bag-trees", type=int, default=12)
     ap.add_argument("--bag-legacy-trees", type=int, default=5)
     ap.add_argument("--cov-default-trees", type=int, default=10)
     ap.add_argument("--serve-trees", type=int, default=SERVE["num_trees"])
     a = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -4532,12 +4937,16 @@ def main() -> int:
     # ---- 20. MSLR-WEB30K LambdaMART --------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    m_launches, m_nat, m_root, m_rows = phase_mslr(dt, a, dev, report)
+    m_launches, m_nat, m_root, m_rows, mslr_sets = phase_mslr(dt, a, dev,
+                                                             report)
     mark("20")
     # ---- 21. the robust family on phase 16's Epsilon matrix --------------
     gc.collect()
     torch.cuda.empty_cache()
     rb_launches = phase_robust(dt, a, eds, eXv_b, eyv, dev, report)
+    # phase 35's Epsilon rows, cut to REST_EPS_ROWS
+    eps_cut = (np.ascontiguousarray(eds.X_binned[:REST_EPS_ROWS]),
+               eds.y[:REST_EPS_ROWS].copy(), eds.mapper, eXv_b, eyv)
     del eds, eXv_b, eyv
     mark("21")
     # ---- 22-23. Criteo: CSR ingest, categorical splits, bundling --------
@@ -4554,7 +4963,7 @@ def main() -> int:
     # ---- 32. serving the headline model -----------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    sv_launches = phase_serve(dt, a, ds, Xv, yv, dev, report)
+    sv_launches, serve_model = phase_serve(dt, a, ds, Xv, yv, dev, report)
     mark("32")
     # ---- 33. data-parallel training over a process group -----------------
     gc.collect()
@@ -4566,8 +4975,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     st_paths, bins_1024 = phase_stream(dt, a, ds, Xraw, Xv, yv, dev, report)
-    del ds, Xraw, Xv, yv
+    del Xraw
     mark("34")
+    # ---- 35. the rest of distribution ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest_launches = phase_rest(dt, a, ds, Xv, yv, dev, report, mslr_sets,
+                               eps_cut, serve_model)
+    del ds, Xv, yv, mslr_sets, eps_cut, serve_model
+    mark("35")
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -4585,7 +5001,7 @@ def main() -> int:
                "monotone_fixture_legacy": mf_launches["monotone"],
                "cv": cv_launches, "estimator_covertype": est_launches,
                "serve_train": sv_launches, "distributed": dist_launches,
-               **st_paths}
+               **st_paths, "rest_of_distribution": rest_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

@@ -181,7 +181,8 @@ def _check_append_compatible(p: Params, train_set: Dataset,
 
 def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
             num_iteration: Optional[int] = None, pred_leaf: bool = False,
-            pred_contrib: bool = False, device=None) -> np.ndarray:
+            pred_contrib: bool = False, device=None, sharded: bool = False,
+            devices=None) -> np.ndarray:
     """Predict raw features through the booster's frozen mapper on
     ``device`` (default: the card); returns the objective's transform of
     the scores (probabilities for binary and multiclass, rates for
@@ -189,10 +190,13 @@ def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,
     output, (N, K) for a K-class model.  ``pred_leaf=True`` gives the
     (N, T) int32 leaf node ids of the first T = n_iter * K trees,
     ``pred_contrib=True`` the (N, [K,] F + 1) float64 TreeSHAP values, the
-    last column the bias (it takes precedence over ``pred_leaf``)."""
+    last column the bias (it takes precedence over ``pred_leaf``).
+    ``sharded=True`` splits the rows over ``devices`` (default: every
+    visible card), bitwise the single-device scores."""
     return booster.predict(X, raw_score=raw_score,
                            num_iteration=num_iteration, pred_leaf=pred_leaf,
-                           pred_contrib=pred_contrib, device=device)
+                           pred_contrib=pred_contrib, device=device,
+                           sharded=sharded, devices=devices)
 
 
 # after train: its train_distributed calls it

@@ -11,7 +11,8 @@ the CPU with ``--device cpu``; with no card and no ``--device cpu`` it
 raises.  ``--request`` runs one matrix through the whole serving stack,
 writes the predictions to ``--out`` and exits.  The counterpart of the
 reference's ``serve`` command (``dryad_tpu/__main__.py``), without its
-sharding and drift flags; its other commands are not ported.
+drift flags; its other commands are not ported.  ``--sharded auto|on|off``
+splits big buckets over every visible card (``serve/server.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ def cmd_serve(args) -> int:
         pipeline_depth=args.pipeline_depth,
         device_budget_bytes=(args.device_budget_mb * (1 << 20)
                              if args.device_budget_mb else None),
+        sharded={"auto": "auto", "on": True, "off": False}[args.sharded],
     )
     for spec in args.model:
         # NAME=path registers an alias; a spec that exists on disk, or
@@ -140,6 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device-budget-mb", type=int, default=0,
                    help="staged-model memory budget; 0 = unlimited (LRU "
                         "eviction, active version pinned)")
+    s.add_argument("--sharded", default="auto", choices=["auto", "on", "off"],
+                   help="split big predict buckets over every visible card "
+                        "(auto: from 32768 row-outputs when there are two or "
+                        "more; on: every bucket that divides)")
     s.add_argument("--warmup", action="store_true",
                    help="capture every (version, bucket) program at "
                         "startup and arm the recompile tripwire")

@@ -57,6 +57,9 @@ class Booster:
         # stale and, when evals were deferred, eval_history
         self.train_state = dict(train_state or {})
         self.tree_seconds: list[float] = []
+        # a process-group run's collective plan per iteration
+        # (``engine/train.comm_stats``), else None
+        self.comm_stats: Optional[dict] = None
 
     @property
     def num_total_trees(self) -> int:
@@ -86,27 +89,42 @@ class Booster:
     # ---- predict -----------------------------------------------------------
     def predict(self, X: np.ndarray, *, raw_score: bool = False,
                 num_iteration: Optional[int] = None, pred_leaf: bool = False,
-                pred_contrib: bool = False, device=None) -> np.ndarray:
+                pred_contrib: bool = False, device=None,
+                sharded: bool = False, devices=None) -> np.ndarray:
         """Predict raw features: bin through the frozen mapper, then
         ``predict_binned``."""
         return self.predict_binned(
             self.mapper.transform(np.asarray(X, np.float32)),
             raw_score=raw_score, num_iteration=num_iteration,
-            pred_leaf=pred_leaf, pred_contrib=pred_contrib, device=device)
+            pred_leaf=pred_leaf, pred_contrib=pred_contrib, device=device,
+            sharded=sharded, devices=devices)
 
     def predict_binned(self, X_binned: np.ndarray, *,
                        raw_score: bool = False,
                        num_iteration: Optional[int] = None,
                        pred_leaf: bool = False, pred_contrib: bool = False,
-                       device=None) -> np.ndarray:
+                       device=None, sharded: bool = False,
+                       devices=None) -> np.ndarray:
         """Pre-binned rows on ``device`` (default: the card) -> the
         objective's transform of the scores, or raw scores; with
         ``pred_contrib`` the (N, [K,] F + 1) float64 SHAP values (last
         column the bias), which take precedence over ``pred_leaf``'s (N, T)
-        int32 leaf node ids of the first T = n_iter * K trees."""
+        int32 leaf node ids of the first T = n_iter * K trees.
+        ``sharded=True`` splits the rows over ``devices`` (default: every
+        visible card; ``engine.predict.predict_binned_sharded``), bitwise
+        the single-device scores; it takes neither ``pred_leaf`` nor
+        ``pred_contrib``."""
         from dryad_tpu_torch import resolve_device
         from dryad_tpu_torch.engine import predict as engine_predict
 
+        if sharded:
+            if pred_leaf or pred_contrib:
+                raise ValueError("sharded=True is not supported with "
+                                 "pred_leaf/pred_contrib")
+            raw = engine_predict.predict_binned_sharded(
+                self, X_binned, num_iteration=num_iteration,
+                devices=devices)
+            return self.transform_raw(raw, raw_score=raw_score)
         dev = resolve_device(device)
         if pred_contrib:
             from dryad_tpu_torch.engine.shap import predict_contrib

@@ -20,6 +20,15 @@ all the rows (``engine/distributed.py``)::
     ds = dt.Dataset(X[lo:hi], y[lo:hi], mapper=mapper)
     booster = dd.train_distributed(params, ds, valid=valid_ds)
 
+For ranking, ``query_row_range`` cuts the blocks at query boundaries
+(each query whole on one rank) and ``rank_queries`` gives the rank's
+``group=``.  A CSR set bins through the one mapper every rank shares
+(``Dataset(None, y, csr=..., mapper=mapper)``, a ``BundledMapper`` where
+the whole data bundles); training checks that every rank's mapper is the
+same and raises ``ValueError`` naming the ranks that differ.  Every
+training mode of one process runs over a group; a streamed set does not,
+as in the reference.
+
 The reference's mesh helpers (``make_mesh``, ``padded_rows``,
 ``shard_rows``, ``replicate``, ``global_mesh``) have no counterpart: each
 rank holds its own rows, of any count, so nothing is padded or placed.
@@ -79,6 +88,42 @@ def host_row_range(num_rows: int, rank: int,
     base, rem = divmod(int(num_rows), int(world_size))
     start = rank * base + min(rank, rem)
     return start, start + base + (1 if rank < rem else 0)
+
+
+def query_row_range(query_offsets, rank: int,
+                    world_size: int) -> tuple[int, int]:
+    """[start, stop) of the rows rank ``rank`` of ``world_size`` reads for
+    ranking: contiguous blocks in rank order, cut only at query
+    boundaries (``query_offsets`` (Q + 1,), the LightGBM group
+    convention's running sum), each cut at the boundary nearest the even
+    row split (the earlier one on a tie), so no query straddles two ranks
+    and the blocks are balanced by rows.  A lambdarank group needs it: a
+    rank's lambdas read only its own documents (LightGBM's distributed
+    ranking keeps each query on one machine too).  The rank's query sizes
+    are ``np.diff`` of the offsets inside its block."""
+    off = np.asarray(query_offsets, np.int64)
+    n = int(off[-1])
+
+    def cut(r: int) -> int:
+        if r <= 0:
+            return 0
+        if r >= world_size:
+            return n
+        target = r * n / world_size
+        i = int(np.searchsorted(off, target))
+        lo = off[max(i - 1, 0)]
+        hi = off[min(i, off.size - 1)]
+        return int(lo if target - lo <= hi - target else hi)
+
+    return cut(int(rank)), cut(int(rank) + 1)
+
+
+def rank_queries(query_offsets, start: int, stop: int) -> np.ndarray:
+    """The sizes of the queries inside rows [start, stop) of a
+    ``query_row_range`` block: the ``group=`` of the rank's Dataset."""
+    off = np.asarray(query_offsets, np.int64)
+    inside = off[(off >= start) & (off <= stop)]
+    return np.diff(inside)
 
 
 def sketch_distributed(X_local: np.ndarray, total_rows: int,

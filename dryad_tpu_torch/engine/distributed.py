@@ -43,6 +43,7 @@ of hanging them.
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as np
@@ -63,11 +64,15 @@ class RowGroup:
     ``row_offset`` (the first global row this rank holds),
     ``global_rows`` and ``max_rank_rows`` (the most rows any rank holds:
     a gate on local rows reads it, so every rank decides alike).
-    ``stats[what][kind]`` counts the bytes each kind of collective moved
-    and ``stats[what]["calls"]`` the calls, by purpose
-    ("hist": the histogram passes, "splits": the feature arm's combine,
-    "shift": the fixed-point shift, "setup": rows, labels and flags), and
-    ``collective_host_ms`` the host's time inside them.  With
+    ``stats[what][kind]`` counts the bytes each kind of collective
+    delivers to a rank (an all-reduce its whole buffer, a reduce-scatter
+    this rank's block, an all-gather every rank's part) and
+    ``stats[what]["calls"]`` the calls, by purpose ("hist": the histogram
+    passes, "splits": the feature arm's combine, "shift": the fixed-point
+    shift, "goss": GOSS's threshold and top count, "renew": the leaf
+    renewal's gathered residuals, "rank_plan": lambdarank's padded width,
+    "mapper": the bin mappers' digests, "setup": rows, labels and flags),
+    and ``collective_host_ms`` the host's time inside them.  With
     ``time_collectives`` each collective on a card is also bracketed by
     CUDA events (``collective_ms``)."""
 
@@ -166,7 +171,8 @@ class RowGroup:
             return out.to(dev)
 
         return self._run(what, "reduce_scatter_bytes",
-                         t.numel() * t.element_size(), dev, run)
+                         t.numel() * t.element_size() // self.world, dev,
+                         run)
 
     def all_gather(self, t: torch.Tensor,
                    what: str = "setup") -> torch.Tensor:
@@ -188,21 +194,103 @@ class RowGroup:
         self.all_reduce(torch.zeros(1, device=self.comm_device))
 
 
-def all_gather_host(arr: np.ndarray, group: RowGroup) -> list[np.ndarray]:
+def all_gather_host(arr: np.ndarray, group: RowGroup,
+                    what: str = "setup") -> list[np.ndarray]:
     """Every rank's numpy array (equal trailing shape, any length) in rank
     order; bools travel as uint8."""
     arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
     is_bool = arr.dtype == np.bool_
     t = torch.from_numpy(arr.view(np.uint8) if is_bool else arr)
-    dev = group.comm_device
-    sizes = group.all_gather(torch.tensor([t.shape[0]], dtype=torch.int64,
-                                          device=dev)).cpu()[:, 0].tolist()
-    m = max(sizes)
-    pad = torch.zeros((m,) + tuple(t.shape[1:]), dtype=t.dtype)
-    pad[:t.shape[0]] = t
-    got = group.all_gather(pad.to(dev)).cpu().numpy()
-    out = [got[i, :n] for i, n in enumerate(sizes)]
+    got = all_gather_rows(t.to(group.comm_device), group, what,
+                          concat=False)
+    out = [o.cpu().numpy() for o in got]
     return [o.view(np.bool_) for o in out] if is_bool else out
+
+
+def all_gather_rows(t: torch.Tensor, group: RowGroup, what: str,
+                    concat: bool = True):
+    """Every rank's rows of ``t`` (equal trailing shape, any length, on its
+    device) in rank order: concatenated on ``t``'s device, or the list of
+    parts with ``concat=False``.  Two all-gathers: the lengths, then the
+    rows padded to the longest."""
+    dev = t.device
+    sizes = group.all_gather(torch.tensor([t.shape[0]], dtype=torch.int64,
+                                          device=dev),
+                             what=what).cpu()[:, 0].tolist()
+    m = max(sizes)
+    pad = torch.zeros((m,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
+    pad[:t.shape[0]] = t
+    got = group.all_gather(pad, what=what)
+    parts = [got[i, :n] for i, n in enumerate(sizes)]
+    return torch.cat(parts) if concat else parts
+
+
+def all_reduce_max_int(value: int, group: RowGroup, what: str) -> int:
+    """The largest of every rank's host integer ``value``."""
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=group.comm_device)
+    return int(group.all_reduce(t, dist.ReduceOp.MAX, what=what).item())
+
+
+def ordered_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int64 in [0, 2^32) whose order is the floats' (-0.0 just
+    below +0.0; no NaN)."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def _key_to_f32(key: torch.Tensor) -> torch.Tensor:
+    u = torch.where(key >= 0x80000000, key ^ 0x80000000, key ^ 0xFFFFFFFF)
+    return torch.where(u >= 0x80000000, u - (1 << 32), u).to(
+        torch.int32).view(torch.float32)
+
+
+def group_order_statistic(x: torch.Tensor, rank_asc: int, group: RowGroup,
+                          what: str) -> torch.Tensor:
+    """The element at ascending position ``rank_asc`` (0-based) of the
+    concatenation of every rank's f32 vector ``x``, exactly: a radix
+    select over the floats' ordered bit patterns, four rounds of one
+    byte, each one SUM all-reduce of 256 int64 counts (2 KB).  Every rank
+    enters every round, rows or none; nothing is read back to the host.
+    Returns a () f32 tensor on ``x``'s device, one of the elements bit
+    for bit (a zero keeps its sign)."""
+    dev = x.device
+    key = ordered_key(x)
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    r = torch.tensor(int(rank_asc), dtype=torch.int64, device=dev)
+    mask = 0
+    for shift in (24, 16, 8, 0):
+        digit = (key >> shift) & 0xFF
+        live = (key & mask) == prefix
+        counts = torch.zeros(257, dtype=torch.int64, device=dev)
+        counts.scatter_add_(0, torch.where(live, digit, 256),
+                            torch.ones_like(digit))
+        counts = group.all_reduce(counts[:256].contiguous(), what=what)
+        cum = torch.cumsum(counts, 0)
+        d = torch.searchsorted(cum, r, right=True)
+        r = r - torch.where(d > 0, cum[torch.clamp(d - 1, min=0)], 0)
+        prefix = prefix | (d << shift)
+        mask |= 0xFF << shift
+    return _key_to_f32(prefix)
+
+
+def check_same_mapper(mapper, group: RowGroup) -> None:
+    """Raise ``ValueError`` on every rank when any rank's bin mapper
+    differs from rank 0's (an all-gather of the SHA-256 digests of
+    ``mapper.to_bytes()``): ranks that bin through different edges or
+    bundles would grow different trees without a word."""
+    mine = np.frombuffer(hashlib.sha256(mapper.to_bytes()).digest(),
+                         np.uint8)
+    got = all_gather_host(mine, group, what="mapper")
+    bad = [r for r, d in enumerate(got) if not np.array_equal(d, got[0])]
+    if bad:
+        raise ValueError(
+            f"the bin mapper of rank(s) {bad} differs from rank 0's: every "
+            "rank must bin through one mapper (sketch it once, e.g. "
+            "sketch_distributed, and pass mapper= to each rank's Dataset)")
 
 
 def global_shift(g: torch.Tensor, h: torch.Tensor,

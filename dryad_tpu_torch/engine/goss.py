@@ -14,12 +14,23 @@ the device; ``loop_state.goss_uniform`` is the numpy copy.  Torch's uint32
 arithmetic is thin, so the hash runs in int64 on values below 2^32: each
 32-bit product is split into 16-bit halves so that nothing overflows, and
 every step is reduced modulo 2^32.
+
+Under a process group (``group``) each rank draws the uniforms of its own
+global row ids, so its slice is the single process's, and the selection's
+two cross-row quantities come from the group: the threshold, the
+``top_n``-th largest ``|g|`` over every rank's rows, by an exact radix
+select (``distributed.group_order_statistic``: four all-reduces of 256
+counts, 2 KB each), and the number of top rows, a SUM all-reduce.  Every
+rank's mask and amplified g and h are then the single process's slice bit
+for bit, and a rank without rows in the bag still enters both
+collectives.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine.loop_state import (
     GOSS_GOLDEN,
     GOSS_M1,
@@ -40,10 +51,12 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def goss_uniform_dev(seed: int, iteration: int, num_rows: int,
-                     device) -> torch.Tensor:
-    """(N,) f32 uniforms in [0, 1) of one iteration, drawn on ``device``,
-    bitwise ``loop_state.goss_uniform``."""
-    x = torch.arange(num_rows, dtype=torch.int64, device=device)
+                     device, row_offset: int = 0) -> torch.Tensor:
+    """(N,) f32 uniforms in [0, 1) of one iteration for the global rows
+    ``row_offset .. row_offset + N``, drawn on ``device``, bitwise those
+    rows of ``loop_state.goss_uniform``."""
+    x = torch.arange(row_offset, row_offset + num_rows, dtype=torch.int64,
+                     device=device)
     x = _mul32(x, GOSS_GOLDEN) ^ goss_key(seed, iteration)
     x ^= x >> 16
     x = _mul32(x, GOSS_M1)
@@ -54,19 +67,29 @@ def goss_uniform_dev(seed: int, iteration: int, num_rows: int,
 
 
 def goss_select(p, N: int, g_all: torch.Tensor, h_all: torch.Tensor,
-                u: torch.Tensor, valid: torch.Tensor):
-    """(g, h, mask): the amplified (N, K) g and h and the (N,) row mask.
-    ``valid`` (N,) bool excludes rows that must never compete (they take
-    -1 and can never reach the threshold).  ``|g|`` is ``sqrt`` of the
-    sum of squares over the K columns, added column by column, the
-    order XLA reduces a short row in; at K = 1 that is ``sqrt(g * g)``.
-    The threshold is the ``top_n``-th largest value of a full sort."""
+                u: torch.Tensor, valid: torch.Tensor, group=None):
+    """(g, h, mask): the amplified (n, K) g and h and the (n,) row mask of
+    this process's n rows; ``N`` is the row count of the whole selection
+    (every rank's, under ``group``).  ``valid`` (n,) bool excludes rows
+    that must never compete (they take -1 and can never reach the
+    threshold).  ``|g|`` is ``sqrt`` of the sum of squares over the K
+    columns, added column by column, the order XLA reduces a short row
+    in; at K = 1 that is ``sqrt(g * g)``.  The threshold is the
+    ``top_n``-th largest value: of a full sort, or of the group's radix
+    select."""
     absg = torch.sqrt(row_sum(g_all * g_all)[:, 0])
     absg = torch.where(valid, absg, -1.0)
     top_n = max(1, int(round(p.goss_top_rate * N)))
-    thr = torch.sort(absg).values[absg.shape[0] - top_n]
+    if group is None:
+        thr = torch.sort(absg).values[absg.shape[0] - top_n]
+    else:
+        thr = _dist.group_order_statistic(absg, N - top_n, group,
+                                          what="goss")
     is_top = valid & (absg >= thr)
     n_top = is_top.sum(dtype=torch.int32)
+    if group is not None:
+        n_top = group.all_reduce(n_top.reshape(1).to(torch.int64),
+                                 what="goss")[0].to(torch.int32)
     p_pick = torch.clamp(
         torch.tensor(float(p.goss_other_rate * N), dtype=torch.float32,
                      device=g_all.device)
@@ -78,14 +101,18 @@ def goss_select(p, N: int, g_all: torch.Tensor, h_all: torch.Tensor,
     return g_all * w, h_all * w, is_top | picked
 
 
-def goss_columns(p, iteration: int, gh: list, valid: torch.Tensor):
+def goss_columns(p, iteration: int, gh: list, valid: torch.Tensor,
+                 group=None):
     """One iteration's GOSS on the loop's K (g, h) column pairs: returns
-    (the amplified pairs, each contiguous, and the (N,) row mask that
-    replaces the bag)."""
-    N = valid.shape[0]
+    (the amplified pairs, each contiguous, and the (n,) row mask that
+    replaces the bag).  Under ``group`` the selection spans every rank's
+    rows (module doc)."""
+    n = valid.shape[0]
+    N, offset = ((n, 0) if group is None
+                 else (group.global_rows, group.row_offset))
     g_all = torch.stack([g for g, _ in gh], 1)
     h_all = torch.stack([h for _, h in gh], 1)
-    u = goss_uniform_dev(p.seed, iteration, N, valid.device)
-    g_all, h_all, mask = goss_select(p, N, g_all, h_all, u, valid)
+    u = goss_uniform_dev(p.seed, iteration, n, valid.device, offset)
+    g_all, h_all, mask = goss_select(p, N, g_all, h_all, u, valid, group)
     return ([(g_all[:, k].contiguous(), h_all[:, k].contiguous())
              for k in range(len(gh))], mask)

@@ -28,17 +28,87 @@ without a finite gain is a masked update whose writes go to sentinel rows
 from __future__ import annotations
 
 import warnings
-from typing import Any
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from dryad_tpu_torch.booster import CAT_WORDS
-from dryad_tpu_torch.config import MAX_FAST_DEPTH, leafwise_fast_supported
-from dryad_tpu_torch.engine import tile_plan
+from dryad_tpu_torch.config import (
+    MAX_FAST_DEPTH,
+    hist_reduce_resolved,
+    leafwise_fast_supported,
+)
+from dryad_tpu_torch.engine import hist_nat, tile_plan
 from dryad_tpu_torch.engine.distributed import global_shift, reducer
 from dryad_tpu_torch.engine.histogram import a1_rows, build_hist
 from dryad_tpu_torch.engine.ops import drop_set
 from dryad_tpu_torch.engine.split import NEG_INF, find_best_split
+
+
+class GrowPlan(NamedTuple):
+    """What ``grow_plan`` decides for one class's tree."""
+
+    grower: str              # "levelwise", "leafwise_fast" or "sequential"
+    use_layout: bool         # the wired arm (leaf-ordered layout, K2)
+    nat_live: bool           # K3's natural-order pass on the shallow levels
+    phases: tuple            # (d_switch, P_narrow, P_full); () sequential
+    scan_widths: tuple       # candidate columns of each level's scan
+    pass_widths: tuple       # columns of each histogram pass past the root
+    hist_reduce: str         # the passes' cross-rank arm under a group
+
+
+def grow_plan(p, num_features: int, total_bins: int, *, num_rows: int,
+              gate_rows: Optional[int] = None, bin_itemsize: int = 1,
+              n_ranks: int = 1, grower: Optional[str] = None) -> GrowPlan:
+    """The grower a config takes and the histogram passes it makes, the
+    one place the routing lives: ``grow_any`` routes by it, the growers
+    take their arm, natural-order gate, level phases and cross-rank arm
+    from it, and ``train.comm_stats`` counts its passes.  ``num_rows`` is
+    the group's row count (the batched leaf-wise envelope), ``gate_rows``
+    its largest rank's (the natural-order gate; default ``num_rows``),
+    ``n_ranks`` the group's size; ``grower`` names a grower already
+    chosen.  Without subtraction a level makes both children's passes:
+    one 2P-column pass on the wired arm, a P-column pass of each side on
+    the legacy arm; the sequential grower one pass a split (two without
+    subtraction), always fused, as in the reference."""
+    from dryad_tpu_torch.engine import leafwise_fast, levelwise
+
+    F, B = int(num_features), int(total_bins)
+    L = p.effective_num_leaves
+    if grower is None:
+        if p.growth == "depthwise" and p.max_depth > 0:
+            grower = "levelwise"
+        elif (p.growth == "leafwise"
+              and leafwise_fast_supported(p, F, B, num_rows)):
+            grower = "leafwise_fast"
+        else:
+            grower = "sequential"
+    if grower == "sequential":
+        per_split = 1 if p.hist_subtraction else 2
+        return GrowPlan(grower, False, False, (), (),
+                        (1,) * ((L - 1) * per_split), "fused")
+    if grower == "levelwise":
+        use_layout = levelwise.deep_layout_supported(p, F, B, bin_itemsize)
+    else:
+        use_layout = leafwise_fast.leafwise_layout_supported(
+            p, F, B, bin_itemsize)
+    nat_live = (not use_layout and a1_rows(p, B) is None
+                and hist_nat.natural_admits(
+                    B, num_rows if gate_rows is None else gate_rows, F,
+                    bin_itemsize))
+    D = p.max_depth
+    phases = (levelwise.phase_plan(D, L, nat_live) if grower == "levelwise"
+              else leafwise_fast.phase_plan(D))
+    d_switch, P_narrow, P_full = phases
+    scan = (P_narrow,) * d_switch + (P_full,) * (D - d_switch)
+    if p.hist_subtraction:
+        passes = scan
+    elif use_layout:
+        passes = tuple(2 * w for w in scan)
+    else:
+        passes = tuple(w for w in scan for _ in (0, 1))
+    return GrowPlan(grower, use_layout, nat_live, phases, scan, passes,
+                    hist_reduce_resolved(p, F, B, n_ranks))
 
 
 def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
@@ -54,19 +124,20 @@ def grow_any(params, total_bins, Xb, g, h, bag_mask, feat_mask, *,
     p = params
     kw = {"learn_missing": learn_missing, "is_cat_feat": is_cat_feat,
           "bundled_mask": bundled_mask, "group": group}
-    if p.growth == "depthwise" and p.max_depth > 0:
+    grower = grow_plan(
+        p, Xb.shape[1], total_bins,
+        num_rows=Xb.shape[0] if group is None else group.global_rows).grower
+    if grower == "levelwise":
         from dryad_tpu_torch.engine.levelwise import grow_tree_levelwise
 
         return grow_tree_levelwise(p, total_bins, Xb, g, h, bag_mask,
                                    feat_mask, **kw)
-    if p.growth == "leafwise":
+    if grower == "leafwise_fast":
         from dryad_tpu_torch.engine import leafwise_fast
 
-        if leafwise_fast_supported(
-                p, Xb.shape[1], int(total_bins),
-                Xb.shape[0] if group is None else group.global_rows):
-            return leafwise_fast.grow_tree_leafwise_batched(
-                p, total_bins, Xb, g, h, bag_mask, feat_mask, **kw)
+        return leafwise_fast.grow_tree_leafwise_batched(
+            p, total_bins, Xb, g, h, bag_mask, feat_mask, **kw)
+    if p.growth == "leafwise":
         if p.max_depth > 0 and p.hist_subtraction:
             # a visible, specific reason; hist_subtraction=False is a
             # deliberate choice and does not warn

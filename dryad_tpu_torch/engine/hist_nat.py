@@ -45,6 +45,14 @@ def nat_gate_admits(num_rows: int, num_features: int, itemsize: int) -> bool:
     return num_rows * num_features * itemsize <= NAT_GATE_MB * (1 << 20)
 
 
+def natural_admits(total_bins: int, num_rows: int, num_features: int,
+                   itemsize: int) -> bool:
+    """Whether a level plan takes the natural-order pass: the kernels take
+    the bins (``hist.supports``) and the gate admits the matrix."""
+    return (hist.supports(total_bins)
+            and nat_gate_admits(int(num_rows), num_features, itemsize))
+
+
 def natural_tiles(Xb: torch.Tensor) -> torch.Tensor:
     """(F, n_pad) feature-major bins, n_pad the rows rounded up to whole
     512-row tiles (zero tail)."""
@@ -63,8 +71,8 @@ def maybe_natural_tiles(Xb: torch.Tensor, total_bins: int,
     makes the same choice and runs the same level plan), else the
     matrix's own."""
     N, F = Xb.shape
-    if not hist.supports(total_bins) or not nat_gate_admits(N if gate_rows is None else int(gate_rows), F,
-                           bin_itemsize(Xb)):
+    if not natural_admits(total_bins, N if gate_rows is None else gate_rows,
+                          F, bin_itemsize(Xb)):
         return None
     return natural_tiles(Xb)
 

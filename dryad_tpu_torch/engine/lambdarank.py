@@ -39,16 +39,31 @@ CHUNK_BYTES = 1 << 29
 _BIG_NEG = -1e30
 
 
+def padded_width(query_offsets: np.ndarray) -> int:
+    """The document budget S of these queries: the largest query rounded
+    up to a multiple of 8, at least 8 (8 for no queries)."""
+    sizes = np.diff(np.asarray(query_offsets, np.int64))
+    return int(max(8, -(-int(sizes.max(initial=0)) // 8) * 8))
+
+
 class PaddingPlan:
     """The loop-invariant (Q, S) scatter plan of ragged query groups, on
     ``device``: the flat padded slot ``q * S + col`` of every row, and the
     (Q, S) mask of slots that hold a document.  Built once per dataset;
-    the boosting loop hoists it out of the iterations."""
+    the boosting loop hoists it out of the iterations.  ``S`` defaults to
+    these queries' ``padded_width``; a process group passes the largest
+    over its ranks, so every rank pads, chunks and reduces over the S of
+    the single process."""
 
-    def __init__(self, query_offsets: np.ndarray, device="cpu"):
+    def __init__(self, query_offsets: np.ndarray, device="cpu",
+                 S: int | None = None):
         sizes = np.diff(np.asarray(query_offsets, np.int64))
         self.Q = int(sizes.size)
-        self.S = int(max(8, -(-int(sizes.max()) // 8) * 8))
+        own = padded_width(query_offsets)
+        if S is not None and int(S) < own:
+            raise ValueError(f"S={S} is below the queries' padded width "
+                             f"{own}")
+        self.S = own if S is None else int(S)
         row = np.repeat(np.arange(self.Q, dtype=np.int64), sizes)
         col = np.arange(int(sizes.sum()), dtype=np.int64) - np.repeat(
             np.asarray(query_offsets, np.int64)[:-1], sizes)

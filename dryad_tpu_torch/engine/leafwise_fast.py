@@ -65,7 +65,7 @@ from typing import Any
 
 import torch
 
-from dryad_tpu_torch.config import MAX_FAST_DEPTH, hist_reduce_resolved
+from dryad_tpu_torch.config import MAX_FAST_DEPTH
 from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
 from dryad_tpu_torch.engine.grower import (
@@ -73,6 +73,7 @@ from dryad_tpu_torch.engine.grower import (
     child_bounds,
     finalize_leaf_values,
     finish_cat_fields,
+    grow_plan,
     root_stats,
 )
 from dryad_tpu_torch.engine import levelwise
@@ -145,7 +146,15 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     dev = Xb.device
     isz = leafperm.bin_itemsize(Xb)
     i64, f32 = torch.int64, torch.float32
-    use_layout = leafwise_layout_supported(p, F, B, isz)
+    # the arm, the natural-order gate (it reads the largest rank's rows,
+    # so every rank agrees) and the level phases
+    plan = grow_plan(p, F, B, num_rows=N if group is None
+                     else group.global_rows,
+                     gate_rows=N if group is None else group.max_rank_rows,
+                     bin_itemsize=isz,
+                     n_ranks=1 if group is None else group.world,
+                     grower="leafwise_fast")
+    use_layout = plan.use_layout
     # arm A1's row chunk, None where the kernels take the passes
     a1 = a1_rows(p, B)
     packed = B <= levelwise.MAX_PACKED_BINS
@@ -155,8 +164,7 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     mono = _monotone_array(p, F, dev)
     # the cross-rank reductions (None without a group): the root's always
     # fused, the levels' by the policy
-    mode = (None if group is None
-            else hist_reduce_resolved(p, F, B, group.world))
+    mode = None if group is None else plan.hist_reduce
     red_root = _dist.reducer(group, "fused")
     red = _dist.reducer(group, mode)
     arm = (_dist.FeatureArm(p, group, F, feat_mask=feat_mask,
@@ -175,7 +183,7 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
             is_cat_feat=is_cat_feat, bundled_mask=bundled_mask,
             monotone=mono, lo=lo, hi=hi)
 
-    d_switch, P_narrow, _ = phase_plan(D)
+    d_switch, P_narrow, _ = plan.phases
     T = leafperm.TILE_ROWS
     n_row_tiles = -(-N // T)
     # smaller children cover <= half the rows on one device while the f32
@@ -197,11 +205,10 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
                            reduce=red_root)
         records = nat_tiles = None
     else:
-        records = nat_tiles = None
+        records = None
         if a1 is None:
             records = tile_plan.make_records(Xb, g, h)
-            nat_tiles = hist_nat.maybe_natural_tiles(
-                Xb, B, N if group is None else group.max_rank_rows)
+        nat_tiles = hist_nat.natural_tiles(Xb) if plan.nat_live else None
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
                            reduce=red_root, a1_rows=a1)
     G0, H0, C0 = root_stats(hist0)

@@ -56,7 +56,6 @@ from typing import Any
 
 import torch
 
-from dryad_tpu_torch.config import hist_reduce_resolved
 from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine import hist as _hist
 from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
@@ -65,6 +64,7 @@ from dryad_tpu_torch.engine.grower import (
     child_bounds,
     finalize_leaf_values,
     finish_cat_fields,
+    grow_plan,
     root_stats,
 )
 from dryad_tpu_torch.engine.histogram import (
@@ -181,7 +181,15 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     isz = leafperm.bin_itemsize(Xb)
     if depth_cap <= 0:
         raise ValueError("levelwise growth requires max_depth > 0")
-    use_layout = deep_layout_supported(p, F, B, isz)
+    # the arm, the natural-order gate (it reads the largest rank's rows,
+    # so every rank agrees) and the level phases
+    plan = grow_plan(p, F, B, num_rows=N if group is None
+                     else group.global_rows,
+                     gate_rows=N if group is None else group.max_rank_rows,
+                     bin_itemsize=isz,
+                     n_ranks=1 if group is None else group.world,
+                     grower="levelwise")
+    use_layout = plan.use_layout
     # arm A1's row chunk, None where the kernels take the passes
     a1 = a1_rows(p, B)
     packed = B <= MAX_PACKED_BINS and L < MAX_PACKED_LEAVES
@@ -192,8 +200,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     mono = _monotone_array(p, F, dev)
     # the cross-rank reductions (None without a group): the root's always
     # fused, the levels' by the policy
-    mode = (None if group is None
-            else hist_reduce_resolved(p, F, B, group.world))
+    mode = None if group is None else plan.hist_reduce
     red_root = _dist.reducer(group, "fused")
     red = _dist.reducer(group, mode)
     arm = (_dist.FeatureArm(p, group, F, feat_mask=feat_mask,
@@ -230,14 +237,12 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         nat_tiles = None
     else:
         # ---- legacy: one record table per tree (g/h change per tree) and
-        # the natural-order tiles for the shallow levels, where admitted
-        # (the gate reads the largest rank's rows, so every rank agrees);
+        # the natural-order tiles for the shallow levels, where admitted;
         # arm A1 reads the bins as they are
-        records = nat_tiles = None
+        records = None
         if a1 is None:
             records = tile_plan.make_records(Xb, g, h)
-            nat_tiles = hist_nat.maybe_natural_tiles(
-                Xb, B, N if group is None else group.max_rank_rows)
+        nat_tiles = hist_nat.natural_tiles(Xb) if plan.nat_live else None
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
                            reduce=red_root, a1_rows=a1)
     G0, H0, C0 = root_stats(hist0)
@@ -292,8 +297,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
     max_depth = torch.zeros((), dtype=i64, device=dev)
     row_slot = torch.zeros(N, dtype=i64, device=dev)
 
-    d_switch, P_narrow, P_full = phase_plan(depth_cap, L,
-                                            nat_tiles is not None)
+    d_switch, P_narrow, P_full = plan.phases
     if use_layout:
         if p.hist_subtraction:
             sel_bound = {P: leafperm.wired_sel_tiles_bound(

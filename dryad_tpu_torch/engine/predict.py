@@ -391,6 +391,72 @@ def predict_binned(booster, Xb: np.ndarray, *, device: torch.device,
     return raw.cpu().numpy()
 
 
+def visible_cards() -> list[torch.device]:
+    """Every visible card, in index order; raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass devices=[...] (CPU devices "
+            "run the plain PyTorch versions)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+# node ids one ``forest_scores`` call of the sharded predict holds at once
+# (rows x trees): each int64 id and its gathered words take ~24 bytes, so
+# a call's temporaries stay near 1.5 GB whatever the block's rows
+SHARD_NODE_BUDGET = 1 << 26
+
+
+def predict_binned_sharded(booster, Xb: np.ndarray,
+                           num_iteration: Optional[int] = None,
+                           devices=None) -> np.ndarray:
+    """``predict_binned`` with the rows split over ``devices`` (default:
+    every visible card; a device may repeat): contiguous blocks in order,
+    one a device, the trees staged once on each distinct device, each
+    block's scores by ``forest_scores`` (bitwise ``accumulate``), the
+    blocks concatenated and an rf model's averaged after.  Every stage is
+    per row and nothing crosses devices but the results, so the answer is
+    bitwise the single-device predict's for any split, blocks without
+    rows included.  A block goes through ``forest_scores`` in pieces of at
+    most ``SHARD_NODE_BUDGET`` (row, tree) ids.  The counterpart of the
+    reference's ``predict_binned_sharded(..., mesh=)``."""
+    from dryad_tpu_torch.dataset import binned_to_device
+    from dryad_tpu_torch.distributed import host_row_range
+
+    devs = ([torch.device(d) for d in devices] if devices is not None
+            else visible_cards())
+    if not devs:
+        raise ValueError("devices must name at least one device")
+    table, value, bitset, init, n_iter = stage_trees(booster, num_iteration)
+    depth = max(booster.max_depth_seen, 1)
+    staged: dict = {}
+    for d in devs:
+        if d not in staged:
+            staged[d] = (table_to(table, d),
+                         torch.from_numpy(value).to(d),
+                         torch.from_numpy(init).to(d),
+                         None if bitset is None
+                         else torch.from_numpy(bitset).to(d))
+    Xb = np.asarray(Xb)
+    step = max(1, SHARD_NODE_BUDGET // max(table_len(table), 1))
+    # every block is launched before any result is fetched, so blocks on
+    # different cards run at once
+    parts = []
+    for i, d in enumerate(devs):
+        lo, hi = host_row_range(Xb.shape[0], i, len(devs))
+        tab, val, ini, bits = staged[d]
+        for a in range(lo, hi, step):
+            b = min(hi, a + step)
+            parts.append(forest_scores(tab, val,
+                                       binned_to_device(Xb[a:b], d), ini,
+                                       depth, bits))
+    K = booster.num_outputs
+    raw = (np.concatenate([p.cpu().numpy() for p in parts]) if parts
+           else np.zeros((0, K), np.float32))
+    if booster.params.boosting == "rf" and n_iter > 0:
+        return rf_average(raw, init, n_iter)
+    return raw
+
+
 def predict_leaves(booster, Xb: np.ndarray, *, device: torch.device,
                    num_iteration: Optional[int] = None) -> np.ndarray:
     """(N, T) int32 leaf node ids of pre-binned rows in the first T =

@@ -49,9 +49,15 @@ rank's labels and weights gathered in rank order, the missing-value
 planes are scanned where any rank has a missing value, the bags are
 drawn over the global rows, each histogram pass is reduced across ranks
 (``grow_any``), and valid sets are whole on every rank, so evals, early
-stopping and the best iteration agree.  Rank 0 alone writes checkpoints,
-and every rank waits for the file.  What needs cross-rank work of its own
-raises (``check_group_supported``).
+stopping and the best iteration agree.  GOSS takes its threshold and top
+count from the group (``engine/goss.py``), lambdarank pads every rank's
+queries (each whole on one rank) to the group's widest S, the L1-family
+renewal sorts every rank's gathered in-bag residuals (``renew_values``),
+and every rank must bin through one mapper (checked by digest, for CSR
+and bundled sets too).  Rank 0 alone writes checkpoints, and every rank
+waits for the file.  A streamed set raises (``check_group_supported``).
+The run's collective plan (``comm_stats``) is exported as the
+``dryad_comm_*`` gauges and kept as ``booster.comm_stats``.
 """
 
 from __future__ import annotations
@@ -69,10 +75,20 @@ from dryad_tpu_torch.config import (
     effective_depth_params,
 )
 from dryad_tpu_torch.dataset import Dataset
-from dryad_tpu_torch.engine.distributed import all_gather_host
+from dryad_tpu_torch.engine.distributed import (
+    all_gather_host,
+    all_gather_rows,
+    all_reduce_max_int,
+    check_same_mapper,
+    ordered_key,
+)
 from dryad_tpu_torch.engine.goss import goss_columns
 from dryad_tpu_torch.engine.grower import grow_any
-from dryad_tpu_torch.engine.lambdarank import PaddingPlan, grad_hess_ranking
+from dryad_tpu_torch.engine.lambdarank import (
+    PaddingPlan,
+    grad_hess_ranking,
+    padded_width,
+)
 from dryad_tpu_torch.engine.loop_state import (
     dart_drop_set,
     normalize_valids,
@@ -125,7 +141,7 @@ def class_grads(obj, score: torch.Tensor, y: torch.Tensor,
 def renew_values(value: torch.Tensor, feature: torch.Tensor,
                  leaves: torch.Tensor, y: torch.Tensor,
                  score_k: torch.Tensor, bag: torch.Tensor, alpha: float,
-                 lr: float, M: int) -> torch.Tensor:
+                 lr: float, M: int, group=None) -> torch.Tensor:
     """Post-growth leaf renewal (``objectives.renew_alpha``): each leaf's
     Newton value becomes the type-1 alpha-quantile of its in-bag residuals
     ``y - score_k`` (the pre-update score), times the learning rate: the
@@ -138,14 +154,26 @@ def renew_values(value: torch.Tensor, feature: torch.Tensor,
     mapped so that their unsigned order is the float order.  As in
     ``lax.sort``, -0.0 and +0.0 compare equal (the key takes +0.0 for
     both) and keep their row order, so the selection is the reference's
-    bit for bit, the sign of a zero included."""
-    n = y.shape[0]
+    bit for bit, the sign of a zero included.
+
+    Under ``group`` each rank's in-bag keys and residuals (12 B a row) are
+    all-gathered in rank order, which is the global row order, and the
+    same stable sort runs on every rank: the single process's selection,
+    bit for bit (out-of-bag rows only ever sank to the tail)."""
     r = y - score_k
     lv = torch.where(bag, leaves.to(torch.int64), M)
-    rk = torch.where(r == 0, 0.0, r)
-    u = rk.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
-    key_s, order = torch.sort((lv << 32) | u, stable=True)
+    key = (lv << 32) | ordered_key(torch.where(r == 0, 0.0, r))
+    if group is not None:
+        # (n_in, 3) int32 words: the key's two halves, the residual's bits
+        words = torch.cat([key[bag].view(torch.int32).view(-1, 2),
+                           r[bag].view(torch.int32)[:, None]], 1)
+        words = all_gather_rows(words, group, "renew")
+        if words.shape[0] == 0:
+            return value
+        key = words[:, :2].contiguous().view(torch.int64)[:, 0]
+        r = words[:, 2].contiguous().view(torch.float32)
+    n = r.shape[0]
+    key_s, order = torch.sort(key, stable=True)
     lv_s, r_s = key_s >> 32, r[order]
     bounds = torch.searchsorted(
         lv_s, torch.arange(M + 1, dtype=torch.int64, device=lv.device))
@@ -159,27 +187,81 @@ def renew_values(value: torch.Tensor, feature: torch.Tensor,
 
 
 def check_group_supported(p: Params, data: Dataset) -> None:
-    """Refuse under a process group what needs cross-rank work beyond the
-    histogram reduction (ROADMAP M12b)."""
+    """Refuse a streamed set under a process group, as the reference
+    refuses one under a mesh: each rank would assemble its rows from its
+    own file."""
     if data.is_streamed:
         raise ValueError(
-            "streamed datasets cannot train over a process group yet: each "
-            "rank would assemble its rows from its own file (ROADMAP "
-            "M12b); materialize() the rank's rows or train one process")
-    why = None
-    if p.boosting == "goss":
-        why = "GOSS (a global top-k of |g|)"
-    elif p.objective == "lambdarank":
-        why = "lambdarank (queries across ranks)"
-    elif renew_alpha(p, weighted=data.weight is not None) is not None:
-        why = f"the leaf renewal of {p.objective} (global per-leaf quantiles)"
-    elif (getattr(data.mapper, "bundled_mask", None) is not None
-          or getattr(data, "sparse_ingest", False)):
-        why = "bundled or CSR datasets (a sketch and a bundle plan per group)"
-    if why is not None:
-        raise NotImplementedError(
-            f"{why} does not train over a process group yet "
-            "(ROADMAP M12b)")
+            "streamed datasets cannot train over a process group: "
+            "materialize() the rank's rows or train one process")
+
+
+def comm_stats(p: Params, F: int, B: int, K: int, n_ranks: int, *,
+               num_rows: int, gate_rows: Optional[int] = None,
+               bin_itemsize: int = 1, has_cat: bool = False) -> dict:
+    """The histogram collectives of one boosting iteration on each rank,
+    by arm: the counterpart of the reference's ``_comm_stats``, with its
+    keys and its per-arm plan, a pure function of the params (effective,
+    as ``train_device`` resolves them), the shape and the rank count.
+    The passes it counts are ``grower.grow_plan``'s, the plan the growers
+    themselves run.  ``num_rows`` is the group's row count, ``gate_rows``
+    its largest rank's (the natural-order gate reads it).
+
+    * fused: one int64 SUM all-reduce per pass, the root of each class
+      and every level (or every split of the sequential grower);
+    * feature: the root stays fused; each level pass is one
+      reduce-scatter, and each level's scan one all-gather of the packed
+      split records.
+
+    Bytes follow ``RowGroup.stats``: what a collective delivers to a rank
+    (an all-reduce its whole buffer, a reduce-scatter its owned block,
+    an all-gather every rank's part), so ``stats["hist"]`` and
+    ``stats["splits"]`` of a run of ``i`` iterations add up to ``i`` times
+    these.  The port's own sizes: 8-byte fixed-point cells, 32-byte split
+    records.  By design the port differs from the reference in three
+    places: each class's root is its own pass (K root calls: the port has
+    no shared multiclass root), a categorical level's raw left sets ride
+    the records' all-gather (one call a level, not two, and 4 bytes a
+    bin), and the sequential grower without histogram subtraction makes
+    two passes a split.  GOSS, the renewal, lambdarank's plan, the shift
+    and the set-up are not counted here (their own ``stats`` purposes)."""
+    from dryad_tpu_torch.engine.grower import grow_plan
+    from dryad_tpu_torch.engine.split import LOCAL_SPLIT_WORDS
+
+    fb = 3 * F * B * 8
+    plan = grow_plan(p, F, B, num_rows=num_rows, gate_rows=gate_rows,
+                     bin_itemsize=bin_itemsize, n_ranks=n_ranks)
+    widths, scan_widths = plan.pass_widths, plan.scan_widths
+    level_calls = len(widths)
+    mode = plan.hist_reduce
+    root_calls = K
+    if mode == "feature":
+        n = max(int(n_ranks), 1)
+        fs = -(-F // n)
+        fb_slice = 3 * fs * B * 8
+        rec_b = LOCAL_SPLIT_WORDS * 4 + (4 * B if has_cat else 0)
+        psum_calls = root_calls
+        psum_bytes = fb * K
+        rs_calls = level_calls * K
+        rs_bytes = K * sum(w * fb_slice for w in widths)
+        ag_calls = len(scan_widths) * K
+        ag_bytes = K * sum(n * 2 * w * rec_b for w in scan_widths)
+    else:
+        psum_calls = root_calls + level_calls * K
+        psum_bytes = (fb + sum(w * fb for w in widths)) * K
+        rs_calls = rs_bytes = ag_calls = ag_bytes = 0
+    return {
+        "n_shards": int(n_ranks),
+        "hist_reduce": mode,
+        "psum_calls_per_iter": psum_calls,
+        "psum_bytes_per_iter": psum_bytes,
+        "reduce_scatter_calls_per_iter": rs_calls,
+        "reduce_scatter_bytes_per_iter": rs_bytes,
+        "all_gather_calls_per_iter": ag_calls,
+        "all_gather_bytes_per_iter": ag_bytes,
+        "collective_calls_per_iter": psum_calls + rs_calls + ag_calls,
+        "collective_bytes_per_iter": psum_bytes + rs_bytes + ag_bytes,
+    }
 
 
 def _empty_out(T: int, M: int, device) -> dict[str, torch.Tensor]:
@@ -237,6 +319,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     B = data.mapper.total_bins
     if group is not None:
         check_group_supported(p, data)
+        check_same_mapper(data.mapper, group)
     valids = normalize_valids(valid)
     for vname, vds in valids:
         if getattr(vds, "is_streamed", False):
@@ -284,8 +367,11 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         if data.query_offsets is None:
             raise ValueError("lambdarank requires query groups "
                              "(Dataset(..., group=...))")
-        # the loop-invariant scatter plan of the lambda pass
-        plan = PaddingPlan(data.query_offsets, device)
+        # the loop-invariant scatter plan of the lambda pass; a group pads
+        # every rank's queries to the widest rank's S
+        S = (None if group is None else all_reduce_max_int(
+            padded_width(data.query_offsets), group, "rank_plan"))
+        plan = PaddingPlan(data.query_offsets, device, S)
 
         def grads(score):
             return [grad_hess_ranking(obj, score[:, 0], y, weight, plan)]
@@ -304,6 +390,17 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             np.array([learn_missing]), group)).any())
     is_cat_feat, bundled_mask = feature_kinds(data.mapper, learn_missing,
                                               device)
+    comm = None
+    if group is not None:
+        # the collective plan a rank runs each iteration, as gauges
+        from dryad_tpu_torch.engine.leafperm import bin_itemsize
+        from dryad_tpu_torch.obs.comm import export_comm_stats
+
+        comm = comm_stats(p, F, B, K, group.world, num_rows=n_all,
+                          gate_rows=group.max_rank_rows,
+                          bin_itemsize=bin_itemsize(Xb),
+                          has_cat=is_cat_feat is not None)
+        export_comm_stats(comm, growth=p.growth)
     # a static bound at or above every tree's depth; traversal is exact for
     # any such bound
     depth_bound = (p.max_depth if p.max_depth > 0
@@ -420,7 +517,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         else:
             gh = rf_gh if rf_gh is not None else grads(score)
         if p.boosting == "goss":
-            gh, bag = goss_columns(p, it, gh, bag)
+            gh, bag = goss_columns(p, it, gh, bag, group)
         for k, (g, h) in enumerate(gh):
             t = it * K + k
             tree = grow_any(p, B, Xb, g, h, bag, fmask,
@@ -432,7 +529,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                 # scores, so all three carry the renewed values
                 tree["value"] = renew_values(
                     tree["value"], tree["feature"], tree["row_leaf"], y,
-                    score[:, k], bag, renew_a, p.effective_learning_rate, M)
+                    score[:, k], bag, renew_a, p.effective_learning_rate, M,
+                    group)
             if value_scale is not None:
                 tree["value"] = tree["value"] * torch.tensor(
                     value_scale, device=device)
@@ -513,4 +611,5 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     if eval_history is not None:
         booster.train_state["eval_history"] = eval_history
     booster.tree_seconds = tree_seconds
+    booster.comm_stats = comm
     return booster

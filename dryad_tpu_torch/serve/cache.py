@@ -1,4 +1,5 @@
-"""Shape-bucketed predict cache: one CUDA graph per (version, bucket).
+"""Shape-bucketed predict cache: one CUDA graph per (version, bucket,
+n_shards) and shard.
 
 Batches are padded up to the next power-of-two row bucket and predicted
 at the bucket shape, so warm traffic touches a small fixed set of
@@ -34,14 +35,31 @@ with it.  The next call re-stages the tables and captures anew; its key
 is not new to the tripwire, so a budget eviction does not degrade
 ``/healthz``.
 
-Bitwise contract: padding rows (bin 0 everywhere) and chunking cannot
-change the real rows' scores, since traversal and the fp32 leaf sums are
-per row, and ``forest_scores`` is bitwise ``accumulate``, the direct
-predict's program.  An rf model's scores are averaged on the host after
-the output comes back.
+Entries come in two families keyed by (version, bucket, n_shards):
 
-The counterpart of ``dryad_tpu/serve/cache.py`` (single-device family
-only: ``n_shards`` is 1 until the port distributes).
+* ``n_shards == 1``: the program on ``device``, the path of small
+  interactive batches;
+* ``n_shards == len(devices)``: the bucket split into that many
+  contiguous blocks of ``bucket / n_shards`` rows, block i on
+  ``devices[i]`` (a device may repeat), each one program (one CUDA graph,
+  captured on that block's device and stream) over the version's tables
+  staged on that device.  Every block is replayed before any output is
+  fetched, so blocks on different cards run at once.
+
+Routing is the reference's, a pure function of the bucket
+(``shards_for``): the sharded family only when ``devices`` holds two or
+more, the bucket divides among them, and ``bucket * num_outputs`` reaches
+``sharded_threshold``; so warming every bucket warms exactly the family
+each bucket will use, and warm traffic captures nothing in either.
+
+Bitwise contract: padding rows (bin 0 everywhere), chunking and the row
+split cannot change the real rows' scores, since traversal and the fp32
+leaf sums are per row, and ``forest_scores`` is bitwise ``accumulate``,
+the direct predict's program.  An rf model's scores are averaged on the
+host after the output comes back.
+
+The counterpart of ``dryad_tpu/serve/cache.py``; ``devices`` plays its
+mesh's part.
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.obs.tripwire import default_tripwire
+from dryad_tpu_torch.serve.registry import indexed_device
 
 PROGRAM = "serve.predict"
 
@@ -91,7 +110,7 @@ class PreparedPredict:
 
 
 class _Graph:
-    """One captured (version, bucket) program and its static buffers."""
+    """One captured program of one block and its static buffers."""
 
     __slots__ = ("state", "x", "out", "graph")
 
@@ -103,34 +122,43 @@ class _Graph:
 
 
 class CompiledPredictCache:
-    """(version, bucket, 1) -> a captured program on ``device``, with
-    hit/compile accounting and per-capture seconds (``capture_s``)."""
+    """(version, bucket, n_shards) -> captured programs, one a shard, with
+    hit/compile accounting and per-capture seconds (``capture_s``).
+    ``devices`` (two or more, the sharded family's blocks in order) and
+    ``sharded_threshold`` (row-outputs; None turns the family off) route
+    a bucket to the sharded family (module doc)."""
 
     GUARDED_BY = {"_warm": "_lock", "_graphs": "_lock",
                   "capture_s": "_lock"}
 
-    n_shards = 1
-
     def __init__(self, device: torch.device, metrics=None, *,
-                 min_bucket: int = 8, max_bucket: int = 4096):
-        self.device = torch.device(device)
+                 min_bucket: int = 8, max_bucket: int = 4096,
+                 devices=None, sharded_threshold: Optional[int] = None):
+        self.device = indexed_device(device)
         self.metrics = metrics
         self.min_bucket = int(min_bucket)
         # a power of two, so chunk remainders re-bucket cleanly
         self.max_bucket = 1 << (int(max_bucket) - 1).bit_length()
+        self.devices = (None if devices is None or len(devices) < 2
+                        else [indexed_device(d) for d in devices])
+        self.n_shards = 1 if self.devices is None else len(self.devices)
+        self.sharded_threshold = (None if sharded_threshold is None
+                                  else int(sharded_threshold))
         self._lock = threading.Lock()            # the dicts below
         self._device_lock = threading.RLock()    # every CUDA call
         self._warm: set[tuple] = set()
-        self._graphs: dict[tuple, _Graph] = {}
+        self._graphs: dict[tuple, list[_Graph]] = {}
         self.capture_s: dict[tuple, float] = {}
-        self._stream = None     # created by the first device call
+        # per card: its capture and replay stream, created by the first
+        # device call there, and one graph memory pool for all captures
+        self._streams: dict = {}
         self._pool = None
         self._tripwire = default_tripwire()
         self._tripwire.begin_program(PROGRAM)
 
     @property
     def num_entries(self) -> int:
-        """Warm (version, bucket, 1) keys."""
+        """Warm (version, bucket, n_shards) keys."""
         with self._lock:
             return len(self._warm)
 
@@ -146,12 +174,27 @@ class CompiledPredictCache:
         self._tripwire.disarm(PROGRAM)
 
     def buckets(self) -> list[int]:
-        """Every bucket this cache can produce: the warmup set."""
+        """Every bucket this cache can produce: the warmup set (routing is
+        a function of the bucket, so it warms both families)."""
         out, b = [], self.min_bucket
         while b <= self.max_bucket:
             out.append(b)
             b <<= 1
         return out
+
+    def shards_for(self, bucket: int, num_outputs: int) -> int:
+        """The family of a bucket: ``n_shards`` when devices are attached,
+        the bucket divides among them and carries at least
+        ``sharded_threshold`` row-outputs, else 1."""
+        if (self.devices is None or self.sharded_threshold is None
+                or bucket % self.n_shards != 0):
+            return 1
+        return (self.n_shards
+                if bucket * int(num_outputs) >= self.sharded_threshold
+                else 1)
+
+    def _shard_devices(self, n_shards: int) -> list[torch.device]:
+        return [self.device] if n_shards == 1 else self.devices
 
     # ---- prediction --------------------------------------------------------
     def prepare_raw(self, entry, Xb: np.ndarray) -> PreparedPredict:
@@ -191,55 +234,91 @@ class CompiledPredictCache:
             return np.zeros((0, entry.num_outputs), np.float32)
         return self.execute_raw(self.prepare_raw(entry, Xb))
 
+    def _stream(self, dev: torch.device):
+        s = self._streams.get(dev)
+        if s is None:
+            s = self._streams[dev] = torch.cuda.Stream(dev)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+        return s
+
+    def _on(self, dev: torch.device):
+        """The context of device work on ``dev``: its card and stream."""
+        if dev.type != "cuda":
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(dev))
+        stack.enter_context(torch.cuda.stream(self._stream(dev)))
+        return stack
+
+    def _state(self, entry, dev: torch.device) -> dict:
+        """The version's tables on ``dev``, uploaded on its stream."""
+        with self._on(dev):
+            return entry.device_state(dev)
+
     def _run(self, entry, chunk: np.ndarray) -> np.ndarray:
-        key = (entry.version, int(chunk.shape[0]), 1)
+        bucket = int(chunk.shape[0])
+        n_shards = self.shards_for(bucket, entry.num_outputs)
+        key = (entry.version, bucket, n_shards)
+        devs = self._shard_devices(n_shards)
+        blocks = np.split(chunk, n_shards)
         cuda = self.device.type == "cuda"
         with self._device_lock:
-            if cuda and self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-                self._pool = torch.cuda.graph_pool_handle()
-            with (torch.cuda.stream(self._stream) if cuda
-                  else contextlib.nullcontext()):
-                state = entry.device_state(self.device)
-                with self._lock:
-                    g = self._graphs.get(key)
-                    hit = (g is not None and g.state is state if cuda
-                           else key in self._warm)
-                    self._warm.add(key)
-                if not hit:
-                    # a first call at this shape: the compile boundary
-                    self._tripwire.note_compile(
-                        PROGRAM, key,
-                        detail=f"version={key[0]} bucket={key[1]}")
-                if self.metrics is not None:
-                    self.metrics.record_cache(hit, entry.version)
-                if not cuda:
-                    return _program(entry, state,
-                                    torch.from_numpy(chunk)).numpy()
-                if not hit:
-                    g = self._capture(entry, state, chunk, key)
-                g.x.copy_(torch.from_numpy(chunk))
-                g.graph.replay()
-                return g.out.cpu().numpy()     # the one host copy
+            states = [self._state(entry, d) for d in devs]
+            with self._lock:
+                gs = self._graphs.get(key)
+                hit = (gs is not None
+                       and all(g.state is st for g, st in zip(gs, states))
+                       if cuda else key in self._warm)
+                self._warm.add(key)
+            if not hit:
+                # a first call at this shape: the compile boundary
+                self._tripwire.note_compile(
+                    PROGRAM, key, detail=f"version={key[0]} "
+                    f"bucket={key[1]} shards={key[2]}")
+            if self.metrics is not None:
+                self.metrics.record_cache(hit, entry.version)
+            if not cuda:
+                return np.concatenate([
+                    _program(entry, st, torch.from_numpy(b).to(d)).cpu()
+                    .numpy() for d, st, b in zip(devs, states, blocks)])
+            if not hit:
+                gs = self._capture(entry, states, blocks, devs, key)
+            for g, b, d in zip(gs, blocks, devs):
+                with self._on(d):
+                    g.x.copy_(torch.from_numpy(b))
+                    g.graph.replay()
+            outs = []
+            for g, d in zip(gs, devs):
+                with self._on(d):
+                    outs.append(g.out.cpu().numpy())   # the one host copy
+            return np.concatenate(outs)
 
-    def _capture(self, entry, state, chunk: np.ndarray, key) -> _Graph:
+    def _capture(self, entry, states, blocks, devs, key) -> list[_Graph]:
         t0 = time.perf_counter()
-        x = torch.zeros(chunk.shape, dtype=torch.from_numpy(chunk[:0]).dtype,
-                        device=self.device)
-        out = torch.empty((chunk.shape[0], entry.num_outputs),
-                          dtype=torch.float32, device=self.device)
-        # one eager run on the capture stream first, as capture requires
-        out.copy_(_program(entry, state, x))
-        self._stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            out.copy_(_program(entry, state, x))
-        self._stream.synchronize()
-        g = _Graph(state, x, out, graph)
+        gs = []
+        for st, b, d in zip(states, blocks, devs):
+            # each block's graph on its own card and that card's stream
+            stream = self._stream(d)
+            with self._on(d):
+                x = torch.zeros(b.shape, dtype=torch.from_numpy(b[:0]).dtype,
+                                device=d)
+                out = torch.empty((b.shape[0], entry.num_outputs),
+                                  dtype=torch.float32, device=d)
+                # one eager run on the capture stream first, as capture
+                # requires
+                out.copy_(_program(entry, st, x))
+            stream.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(d), torch.cuda.graph(
+                    graph, pool=self._pool, stream=stream):
+                out.copy_(_program(entry, st, x))
+            stream.synchronize()
+            gs.append(_Graph(st, x, out, graph))
         with self._lock:
-            self._graphs[key] = g
+            self._graphs[key] = gs
             self.capture_s[key] = time.perf_counter() - t0
-        return g
+        return gs
 
     def evict_version(self, version: int) -> None:
         """Drop a version's graphs, warm keys and capture times (unload,

@@ -85,8 +85,10 @@ class _Handler(BaseHTTPRequestHandler):
         for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
-        self.wfile.write(body)
+        # logged before the body goes out, so a client's next request
+        # cannot be logged ahead of this one
         self._log_request(code)
+        self.wfile.write(body)
 
     def _authorized(self) -> bool:
         if authorized(self, self.server.auth_token):

@@ -37,6 +37,16 @@ import torch
 from dryad_tpu_torch.booster import Booster
 
 
+def indexed_device(device) -> torch.device:
+    """``device`` with its card's index: ``cuda`` and ``cuda:0`` compare
+    unequal, so a bare ``cuda`` would stage a second copy of a version's
+    tables on the same card (and the cache a second stream for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _nbytes(arrays) -> int:
     total = 0
     for a in arrays:
@@ -131,7 +141,9 @@ class ModelEntry:
     def device_state(self, device: torch.device) -> dict:
         """The staged tables as tensors on ``device`` (``table``,
         ``value``, ``bitset`` or None, ``init``, ``n_iter``), uploaded
-        once and shared by every bucket's program."""
+        once and shared by every bucket's program.  Keyed by the indexed
+        device, so ``cuda`` and ``cuda:0`` share one copy."""
+        device = indexed_device(device)
         while True:
             staged = self.staged()
             with self._lock:

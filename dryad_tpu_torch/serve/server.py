@@ -18,9 +18,16 @@ copy, then per-request slicing and the link transform), so batch i+1's
 host work overlaps batch i's device work (``pipeline_depth=1`` keeps the
 serial loop, the bench's comparison arm).
 
+With two or more visible cards (``sharded="auto"``) the cache's sharded
+family splits a big bucket's rows over every card (``serve/cache.py``):
+a bucket takes it when it carries at least ``sharded_threshold``
+row-outputs (``SHARDED_MIN_WORK`` by default; ``sharded=True`` sets 0,
+so every bucket that divides among the cards takes it) and divides among
+them; ``sharded=False`` keeps one card.
+
 The counterpart of ``dryad_tpu/serve/server.py``.  Not ported: the drift
-monitors (the port's boosters carry no reference profile), the policy
-block of ``stats()`` and the sharded family.
+monitors (the port's boosters carry no reference profile) and the policy
+block of ``stats()``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,11 @@ from dryad_tpu_torch.serve.batcher import MicroBatcher, Request, RequestTrace
 from dryad_tpu_torch.serve.cache import CompiledPredictCache
 from dryad_tpu_torch.serve.metrics import ServeMetrics
 from dryad_tpu_torch.serve.registry import ModelRegistry
+
+# the row-outputs (rows x outputs) from which a bucket is split over the
+# cards: the reference's policy-table default ("predict_sharded",
+# "min_work"), kept as a constant of the port
+SHARDED_MIN_WORK = 32768
 
 
 class _PreparedGroup:
@@ -56,16 +68,25 @@ class PredictServer:
     def __init__(self, *, device=None, max_batch_rows: int = 4096,
                  max_wait_ms: float = 2.0, queue_size: int = 256,
                  min_bucket: int = 8, pipeline_depth: int = 2,
-                 device_budget_bytes: Optional[int] = None):
+                 device_budget_bytes: Optional[int] = None,
+                 sharded="auto", sharded_threshold: Optional[int] = None):
         from dryad_tpu_torch import resolve_device
 
         self.device = resolve_device(device)
         self.metrics = ServeMetrics()
         self.registry = ModelRegistry(budget_bytes=device_budget_bytes,
                                       metrics=self.metrics)
+        devices = self._shard_devices(sharded)
+        if sharded_threshold is None:
+            sharded_threshold = SHARDED_MIN_WORK
+        # row-outputs; True takes every dividing bucket, and without two
+        # cards the family is off
+        threshold = (None if devices is None
+                     else 0 if sharded is True else int(sharded_threshold))
         self.cache = CompiledPredictCache(
             self.device, self.metrics, min_bucket=min_bucket,
-            max_bucket=max_batch_rows)
+            max_bucket=max_batch_rows, devices=devices,
+            sharded_threshold=threshold)
         # an eviction must drop the version's graphs, which hold its tables
         self.registry.on_evict = self.cache.evict_version
         self.batcher = MicroBatcher(
@@ -73,6 +94,19 @@ class PredictServer:
             pipeline_depth=pipeline_depth, max_batch_rows=max_batch_rows,
             max_wait_ms=max_wait_ms, queue_size=queue_size,
             metrics=self.metrics)
+
+    def _shard_devices(self, sharded):
+        """Every visible card when there are two or more and sharding is
+        not off, else None."""
+        if sharded not in ("auto", True, False):
+            raise ValueError("sharded must be 'auto', True or False")
+        if self.device.type != "cuda" or sharded is False:
+            return None
+        import torch
+
+        n = torch.cuda.device_count()
+        return ([torch.device("cuda", i) for i in range(n)] if n >= 2
+                else None)
 
     # ---- lifecycle ---------------------------------------------------------
     def start(self) -> "PredictServer":
@@ -250,5 +284,6 @@ class PredictServer:
         snap["pipeline_depth"] = (self.batcher.pipeline_depth
                                   if self.batcher.pipelined else 1)
         snap["mesh_shards"] = self.cache.n_shards
+        snap["sharded_threshold"] = self.cache.sharded_threshold
         snap["memory"] = self.registry.memory()
         return snap

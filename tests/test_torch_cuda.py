@@ -26,7 +26,9 @@ evictions and unloads lowering ``torch.cuda.memory_allocated``; K1 (both
 modes) and K3 through the accumulate-only launch (``reduce=``, what a
 process group's reduction runs between launch and conversion) bitwise
 the full launch; two gloo ranks sharing the card grow bitwise the trees
-of one process, on both reduction arms; a streamed set's chunk by chunk
+of one process, on both reduction arms, and so do GOSS and the l1
+renewal; predict split over two blocks on the card, and the serving
+cache's sharded family, bitwise the single-device answer; a streamed set's chunk by chunk
 device assembly and its trees bitwise the resident set's; arm A1 on the
 card bitwise the CPU and K1; the unpacked routing on the card as the
 other card-vs-CPU tree tests.
@@ -745,6 +747,98 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda_device,
                 if isinstance(v, np.ndarray):
                     np.testing.assert_array_equal(out[name][k], v,
                                                   err_msg=f"{name} {k}")
+
+
+@pytest.mark.cuda
+def test_goss_and_renewal_over_gloo_ranks_on_the_card(cuda_device,
+                                                      tmp_path):
+    """Two rank processes share the card through a gloo group and run
+    GOSS (the group's radix-select threshold and top count on card
+    tensors) and the l1 renewal on the feature arm (the gathered in-bag
+    residuals): the trees one process grows on all 50k rows, bit for
+    bit."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    import torch_dist_worker as W
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    spec = {"world": 2, "store": str(tmp_path / "store"), "timeout_s": 120,
+            "configs": list(W.CARD_MODE_CONFIGS), "device": "cuda:0"}
+    path = str(tmp_path / "spec.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(tests), tests, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable,
+                               os.path.join(tests, "torch_dist_worker.py"),
+                               path, str(r)], env=env)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs)
+    data = W.make_data(card=True)
+    for name in W.CARD_MODE_CONFIGS:
+        want = W.run_config(name, data, group=False, device="cuda")
+        for r in range(2):
+            with open(f"{path}.{r}.out", "rb") as f:
+                out = pickle.load(f)
+            assert "error" not in out, out.get("error")
+            for k, v in want.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(out[name][k], v,
+                                                  err_msg=f"{name} {k}")
+
+
+@pytest.mark.cuda
+def test_sharded_predict_and_cache_on_card(cuda_device):
+    """Predict split over ``[cuda:0, cuda:0]`` (each block its own launch
+    on the card) is bitwise the single-device card predict and the CPU's
+    at uneven row counts; a cache whose sharded family holds two blocks a
+    bucket (two CUDA graphs on the card) serves bitwise the unsharded
+    cache, stages one copy of the tables on the card for both families,
+    and warm traffic captures nothing."""
+    from dryad_tpu_torch.engine.predict import predict_binned_sharded
+    from dryad_tpu_torch.serve.cache import CompiledPredictCache
+    from dryad_tpu_torch.serve.registry import ModelRegistry
+
+    X, b, bc, Xc = _serve_models()
+    two = [torch.device("cuda", 0)] * 2
+    for model, rows in ((b, X), (bc, Xc)):
+        Xb = model.mapper.transform(rows[:5001])
+        for n in (1, 7, 1000, 5001):
+            got = predict_binned_sharded(model, Xb[:n], devices=two)
+            np.testing.assert_array_equal(
+                got, model.predict_binned(Xb[:n], raw_score=True,
+                                          device=cuda_device).reshape(
+                                              got.shape))
+            np.testing.assert_array_equal(
+                got, model.predict_binned(Xb[:n], raw_score=True,
+                                          device="cpu").reshape(got.shape))
+        reg = ModelRegistry()
+        entry = reg.get(reg.add(model))
+        sharded = CompiledPredictCache(cuda_device, max_bucket=512,
+                                       devices=two, sharded_threshold=0)
+        plain = CompiledPredictCache(cuda_device, max_bucket=512)
+        for n in (1, 8, 100, 512, 1300):
+            np.testing.assert_array_equal(sharded.predict_raw(entry, Xb[:n]),
+                                          plain.predict_raw(entry, Xb[:n]))
+        assert any(k[2] == 2 for k in sharded._graphs)
+        assert all(len(g) == k[2] for k, g in sharded._graphs.items())
+        # both families and both caches stage one copy on the one card
+        assert list(entry._device) == [torch.device("cuda", 0)]
+        assert entry.staged_bytes == 2 * entry._staged_bytes
+        n_graphs = len(sharded._graphs)
+        for n in (5, 120, 1000):     # buckets 8, 128 and 512, all warm
+            sharded.predict_raw(entry, Xb[:n])
+        assert len(sharded._graphs) == n_graphs
 
 
 @pytest.mark.cuda

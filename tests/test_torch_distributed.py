@@ -19,7 +19,7 @@ arm (reduce-scatter + combine) on five of these against the fused single
 process, a rank holding no rows on either arm, the legacy arm's
 natural-order gate set between the ranks' row counts (and at 0, which
 only an empty rank passes), a rank-0 checkpoint crashed and resumed
-against the straight run, and the modes a group refuses.  On the
+against the straight run, and the streamed set a group refuses.  On the
 reference's tie-free fixture (``tests/test_hist_reduce.py``) the groups
 of 2 and 3 ranks are also held against the reference's ``train_device``
 over meshes of 2 and 3 devices, on both arms.  Every collective runs under a 60 s group timeout and the parent
@@ -197,9 +197,12 @@ def test_rank0_checkpoint_crash_and_resume(runs, world):
 @pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("mode", list(W.REFUSED))
 def test_refused_modes_raise(runs, mode, world):
+    """A streamed set is the one thing a group refuses, as the reference's
+    mesh refuses it; every other mode is held to one process in
+    ``tests/test_torch_distributed_modes.py``."""
     for out in runs[1][world]:
         msg = out["refused:" + mode]
-        assert msg.startswith("NotImplementedError") and "M12b" in msg, msg
+        assert msg.startswith("ValueError") and "streamed" in msg, msg
 
 
 def test_a_missing_rank_times_out(tmp_path):
