@@ -77,8 +77,9 @@ Phases (any failed check exits non-zero):
    on a capture tree out-of-bag rows carry K3's drop slot and stay out of
    K1 row mode's plan, and K3 at P=8 and K1 row mode at P=2048 equal their
    plain versions; then as in 11 with ``bag_legacy_trees`` trees;
-16. Epsilon-shaped regression (``eps_rows`` x 2000 features + 100k held
-   out, 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
+16. Epsilon-shaped regression (``eps_rows`` x 2000 features + 50k held
+   out, the set's 400k + 100k rows cut to 300k + 50k for the script's
+   time, still past the natural-order gate; 256 bins, max_depth 6, 63 leaves), after the Higgs tensors are
    freed: K1 row mode vs its plain version at the root and the widest
    level (P=32); 7 K1 row-mode launches per tree and no other; a second
    run bitwise equal; held-out RMSE falls from tree 1 to the last and ends
@@ -87,7 +88,8 @@ Phases (any failed check exits non-zero):
 17. Covertype-shaped multiclass (``covertype_like(581k + 100k, 54, 7,
    seed=11)``: 581k training rows, Covertype's size, and 100k held out as
    the valid set; 256 bins; the acceptance config: depthwise, max_depth 6,
-   63 leaves, 30 iterations of 7 class trees): on the last class tree of
+   63 leaves, 30 iterations of 7 class trees, cut to 12
+   (``COV_ITERATIONS``) for the script's time): on the last class tree of
    a capture iteration (the second, where g and h differ by class), K1 at
    the root (P=1; its sums are that class's gradient column and no
    other's) and the last level (P=32) and K2 at
@@ -112,9 +114,10 @@ Phases (any failed check exits non-zero):
    tree of the legacy arm, K3 and K1 row mode against their plain
    versions; the legacy run's K3 and K1 row-mode launches; wired and
    legacy trees equal;
-20. MSLR-WEB30K LambdaMART (``mslr_like(18,919 + 6,306 queries, (5, 234)
-   documents, 136 features, seed=17)``: the train queries of one fold and
-   the next 6,306 as the valid set; the acceptance config: leaf-wise, 31
+20. MSLR-WEB30K LambdaMART (``mslr_like(9,460 + 3,153 queries, (5, 234)
+   documents, 136 features, seed=17)``: half the train queries of one
+   fold (18,919), cut for the script's time, and the next 3,153 (half of
+   6,306) as the valid set; the acceptance config: leaf-wise, 31
    leaves, max_depth 10, 50 trees cut to 15, 256 bins, NDCG@10 every
    iteration).
    145-byte records refuse the wired layout, so the batched grower's
@@ -139,11 +142,11 @@ Phases (any failed check exits non-zero):
    poisson deviance) falls from tree 1 to 10; the device poisson deviance
    within 1e-5 of the host's; a quantile run crashed at tree 6 resumes
    bitwise equal to the straight run; the renewal's device ms per tree;
-22. Criteo, CSR ingest and categorical splits (``criteo_like(10M + 1M,
+22. Criteo, CSR ingest and categorical splits (``criteo_like(1M + 100k,
    seed=19)`` drawn once: 13 dense and 26 categorical features of
-   cardinality 1000; the first 10M (``CRITEO_ROWS``, cut from the public
+   cardinality 1000; the first 1M (``CRITEO_ROWS``, cut from the public
    set's 45.8M for the time limit) train through ``Dataset(None, y,
-   csr=..., categorical_features=...)``, the last 1M, sliced from the same
+   csr=..., categorical_features=...)``, the last 100k, sliced from the same
    CSR triple, bind through the train mapper as the valid set; the
    acceptance config: depthwise, max_depth 6, 63 leaves, 30 trees, 256
    bins, AUC every iteration): the mapper holds 26 categorical features
@@ -152,7 +155,7 @@ Phases (any failed check exits non-zero):
    level) and K2 (level 3) against their plain versions, and the last
    level's categorical scan and route timed with and without their
    categorical arms; 7 K1 and 6 K2 launches per tree; at least one
-   categorical split; a second run bitwise equal; card predict of the 1M
+   categorical split; a second run bitwise equal; card predict of the 100k
    valid rows bitwise equal to CPU predict; the trainer's valid scores
    bitwise equal to predict's; AUC rising from tree 1 to 30, above 0.60,
    its last value within 1e-5 of the host's; set-up seconds by step
@@ -302,12 +305,12 @@ Phases (any failed check exits non-zero):
    mapper digests) with the run's ``comm_stats``: (a) GOSS (rates 0.2 and
    0.1) at the headline config on phase 2's rows, 5 trees, the 1M
    held-out rows as the valid set, on both arms; (b) lambdarank on phase
-   20's MSLR sets (18,919 training queries, 136 features, leaf-wise 31
-   leaves, depth 10, 3 trees), split at query boundaries
+   20's MSLR sets (9,460 training queries, 136 features, leaf-wise 31
+   leaves, depth 10, 2 trees), split at query boundaries
    (``query_row_range``), NDCG@10 on the valid queries; (c) l1 and
    quantile (alpha 0.9) on phase 16's Epsilon matrix at full width (2000
    features, 256 bins, depth 6, 63 leaves, the feature arm), its rows cut
-   to 100k (``REST_EPS_ROWS``) for the script's time, 3 trees each, the
+   to 100k (``REST_EPS_ROWS``) for the script's time, 2 trees each, the
    held-out rows as the valid set; (d) phase 23's 50k-row Criteo CSR
    fixture (39 features, 26 categorical) and its bundled EFB fixture,
    each rank binning its CSR rows through the one mapper, 5 trees each;
@@ -343,6 +346,36 @@ Phases (any failed check exits non-zero):
    programs: answers bitwise, each arm's device ms; (g) a new headline
    config's first tree and first predict of the 1M held-out rows, then
    the same again, with ``DRYAD_PROG`` 1, 0, 0, 1: host seconds.
+37. the command line, drift, the HTTP routes and F2 (M15a), last, in a
+   registry of its own: (a) ``higgs_like(2M + 200k, seed + 37)`` at the
+   headline widths (28 features, 256 bins; rows cut from 10M for the
+   script's time) written to the git-ignored ``_cli_rows/`` (removed
+   after), and ``python -m dryad_tpu_torch train`` (its ``main``, in
+   this process, so the launches count) on the card at the headline
+   config for 20 trees with ``--valid``, ``--metrics-port``,
+   ``--trace-out`` and ``--log-jsonl``: 9 K1 and 8 K2 launches a tree
+   (path "cli_train"); ``/healthz``, ``/metrics`` and ``/stats``
+   scraped during the ``DRYAD_METRICS_HOLD_S`` hold show 20
+   ``train.iteration`` spans; the trace holds their X events; the valid
+   AUC rises above 0.70; the model's profile equals
+   ``build_reference_profile(..., device="cpu")`` over the same model and
+   the rows its stride sample reads; ``predict`` on the card equals
+   ``predict --device cpu`` bitwise; ``dump --text`` round-trips; (b)
+   phase 32's model, which carries its profile (the capture re-run and
+   timed equals it), served with drift on (window 8192) and off:
+   in-distribution traffic stays under the PSI budget 0.2, traffic with
+   feature 0 shifted by 2 sigma breaches in ``drift_report``,
+   ``stats()["drift"]`` and ``dryad_drift_psi_max``; answers bitwise on
+   and off and equal to direct predict; p50 and p99 at 1 and 4096 rows
+   (``SERVE_LAT_REQS`` requests each, the two servers interleaved
+   request by request), and ``run_bench_drift``'s overhead; (c) over HTTP on the card, ``GET
+   /models`` and ``POST /models/load|activate|rollback`` with every
+   answer after them bitwise the serving version's direct predict, and
+   ``/trace/events`` holding a request's spans under its given and its
+   minted trace id; (d) F2: GOSS's |g| on the card bitwise numpy's
+   ``np.sqrt`` on a 7-class equal-score case, and a 7-class GOSS run on
+   the card growing the CPU's trees (integer arrays equal, values within
+   1e-4).
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
@@ -372,6 +405,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 # shared-memory atomic rate of an H100 SXM: 132 SMs x 32 banks (one 32-bit
@@ -383,12 +417,12 @@ SMEM_ATOMIC_SLOTS_PER_S = 132 * 32 * 1.98e9
 SLOTS_PER_UPDATE = 3
 HEADLINE_ROWS = 10_000_000
 HOLDOUT_ROWS = 1_000_000
-EPS_ROWS = 400_000
-EPS_HOLDOUT = 100_000
+EPS_ROWS = 300_000              # of Epsilon's 400k, for the time
+EPS_HOLDOUT = 50_000            # of its 100k
 EPS_FEATURES = 2000
 COV_ROWS = 581_000
 COV_HOLDOUT = 100_000
-COV_ITERATIONS = 30
+COV_ITERATIONS = 12             # of the acceptance config's 30, for the time
 COV_FEATURES = 54
 COV_CLASSES = 7
 OUT = "chiprun_out"
@@ -405,8 +439,36 @@ DIST_RANK_THREADS = 4
 DIST_PROFILE_TREES = 3
 
 
+# the raw rows of phases 16, 20 and 22, drawn on one background thread
+# while the Higgs phases run (numpy's generators and BLAS release the
+# interpreter lock): name -> future of (result, seconds drawing it)
+_DRAWN: dict = {}
+
+
+def draw_ahead(pool, name: str, fn, *args, **kw) -> None:
+    def timed():
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    _DRAWN[name] = pool.submit(timed)
+
+
+def drawn(name: str, fn, *args, **kw) -> tuple:
+    """(``fn(*args, **kw)``, seconds drawing it): the background thread's
+    result where ``draw_ahead`` started it, else drawn here."""
+    fut = _DRAWN.pop(name, None)
+    if fut is not None:
+        return fut.result()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for fut in _DRAWN.values():         # no draw left to wait for at exit
+        fut.cancel()
     sys.exit(1)
 
 
@@ -728,6 +790,21 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def kernel_rows(avgs) -> list:
+    """[(kernel name, self device us, launches)] of a ``key_averages``
+    list, each kernel's rows summed (a grouping by input shape may split
+    a name over rows)."""
+    import torch
+
+    rows: dict = {}
+    for e in avgs:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            r = rows.setdefault(e.key, [0.0, 0])
+            r[0] += dev_us(e)
+            r[1] += e.count
+    return [(k, us, n) for k, (us, n) in rows.items()]
+
+
 def profile_tree(params, ds, dev, fname: str) -> dict:
     """One iteration of the grower, one tree per output (under iteration
     0's bag and feature mask, or GOSS's selection), under torch.profiler: device time by
@@ -783,25 +860,24 @@ def profile_tree(params, ds, dev, fname: str) -> dict:
                  record_shapes=True) as prof:
         tree()
 
-    # kernels only: op-level events carry their kernels' time again
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(dev_us(e) for e in kernels)
-    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+    # one aggregation (each takes seconds at these event counts); kernels
+    # only in the busy time: op-level events carry their kernels' time again
+    avgs = prof.key_averages(group_by_input_shape=True)
+    kernels = kernel_rows(avgs)
+    total_us = sum(us for _, us, _ in kernels)
+    ops = [e for e in avgs
            if e.device_type == torch.autograd.DeviceType.CPU and dev_us(e) > 0]
     with open(os.path.join(OUT, fname), "w") as f:
-        f.write(prof.key_averages(group_by_input_shape=True).table(
-            sort_by="self_cuda_time_total", row_limit=80))
+        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
     del Xb, y, cols
     if total_us <= 0:
         return {"iteration_wall_ms": wall_ms, "device_ms": "not measured"}
-    top_k = sorted(kernels, key=dev_us, reverse=True)[:10]
+    top_k = sorted(kernels, key=lambda r: r[1], reverse=True)[:10]
     top_o = sorted(ops, key=dev_us, reverse=True)[:10]
     return {"iteration_wall_ms": wall_ms, "trees": K,
             "device_ms": total_us / 1e3,
             "busy_share": total_us / 1e3 / wall_ms,
-            "kernels": [[e.key[:60], dev_us(e) / 1e3, e.count]
-                        for e in top_k],
+            "kernels": [[key[:60], us / 1e3, n] for key, us, n in top_k],
             "ops": [[e.key, str(e.input_shapes)[:80], dev_us(e) / 1e3,
                      e.count] for e in top_o]}
 
@@ -1321,13 +1397,13 @@ def profile_train(dt, params, ds, dv, dev, fname: str) -> dict:
                  ) as prof:
         b = run()
 
-    kernels = [e for e in prof.key_averages()
+    avgs = prof.key_averages()          # once: it takes seconds
+    kernels = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in avgs
            if e.device_type == torch.autograd.DeviceType.CPU and dev_us(e) > 0]
     with open(os.path.join(OUT, fname), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=60))
+        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     loop_ms = sum(b.tree_seconds) * 1e3
     total_us = sum(dev_us(e) for e in kernels)
     if total_us <= 0:
@@ -1636,9 +1712,9 @@ def phase_epsilon(dt, a, dev, report) -> tuple:
     from dryad_tpu_torch.metrics import rmse
 
     t0 = time.perf_counter()
-    X, y = datasets.epsilon_like(a.eps_rows + a.eps_holdout,
-                                 num_features=EPS_FEATURES, seed=13)
-    t_gen = time.perf_counter() - t0
+    (X, y), t_gen = drawn("epsilon", datasets.epsilon_like,
+                          a.eps_rows + a.eps_holdout,
+                          num_features=EPS_FEATURES, seed=13)
     ds = dt.Dataset(X[:a.eps_rows], y[:a.eps_rows], max_bins=256)
     Xv_b = ds.mapper.transform(X[a.eps_rows:])
     yv = y[a.eps_rows:]
@@ -1651,7 +1727,7 @@ def phase_epsilon(dt, a, dev, report) -> tuple:
     params = {"objective": "regression", "growth": "depthwise",
               "max_depth": 6, "num_leaves": 63, "max_bins": 256,
               "num_trees": a.eps_trees}
-    # 400k x 2000 u8 is 800 MB, past the natural-order gate: no K3
+    # 300k x 2000 u8 is 600 MB, past the natural-order gate: no K3
     n_nat, n_rows = legacy_calls(ds.num_rows, ds.num_features, 6, 63)
     calls = capture(dt, params, ds, dev, {"rows": (hist, "hist_rows")})
     check(len(calls["rows"]) == n_rows,
@@ -1787,7 +1863,8 @@ def phase_covertype(dt, a, ds, Xv, yv, dv, dev, report) -> tuple:
     del calls, hc, pc
     torch.cuda.empty_cache()
 
-    # the main path: 30 iterations of 7 trees with the held-out valid set
+    # the main path: COV_ITERATIONS iterations of 7 trees with the held-out
+    # valid set
     # scored on the card, evals deferred to the end
     kept, restore = spy_valid_scores(engine_train, K)
     try:
@@ -2046,11 +2123,12 @@ def phase_covertype_fixture(dt, a, dev, report) -> tuple:
 # leaf-wise, 31 leaves, max_depth 10, 50 trees (cut to 25 here, for the
 # script's time), 256 bins, NDCG@10 of the valid set every iteration.  MSLR-WEB30K holds 31,531 queries of ~120
 # documents, 136 features, relevance 0-4; a fold trains on 3/5 of its
-# queries (18,919) and validates on 1/5 (6,306)
+# queries (18,919) and validates on 1/5 (6,306); half of each here, for the
+# script's time
 MSLR = {"objective": "lambdarank", "num_trees": 15, "num_leaves": 31,
         "max_depth": 10, "max_bins": 256}
-MSLR_TRAIN_QUERIES = 18_919
-MSLR_VALID_QUERIES = 6_306
+MSLR_TRAIN_QUERIES = 9_460
+MSLR_VALID_QUERIES = 3_153
 MSLR_DOCS = (5, 234)
 MSLR_FEATURES = 136
 
@@ -2070,13 +2148,13 @@ def leafwise_legacy_calls(n_rows: int, n_features: int,
     return n_nat, 1 + depth - n_nat
 
 
-def kernel_device_ms(prof, names: tuple) -> dict:
+def kernel_device_ms(avgs, names: tuple) -> dict:
     """Device ms and launches of the kernels whose names start with each
-    of ``names`` in a profile."""
+    of ``names`` in a profile's ``key_averages``."""
     import torch
 
     out = {}
-    for e in prof.key_averages():
+    for e in avgs:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         for n in names:
@@ -2125,35 +2203,34 @@ def profile_ranking(p, ds, dev, fname: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         iteration()
-    kernels = [e for e in prof.key_averages()
+    avgs = prof.key_averages()          # once: it takes seconds
+    kernels = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(dev_us(e) for e in kernels)
     with open(os.path.join(OUT, fname), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=80))
+        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
     del Xb, y, plan
     if total_us <= 0:
         return {"iteration_wall_ms": wall_ms, "device_ms": "not measured"}
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     return {"iteration_wall_ms": wall_ms, "device_ms": total_us / 1e3,
             "busy_share": total_us / 1e3 / wall_ms,
-            "by_kernel": kernel_device_ms(prof, ("nat_kernel",
+            "by_kernel": kernel_device_ms(avgs, ("nat_kernel",
                                                  "hist_rows_kernel")),
             "kernels": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
 
 
 def mslr_data(dt) -> tuple:
-    """``mslr_like(18,919 + 6,306 queries, (5, 234) documents, 136
-    features, seed=17)``: the first 18,919 queries train, the next 6,306
+    """``mslr_like(9,460 + 3,153 queries, (5, 234) documents, 136
+    features, seed=17)``: the first 9,460 queries train, the next 3,153
     are the valid set, bound through the train set's mapper with their
     groups."""
     from dryad_tpu_torch import datasets
 
     t0 = time.perf_counter()
-    X, y, group = datasets.mslr_like(MSLR_TRAIN_QUERIES + MSLR_VALID_QUERIES,
-                                     docs_per_query=MSLR_DOCS,
-                                     num_features=MSLR_FEATURES, seed=17)
-    t_gen = time.perf_counter() - t0
+    (X, y, group), t_gen = drawn(
+        "mslr", datasets.mslr_like, MSLR_TRAIN_QUERIES + MSLR_VALID_QUERIES,
+        docs_per_query=MSLR_DOCS, num_features=MSLR_FEATURES, seed=17)
     n = int(group[:MSLR_TRAIN_QUERIES].sum())
     ds = dt.Dataset(X[:n], y[:n], group=group[:MSLR_TRAIN_QUERIES],
                     max_bins=256)
@@ -2348,7 +2425,7 @@ def phase_robust(dt, a, eds, Xv_b, yv, dev, report) -> tuple:
     base = {"growth": "depthwise", "max_depth": 6, "num_leaves": 63,
             "max_bins": 256, "num_trees": T}
     N, F = eds.num_rows, eds.num_features
-    # at 400k rows the matrix is past the K3 gate: K1 row mode only
+    # at 300k rows the matrix is past the K3 gate: K1 row mode only
     n_nat, n_rows = legacy_calls(N, F, 6, 63)
     per_run = {"hist_rows": n_rows * T, "nat": n_nat * T}
     rng = np.random.Generator(np.random.Philox(21))
@@ -2499,13 +2576,13 @@ def phase_robust(dt, a, eds, Xv_b, yv, dev, report) -> tuple:
 # depthwise, max_depth 6, 63 leaves, 30 trees, 256 bins, its 26
 # categorical features, AUC of the valid set every iteration.  The public
 # Criteo Display Advertising Challenge set holds 45,840,617 rows of 13
-# dense and 26 categorical features; the phase trains on 10M criteo_like
+# dense and 26 categorical features; the phase trains on 1M criteo_like
 # rows, a cut made for the script's time limit only
 CRITEO = {"objective": "binary", "num_trees": 30, "num_leaves": 63,
           "max_depth": 6, "growth": "depthwise", "max_bins": 256,
           "metric": "auc"}
-CRITEO_ROWS = 10_000_000
-CRITEO_HOLDOUT = 1_000_000
+CRITEO_ROWS = 1_000_000         # for the script's time
+CRITEO_HOLDOUT = 100_000
 CRITEO_PUBLIC_ROWS = 45_840_617
 _INT_TREE_KEYS = ("feature", "threshold", "left", "right", "default_left",
                   "is_cat", "cat_bitset", "cover")
@@ -2538,9 +2615,9 @@ def criteo_data(dt, rows: int, holdout: int) -> tuple:
     from dryad_tpu_torch import datasets
 
     secs: dict = {}
-    t0 = time.perf_counter()
-    csr, y, cat_ids = datasets.criteo_like(rows + holdout, seed=19)
-    secs["generate"] = time.perf_counter() - t0
+    (csr, y, cat_ids), secs["generate"] = drawn(
+        f"criteo{rows + holdout}", datasets.criteo_like, rows + holdout,
+        seed=19)
     steps = {"_sketch_csr": "sketch", "bin_csr": "bin",
              "plan_bundles": "bundle_plan"}
     real = {k: getattr(dsmod, k) for k in steps}
@@ -2826,7 +2903,7 @@ def phase_criteo_fixtures(dt, a, dev, report) -> tuple:
     check(isinstance(m, BundledMapper) and eds.has_missing
           and any(m.base.is_categorical[b[0]] for b in m.bundles),
           "EFB fixture: no categorical bundle, or no missing values")
-    ep = {"objective": "binary", "num_trees": 10, "num_leaves": 15,
+    ep = {"objective": "binary", "num_trees": 5, "num_leaves": 15,
           "max_bins": 64}
     b_card = dt.train(ep, eds, device=dev)
     b_cpu = dt.train(ep, eds, device=cpu)
@@ -4519,10 +4596,10 @@ REST_GOSS = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
              "boosting": "goss", "goss_top_rate": 0.2,
              "goss_other_rate": 0.1, "num_trees": 5}
-REST_RANK = dict(MSLR, num_trees=3)
-REST_EPS_ROWS = 100_000          # cut from Epsilon's 400k for the time
+REST_RANK = dict(MSLR, num_trees=2)
+REST_EPS_ROWS = 100_000          # cut from phase 16's 300k for the time
 REST_ROBUST = {"growth": "depthwise", "max_depth": 6, "num_leaves": 63,
-               "max_bins": 256, "learning_rate": 0.1, "num_trees": 3}
+               "max_bins": 256, "learning_rate": 0.1, "num_trees": 2}
 REST_CSR = {"objective": "binary", "num_trees": 5, "num_leaves": 63,
             "max_bins": 64, "growth": "depthwise", "max_depth": 6}
 REST_BUCKET = 4096               # the sharded cache's bucket
@@ -5129,6 +5206,387 @@ def phase_policy(dt, a, ds, Xv, yv, dev, report, serve_model) -> tuple:
     return launches, head_launches
 
 
+CLI_ROWS = 2_000_000        # cut from 10M for the script's time
+CLI_VALID = 200_000
+CLI_TREES = 20
+CLI = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+       "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+       "num_trees": CLI_TREES}
+CLI_DIR = os.path.join(ROOT, "_cli_rows")
+CLI_HOLD_S = 3                   # DRYAD_METRICS_HOLD_S of the CLI run
+DRIFT_WINDOW = 8192
+DRIFT_SHIFT_FEATURE = 0
+DRIFT_LAT_BUCKETS = (1, 4096)
+DRIFT_BENCH = dict(clients=4, sizes=(1, 64, 4096), duration_s=1.0, arms=2)
+# F2's reproducer (covertype_like(3000, seed=3), 7 classes, GOSS, 15
+# leaves, 64 bins), depthwise depth 4: its CPU run takes seconds where the
+# reference's leaf-wise default takes half a minute on the plain versions
+F2_GOSS = {"objective": "multiclass", "num_class": 7, "boosting": "goss",
+           "num_leaves": 15, "num_trees": 3, "max_bins": 64,
+           "growth": "depthwise", "max_depth": 4}
+
+
+def _scrape(url: str):
+    import urllib.request
+
+    return urllib.request.urlopen(url, timeout=30).read()
+
+
+def _post(url: str, body: dict, headers=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> dict:
+    """Phase 37: the command line, drift, the HTTP routes and F2 on the
+    card (module doc).  Returns the CLI training run's launches."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.__main__ import main as cli
+    from dryad_tpu_torch.data.profile import (DEFAULT_MAX_ROWS,
+                                              build_reference_profile)
+    from dryad_tpu_torch.engine import cuda_build, goss
+    from dryad_tpu_torch.objectives import get_objective, row_sum
+    from dryad_tpu_torch.obs.registry import (Registry, default_registry,
+                                              set_default_registry)
+    from dryad_tpu_torch.obs.trace_export import (disable_tracing,
+                                                  enable_tracing)
+    from dryad_tpu_torch.serve import PredictServer, run_bench_drift
+    from dryad_tpu_torch.serve.http import TRACE_HEADER, make_http_server
+
+    steps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    rep: dict = {}
+    # this phase's spans and gauges in a registry of their own
+    old_registry = set_default_registry(Registry())
+    os.makedirs(CLI_DIR, exist_ok=True)
+    try:
+        # (a) python -m dryad_tpu_torch train at the headline widths
+        X, y = datasets.higgs_like(CLI_ROWS + CLI_VALID, seed=a.seed + 37)
+        f = {k: os.path.join(CLI_DIR, k + ".npy")
+             for k in ("X", "y", "Xv", "yv")}
+        np.save(f["X"], X[:CLI_ROWS])
+        np.save(f["y"], y[:CLI_ROWS])
+        np.save(f["Xv"], X[CLI_ROWS:])
+        np.save(f["yv"], y[CLI_ROWS:])
+        cfg = os.path.join(CLI_DIR, "cfg.json")
+        with open(cfg, "w") as fh:
+            json.dump(CLI, fh)
+        model = os.path.join(CLI_DIR, "m.dryad")
+        trace = os.path.join(CLI_DIR, "trace.json")
+        log = os.path.join(CLI_DIR, "log.jsonl")
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        lap("data")
+        result: dict = {}
+
+        def run():
+            try:
+                result["rc"] = cli([
+                    "train", "--config", cfg, "--data", f["X"],
+                    "--label", f["y"], "--valid", f["Xv"],
+                    "--valid-label", f["yv"], "--model", model,
+                    "--metrics-port", str(port), "--trace-out", trace,
+                    "--log-jsonl", log, "--quiet"])
+            except BaseException as e:  # noqa: BLE001 — checked below
+                result["error"] = repr(e)
+
+        os.environ["DRYAD_METRICS_HOLD_S"] = str(CLI_HOLD_S)
+        cuda_build.reset_counts()
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        try:
+            stats = None
+            deadline = time.monotonic() + 600
+            while th.is_alive() and time.monotonic() < deadline:
+                try:
+                    stats = json.loads(_scrape(base + "/stats"))
+                except OSError:
+                    stats = None
+                if stats and "train.fetch.final" in stats["spans"]:
+                    break
+                time.sleep(0.05)
+            check(stats is not None and "train.fetch.final"
+                  in stats["spans"],
+                  f"cli: /stats never showed the run's end ({result})")
+            health = json.loads(_scrape(base + "/healthz"))
+            metrics = _scrape(base + "/metrics").decode()
+        finally:
+            th.join(600)
+            del os.environ["DRYAD_METRICS_HOLD_S"]
+        launches = dict(cuda_build.counts)
+        check(result == {"rc": 0}, f"cli: train returned {result}")
+        check_launches(launches, {"hist": 9 * CLI_TREES,
+                                  "perm": 8 * CLI_TREES}, "cli train")
+        spans = stats["spans"]
+        check(spans["train.iteration"]["count"] == CLI_TREES,
+              f"cli: /stats counts {spans['train.iteration']} iterations")
+        check(spans["train.fetch.eval"]["count"] == CLI_TREES,
+              "cli: one eval fetch an iteration (the logger is a callback)")
+        check(health == {"ok": True}, f"cli: /healthz {health}")
+        check(f"dryad_train_iteration {CLI_TREES - 1}" in metrics
+              and "dryad_span_count_total" in metrics,
+              "cli: /metrics lacks the loop's series")
+        rep["stats_spans"] = {k: v for k, v in spans.items()
+                              if k.startswith("train.")}
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        xs = [e for e in events if e["ph"] == "X"]
+        check(sum(e["name"] == "train.iteration" for e in xs) == CLI_TREES,
+              "cli: the trace lacks the iterations' X events")
+        rep["trace_x_events"] = len(xs)
+        with open(log) as fh:
+            lines = [json.loads(line) for line in fh]
+        check(len(lines) == CLI_TREES and "valid_auc" in lines[-1],
+              "cli: --log-jsonl")
+        rep["valid_auc"] = [lines[0]["valid_auc"], lines[-1]["valid_auc"]]
+        rep["iteration_s"] = [line["dispatch_s"] for line in lines]
+        check(rep["valid_auc"][1] > rep["valid_auc"][0]
+              and rep["valid_auc"][1] > 0.70,
+              f"cli: valid AUC {rep['valid_auc']}")
+        lap("cli_train")
+
+        # the model's profile against build_reference_profile on the CPU,
+        # over the rows its stride sample reads (binned through the model's
+        # mapper: binning is per row, so these are the run's bins, and at
+        # most max_rows rows sample themselves whole)
+        b = dt.Booster.load(model)
+        check(b.profile is not None, "cli: the model carries no profile")
+        st_t = -(-CLI_ROWS // DEFAULT_MAX_ROWS)
+        st_v = -(-CLI_VALID // DEFAULT_MAX_ROWS)
+        Xt, Xvs = X[:CLI_ROWS:st_t], X[CLI_ROWS::st_v]
+        cds = dt.Dataset(Xt, y[:CLI_ROWS:st_t], mapper=b.mapper)
+        cvd = dt.Dataset(Xvs, y[CLI_ROWS::st_v], mapper=b.mapper)
+        t0 = time.perf_counter()
+        cpu_profile = build_reference_profile(b, cds, [cvd], device="cpu")
+        rep["profile_cpu_s"] = time.perf_counter() - t0
+        check(cpu_profile.n_rows == len(Xt)
+              and cpu_profile.to_json_dict() == b.profile.to_json_dict(),
+              "cli: the card run's profile != the CPU profile")
+        del cds, cvd, X, y, Xt, Xvs
+        lap("profile_check")
+
+        # predict on the card (its default), bitwise --device cpu
+        p_card = os.path.join(CLI_DIR, "p_card.npy")
+        p_cpu = os.path.join(CLI_DIR, "p_cpu.npy")
+        check(cli(["predict", "--model", model, "--data", f["Xv"],
+                   "--out", p_card]) == 0, "cli: predict on the card")
+        check(cli(["predict", "--model", model, "--data", f["Xv"],
+                   "--out", p_cpu, "--device", "cpu"]) == 0,
+              "cli: predict --device cpu")
+        pc, pp = np.load(p_card), np.load(p_cpu)
+        check(pc.shape == (CLI_VALID,) and np.array_equal(pc, pp),
+              "cli: predict on the card != --device cpu")
+        txt = os.path.join(CLI_DIR, "m.txt")
+        check(cli(["dump", "--model", model, "--text", "--out", txt]) == 0,
+              "cli: dump --text")
+        again = dt.Booster.load_any(txt)
+        Xvc = np.load(f["Xv"])
+        check(again.profile == b.profile and np.array_equal(
+            again.predict(Xvc, raw_score=True, device=dev),
+            b.predict(Xvc, raw_score=True, device=dev)),
+            "cli: dump --text does not round-trip")
+        del Xvc
+        lap("cli_predict_dump")
+
+        # (b) drift in serving on phase 32's model
+        check(serve_model.profile is not None,
+              "drift: phase 32's model carries no profile")
+        sync()
+        t0 = time.perf_counter()
+        again_profile = build_reference_profile(serve_model, ds, device=dev)
+        rep["profile_capture_s"] = time.perf_counter() - t0
+        check(again_profile == serve_model.profile,
+              "drift: phase 32's profile is not the capture's")
+        sd = float(np.nanstd(Xv[:, DRIFT_SHIFT_FEATURE]))
+        shifted = np.array(Xv[:2 * DRIFT_WINDOW], copy=True)
+        shifted[:, DRIFT_SHIFT_FEATURE] += np.float32(2 * sd)
+        answers, drift_rep = {}, {}
+        pool = Xv[:20_000]
+        servers = {arm: PredictServer(device=dev, drift_window=DRIFT_WINDOW,
+                                      drift="auto" if arm == "on"
+                                      else "off") for arm in ("on", "off")}
+        try:
+            for arm, server in servers.items():
+                server.registry.add(serve_model)
+                server.warmup()
+                server.start()
+                got = []
+                for rows in (Xv, shifted):
+                    for i in range(0, 2 * DRIFT_WINDOW, 4096):
+                        got.append(server.predict(rows[i:i + 4096],
+                                                  raw_score=True,
+                                                  timeout=120))
+                    if arm == "on":
+                        drift_rep["in" if rows is Xv else "shifted"] = (
+                            server.drift_report(0.2))
+                answers[arm] = got
+            drift_rep["stats"] = servers["on"].stats()["drift"]
+            # latency with the arms interleaved request by request, the
+            # first arm alternating, so host drift falls on both alike
+            rng = np.random.default_rng(7)
+            ms = {arm: {n: [] for n in DRIFT_LAT_BUCKETS} for arm in servers}
+            for n in DRIFT_LAT_BUCKETS:
+                for i in range(SERVE_LAT_REQS):
+                    s0 = int(rng.integers(0, len(pool) - n))
+                    for arm in (("on", "off") if i % 2 else ("off", "on")):
+                        t0 = time.perf_counter()
+                        servers[arm].predict(pool[s0:s0 + n], timeout=120)
+                        ms[arm][n].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for server in servers.values():
+                server.stop()
+        del servers
+        lat = {arm: {n: {"p50_ms": float(np.percentile(v, 50)),
+                         "p99_ms": float(np.percentile(v, 99))}
+                     for n, v in by_n.items()} for arm, by_n in ms.items()}
+        r_in, r_sh = drift_rep["in"]["v1"], drift_rep["shifted"]["v1"]
+        check(r_in["rows"] >= DRIFT_WINDOW // 2 and not r_in["breached"],
+              f"drift: in-distribution traffic breached: {r_in}")
+        check(r_sh["breached"] and r_sh["psi_max"] > 0.2
+              and r_sh["top"][0]["feature"] == DRIFT_SHIFT_FEATURE,
+              f"drift: a 2 sigma shift of feature {DRIFT_SHIFT_FEATURE} "
+              f"did not breach: {r_sh}")
+        gauges = default_registry().snapshot()["gauges"]
+        check(gauges["dryad_drift_psi_max"]['model="v1"'] > 0.2
+              and drift_rep["stats"]["v1"]["psi_max"] > 0.2,
+              "drift: the gauges or stats() miss the breach")
+        for x_on, x_off in zip(answers["on"], answers["off"]):
+            check(np.array_equal(x_on, x_off),
+                  "drift: served answers differ with drift on and off")
+        check(np.array_equal(answers["on"][0], serve_model.predict(
+            Xv[:4096], raw_score=True, device=dev)),
+            "drift: served != direct predict")
+        rep["drift"] = {"in": r_in, "shifted": r_sh,
+                        "stats": drift_rep["stats"], "latency": lat,
+                        "shift_sd": sd}
+        lap("drift_serving")
+        bench = run_bench_drift(serve_model, device=dev, max_batch_rows=4096,
+                                max_wait_ms=2.0, feature_pool=pool, seed=0,
+                                **DRIFT_BENCH)
+        rep["drift_bench"] = {k: v for k, v in bench.items()
+                              if k != "drift_windows"}
+        lap("drift_bench")
+
+        # (c) the HTTP routes on the card
+        serve_path = os.path.join(CLI_DIR, "serve.dryad")
+        serve_model.save(serve_path)
+        server = PredictServer(device=dev)
+        server.load_model(serve_path)
+        httpd = make_http_server(server, port=0)
+        hbase = f"http://127.0.0.1:{httpd.server_address[1]}"
+        hth = threading.Thread(target=httpd.serve_forever, daemon=True)
+        hth.start()
+        boosters = {1: serve_model, 2: b}
+        rows = Xv[:64]
+        direct = {v: bo.predict(rows, raw_score=True, device=dev)
+                  for v, bo in boosters.items()}
+        admin = []
+        buf = enable_tracing()
+        buf.clear()
+        try:
+            def served(expect):
+                out = json.loads(_post(hbase + "/predict",
+                                       {"rows": rows.tolist(),
+                                        "raw": True}).read())
+                check(out["version"] == expect and np.array_equal(
+                    np.asarray(out["predictions"], np.float32),
+                    direct[expect]),
+                    f"http: /predict after {admin[-1]} != version "
+                    f"{expect}'s direct predict")
+
+            admin.append(json.loads(_scrape(hbase + "/models")))
+            check(admin[-1] == {"active": 1, "versions": [1],
+                                "aliases": {}}, f"http: {admin[-1]}")
+            admin.append(json.loads(_post(hbase + "/models/load",
+                                          {"path": model,
+                                           "name": "cli"}).read()))
+            check(admin[-1] == {"version": 2}, f"http: load {admin[-1]}")
+            served(2)
+            admin.append(json.loads(_post(hbase + "/models/activate",
+                                          {"version": 1}).read()))
+            served(1)
+            admin.append(json.loads(_post(hbase + "/models/rollback",
+                                          {}).read()))
+            check(admin[-1] == {"version": 2}, f"http: rollback {admin[-1]}")
+            served(2)
+            admin.append(json.loads(_scrape(hbase + "/models")))
+            check(admin[-1]["active"] == 2
+                  and admin[-1]["aliases"] == {"cli": 2},
+                  f"http: {admin[-1]}")
+            resp = _post(hbase + "/predict", {"rows": rows[:3].tolist()},
+                         headers={TRACE_HEADER: "phase37"})
+            check(resp.headers[TRACE_HEADER] == "phase37", "http: trace id")
+            minted = _post(hbase + "/predict",
+                           {"rows": rows[:2].tolist()}).headers[TRACE_HEADER]
+            ev = json.loads(_scrape(hbase + "/trace/events"))
+            tagged = {e[4] for e in ev["events"] if len(e) > 4}
+            check({"phase37", minted} <= tagged,
+                  f"http: /trace/events lacks the trace ids ({tagged})")
+            rep["trace_events"] = len(ev["events"])
+        finally:
+            disable_tracing()
+            buf.clear()
+            httpd.shutdown()
+            httpd.server_close()
+            server.stop()
+            hth.join(60)
+        rep["admin"] = admin
+        del server, b
+        lap("http_routes")
+
+        # (d) F2 on the card: GOSS's |g| and a 7-class GOSS run
+        Xc, yc = datasets.covertype_like(3000, seed=3)
+        p = dt.Params.from_dict(F2_GOSS)
+        obj = get_objective(p)
+        init = np.asarray(obj.init_score(yc, None), np.float32).reshape(-1)
+        score = torch.from_numpy(np.tile(init, (len(yc), 1))).to(dev)
+        g, h = obj.grad_hess(score, torch.from_numpy(
+            yc.astype(np.float32)).to(dev))
+        sums = row_sum(g * g)[:, 0]
+        absg = goss.correct_sqrt(sums).cpu().numpy()
+        check(np.array_equal(absg, np.sqrt(sums.cpu().numpy())),
+              "f2: the card's |g| != numpy's correctly rounded root")
+        rep["f2_distinct_sums"] = int(np.unique(sums.cpu().numpy()).size)
+        cds = dt.Dataset(Xc, yc, max_bins=64)
+        ta = dt.train(F2_GOSS, cds, device=dev).tree_arrays()
+        tb = dt.train(F2_GOSS, cds, device="cpu").tree_arrays()
+        for k in ("feature", "threshold", "left", "right", "default_left"):
+            check(np.array_equal(ta[k], tb[k]),
+                  f"f2: the card's 7-class GOSS trees differ in {k}")
+        rep["f2_max_value_diff"] = float(np.max(np.abs(ta["value"]
+                                                       - tb["value"])))
+        check(np.allclose(ta["value"], tb["value"], rtol=1e-4, atol=1e-6),
+              "f2: leaf values beyond 1e-4")
+        lap("f2")
+    finally:
+        set_default_registry(old_registry)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    rep["step_seconds"] = steps
+    print("cli/drift: " + json.dumps(rep, default=str), flush=True)
+    print("cli/drift: CLI train at the headline widths (9 K1 + 8 K2 a "
+          "tree), /stats and the trace show its spans, profile = CPU "
+          "profile, card predict = CPU predict, dump --text round-trips; "
+          "shifted traffic breaches, in-distribution does not, answers "
+          "bitwise with drift on and off; /models and /trace/events; F2 "
+          "card = numpy", flush=True)
+    report["cli"] = rep
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -5226,6 +5684,18 @@ def main() -> int:
     print(f"data: {a.rows} x {ds.num_features}, "
           f"{ds.mapper.total_bins} bins, {report['data_seconds']:.1f} s",
           flush=True)
+
+    # the later phases' raw rows, drawn meanwhile
+    ahead = ThreadPoolExecutor(1)
+    draw_ahead(ahead, "epsilon", datasets.epsilon_like,
+               a.eps_rows + a.eps_holdout, num_features=EPS_FEATURES,
+               seed=13)
+    draw_ahead(ahead, "mslr", datasets.mslr_like,
+               MSLR_TRAIN_QUERIES + MSLR_VALID_QUERIES,
+               docs_per_query=MSLR_DOCS, num_features=MSLR_FEATURES,
+               seed=17)
+    draw_ahead(ahead, f"criteo{CRITEO_ROWS + CRITEO_HOLDOUT}",
+               datasets.criteo_like, CRITEO_ROWS + CRITEO_HOLDOUT, seed=19)
 
     mark("2")
     # ---- 3-6. the wired path ----------------------------------------------
@@ -5351,8 +5821,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     pf_launches, ph_launches = phase_policy(dt, a, ds, Xv, yv, dev, report,
                                             serve_model)
-    del ds, Xv, yv, serve_model
     mark("36")
+    # ---- 37. the command line, drift, the HTTP routes, F2 ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli(dt, a, ds, Xv, dev, report, serve_model)
+    del ds, Xv, yv, serve_model
+    mark("37")
+    ahead.shutdown()
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
                "leafwise_wired": lw_launches, "leafwise_default": ld_launches,
@@ -5371,7 +5847,8 @@ def main() -> int:
                "cv": cv_launches, "estimator_covertype": est_launches,
                "serve_train": sv_launches, "distributed": dist_launches,
                **st_paths, "rest_of_distribution": rest_launches,
-               "profile": pf_launches, "policy_headline": ph_launches}
+               "profile": pf_launches, "policy_headline": ph_launches,
+               "cli_train": cli_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

@@ -138,7 +138,9 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
     train_distributed`` builds it.  ``profile_dir`` traces the whole run
     with ``torch.profiler`` (host ops, and the card's kernels on
     ``cuda``) and writes the Chrome trace ``train_trace.json`` there
-    (open it in Perfetto or ``chrome://tracing``)."""
+    (open it in Perfetto or ``chrome://tracing``).  The returned model
+    carries its drift baseline (``booster.profile``, ``data/profile.py``)
+    unless ``DRYAD_PROFILE=0`` or it trained under ``group``."""
     from dryad_tpu_torch.callbacks import combine
     from dryad_tpu_torch.config import make_params
     from dryad_tpu_torch.engine.train import train_device
@@ -189,20 +191,25 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
 
     cb = combine(([callback] if callback else []) + list(callbacks or []))
     if profile_dir is None:
-        return train_device(p, train_set, valid, init_booster=init_booster,
-                            callback=cb, checkpointer=checkpointer,
-                            device=dev, group=group)
-    import torch
-
-    act = torch.profiler.ProfilerActivity
-    os.makedirs(profile_dir, exist_ok=True)
-    with torch.profiler.profile(activities=[act.CPU] + (
-            [act.CUDA] if dev.type == "cuda" else [])) as prof:
         booster = train_device(p, train_set, valid,
                                init_booster=init_booster, callback=cb,
                                checkpointer=checkpointer, device=dev,
                                group=group)
-    prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
+    else:
+        import torch
+
+        act = torch.profiler.ProfilerActivity
+        os.makedirs(profile_dir, exist_ok=True)
+        with torch.profiler.profile(activities=[act.CPU] + (
+                [act.CUDA] if dev.type == "cuda" else [])) as prof:
+            booster = train_device(p, train_set, valid,
+                                   init_booster=init_booster, callback=cb,
+                                   checkpointer=checkpointer, device=dev,
+                                   group=group)
+        prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
+    if group is None:
+        # a rank holds only its own rows; a group's model has no profile
+        _attach_profile(booster, train_set, valid, dev)
     return booster
 
 
@@ -224,6 +231,26 @@ def _check_append_compatible(p: Params, train_set: Dataset,
             f"the model was grown with {model.params.max_nodes}; derive "
             "the append params from model.params (e.g. "
             "model.params.replace(num_trees=K))")
+
+
+def _attach_profile(booster, train_set, valid_sets, device) -> None:
+    """Embed the drift baseline (``data/profile.py``) in the trained
+    model: a stride subsample and one predict on the run's device.
+    ``DRYAD_PROFILE=0`` skips it.  A failed capture warns and leaves the
+    model without a profile; the trees and predictions do not depend on
+    it."""
+    if os.environ.get("DRYAD_PROFILE", "1") == "0":
+        return
+    try:
+        from dryad_tpu_torch.data.profile import build_reference_profile
+
+        booster.profile = build_reference_profile(booster, train_set,
+                                                  valid_sets, device=device)
+    except Exception as e:  # noqa: BLE001 — telemetry must not fail a run
+        import warnings
+
+        warnings.warn(f"reference-profile capture failed ({e!r}); "
+                      "the model has no drift baseline")
 
 
 def predict(booster: Booster, X: np.ndarray, *, raw_score: bool = False,

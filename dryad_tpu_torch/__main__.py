@@ -1,22 +1,50 @@
-"""Command line of the port: ``python -m dryad_tpu_torch serve|profile``.
+"""Command line of the port: ``python -m dryad_tpu_torch
+train|predict|dump|serve|profile``.
 
+    python -m dryad_tpu_torch train --config params.json --data X.npy \
+        --label y.npy [--valid Xv.npy --valid-label yv.npy] \
+        [--model out.dryad] [--checkpoint-dir DIR --checkpoint-every N \
+        --resume] [--metrics-port N [--metrics-host H] [--auth-token T]] \
+        [--trace-out trace.json] [--log-jsonl log.jsonl] \
+        [--profile-dir DIR] [--device cuda|cpu] [--quiet]
+    python -m dryad_tpu_torch predict --model m.dryad --data X.npy \
+        --out preds.npy [--raw] [--device cuda|cpu]
+    python -m dryad_tpu_torch dump --model m.dryad [--out m.json] [--text]
     python -m dryad_tpu_torch serve --model m.dryad --warmup
-    python -m dryad_tpu_torch serve --model m.dryad --device cpu \\
+    python -m dryad_tpu_torch serve --model m.dryad --device cpu \
         --request rows.npy --out preds.npy
     python -m dryad_tpu_torch profile [--stage NAME ...] [--out p.json]
     python -m dryad_tpu_torch profile --calibrate --calib-out table.json
     python -m dryad_tpu_torch profile --check-calib
     python -m dryad_tpu_torch profile --selftest [--calibrate]
 
+Data files: ``.npy`` (a dense matrix), ``.npz`` holding ``indptr``,
+``indices``, ``values`` and ``num_features`` (CSR rows) or one array, or
+``.csv`` (no header).  The params JSON takes the names and aliases of
+``dryad_tpu_torch.train``.  Every command runs on the card unless given
+``--device cpu``; with no card it raises (``predict`` too, where the
+reference's ``--backend`` defaults to the CPU).
+
+``train`` trains and saves a model file (npz; it loads in the reference
+too) that carries its drift baseline (``data/profile.py``; set
+``DRYAD_PROFILE=0`` to leave it out).  ``--metrics-port`` mounts the
+metrics exporter (``obs/exporter.py``: ``/healthz``, ``/metrics``,
+``/stats`` with the loop's spans, ``/trace``) before the data loads and
+stops it after the run; ``DRYAD_METRICS_HOLD_S`` keeps it up that many
+seconds more.  ``--trace-out`` writes the run's spans as Chrome
+trace_event JSON (``obs/trace_export.py``), also when the run fails.
+The reference's ``--supervise``, ``--journal`` and ``--retry-budget``
+(the supervised run) are not ported yet.  ``predict`` bins CSR ``.npz``
+rows with ``bin_csr``.  ``dump`` prints ``dump_model()`` JSON, or with
+``--text`` the versioned text model (``Booster.load_any`` reads it).
+
 ``serve`` loads one or more model files (npz or text, written by either
 package; ``NAME=path`` registers a routing alias, the last model is
-active) and answers HTTP requests (``serve/http.py``) on the card, or on
-the CPU with ``--device cpu``; with no card and no ``--device cpu`` it
-raises.  ``--request`` runs one matrix through the whole serving stack,
-writes the predictions to ``--out`` and exits.  The counterpart of the
-reference's ``serve`` command (``dryad_tpu/__main__.py``), without its
-drift flags.  ``--sharded auto|on|off`` splits big buckets over every
-visible card (``serve/server.py``).
+active) and answers HTTP requests (``serve/http.py``); ``--request`` runs
+one matrix through the whole serving stack, writes the predictions to
+``--out`` and exits.  ``--drift-window`` sets the drift monitors' window
+in rows (0 turns them off).  ``--sharded auto|on|off`` splits big buckets
+over every visible card (``serve/server.py``).
 
 ``profile`` is the reference's stage profiler: liveness-proven timed
 walls of the named stage probes (``engine/probes.py``) on the card
@@ -29,7 +57,7 @@ the refreshed table); ``--check-calib`` compares a live sweep with the
 committed table (exit 1 on drift).  ``--selftest`` is the CPU gate: the
 seeded dead probe must be caught and every probe must pass liveness;
 with ``--calibrate`` it checks the table and gates instead, no probes.
-The reference's other commands are not ported.
+The reference's ``fleet`` and ``retrain`` commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +66,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -59,6 +88,152 @@ def _load_matrix(path: str):
     raise SystemExit(f"unsupported data format: {path} (use .npy/.npz/.csv)")
 
 
+def _load_vector(path: str) -> np.ndarray:
+    return np.asarray(_load_matrix(path)).reshape(-1)
+
+
+def _make_dataset(data_path, label_path, group_path, params, mapper=None):
+    import dryad_tpu_torch as dt
+
+    y = _load_vector(label_path) if label_path else None
+    group = _load_vector(group_path).astype(np.int64) if group_path else None
+    X = _load_matrix(data_path)
+    kw = dict(group=group, categorical_features=params.categorical_features,
+              max_bins=params.max_bins, mapper=mapper)
+    if isinstance(X, tuple):
+        return dt.Dataset(None, y, csr=X[1], **kw)
+    return dt.Dataset(X, y, **kw)
+
+
+def cmd_train(args) -> int:
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.callbacks import JsonlLogger, log_evaluation
+    from dryad_tpu_torch.config import Params
+
+    # argument checks first: a wrong invocation must not pay for the data
+    # load (minutes at 10M rows)
+    if args.valid and not args.valid_label:
+        raise SystemExit("--valid requires --valid-label")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
+    try:
+        hold = float(os.environ.get("DRYAD_METRICS_HOLD_S", "0") or 0)
+    except ValueError:
+        raise SystemExit("DRYAD_METRICS_HOLD_S must be a number, got "
+                         f"{os.environ['DRYAD_METRICS_HOLD_S']!r}")
+    if args.config:
+        with open(args.config) as f:
+            params = Params.from_dict(json.load(f))
+    else:
+        params = Params()
+    # the device is resolved before the data loads: no card, no load
+    device = dt.resolve_device(args.device)
+
+    exporter = None
+    if args.metrics_port is not None:
+        from dryad_tpu_torch.obs.exporter import start_exporter
+        from dryad_tpu_torch.obs.trends import stats_provider
+
+        # mounted before the data loads, so /healthz answers for the run;
+        # /stats carries the trend report of the cwd's BENCH_r*.json
+        # history under "bench_trends" (empty without one)
+        exporter = start_exporter(host=args.metrics_host,
+                                  port=args.metrics_port,
+                                  auth_token=args.auth_token,
+                                  extra_stats=[stats_provider()])
+        if not args.quiet:
+            print(f"metrics on http://{exporter.host}:{exporter.port}  "
+                  "(GET /stats, /metrics, /trace, /healthz)")
+    trace_buf = None
+    if args.trace_out:
+        from dryad_tpu_torch.obs import trace_export
+
+        trace_buf = trace_export.enable_tracing()
+        # the ring is process-wide: this run's trace holds this run's spans
+        trace_buf.clear()
+
+    logger = None
+    # everything after the exporter starts runs under the finally that
+    # stops it, so a bad --data path leaks no server thread
+    try:
+        ds = _make_dataset(args.data, args.label, args.group, params)
+        valid_sets = None
+        if args.valid:
+            valid_sets = [_make_dataset(args.valid, args.valid_label,
+                                        args.valid_group, params,
+                                        mapper=ds.mapper)]
+        callbacks = []
+        if not args.quiet:
+            callbacks.append(log_evaluation(period=args.log_period))
+        if args.log_jsonl:
+            logger = JsonlLogger(args.log_jsonl)
+            callbacks.append(logger)
+        booster = dt.train(params, ds, valid_sets, callbacks=callbacks,
+                           checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every,
+                           resume=args.resume, device=device,
+                           profile_dir=args.profile_dir)
+    finally:
+        if trace_buf is not None:
+            from dryad_tpu_torch.obs import trace_export
+
+            try:
+                trace_export.write_trace(args.trace_out,
+                                         span_events=trace_buf.events())
+                if not args.quiet:
+                    print(f"wrote Chrome trace -> {args.trace_out}")
+            except Exception as e:  # noqa: BLE001 — the trace must not
+                print(f"trace export failed: {e!r}",  # hide a training
+                      file=sys.stderr)                # error
+            finally:
+                trace_export.disable_tracing()
+        if logger is not None:
+            logger.close()
+        if exporter is not None:
+            if hold > 0:
+                time.sleep(hold)
+            exporter.stop()
+    if args.model:
+        booster.save(args.model)
+        if not args.quiet:
+            print(f"saved {booster.num_iterations} iterations -> {args.model}")
+    return 0
+
+
+def cmd_predict(args) -> int:
+    import dryad_tpu_torch as dt
+
+    device = dt.resolve_device(args.device)
+    booster = dt.Booster.load_any(args.model)
+    X = _load_matrix(args.data)
+    if isinstance(X, tuple):
+        from dryad_tpu_torch.data.binning import bin_csr
+
+        indptr, indices, values, nf = X[1]
+        Xb = bin_csr(indptr, indices, values, nf, booster.mapper)
+        preds = booster.predict_binned(Xb, raw_score=args.raw, device=device)
+    else:
+        preds = booster.predict(np.asarray(X, np.float32), raw_score=args.raw,
+                                device=device)
+    np.save(args.out, preds)
+    print(f"wrote predictions {preds.shape} -> {args.out}")
+    return 0
+
+
+def cmd_dump(args) -> int:
+    import dryad_tpu_torch as dt
+
+    booster = dt.Booster.load_any(args.model)
+    text = (booster.dump_text() if args.text
+            else json.dumps(booster.dump_model(), indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    else:
+        print(text)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from dryad_tpu_torch.serve import PredictServer
 
@@ -73,6 +248,8 @@ def cmd_serve(args) -> int:
         device_budget_bytes=(args.device_budget_mb * (1 << 20)
                              if args.device_budget_mb else None),
         sharded={"auto": "auto", "on": True, "off": False}[args.sharded],
+        drift="off" if args.drift_window == 0 else "auto",
+        drift_window=args.drift_window,
     )
     for spec in args.model:
         # NAME=path registers an alias; a spec that exists on disk, or
@@ -241,6 +418,53 @@ def _profile_calibrate(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m dryad_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a booster")
+    t.add_argument("--config", help="params JSON file")
+    t.add_argument("--data", required=True)
+    t.add_argument("--label", required=True)
+    t.add_argument("--group", help="query sizes for ranking")
+    t.add_argument("--valid")
+    t.add_argument("--valid-label")
+    t.add_argument("--valid-group")
+    t.add_argument("--model", help="output model path")
+    t.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    t.add_argument("--checkpoint-dir")
+    t.add_argument("--checkpoint-every", type=int, default=10)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--log-jsonl", help="per-iteration metrics JSONL path")
+    t.add_argument("--profile-dir",
+                   help="trace the run with torch.profiler into this "
+                        "directory (train_trace.json)")
+    t.add_argument("--trace-out",
+                   help="write the run's span tree as Chrome trace_event "
+                        "JSON here (Perfetto-loadable)")
+    t.add_argument("--log-period", type=int, default=1)
+    t.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /stats, /metrics, /trace and /healthz on "
+                        "this port for the run (0 = any free port)")
+    t.add_argument("--metrics-host", default="127.0.0.1")
+    t.add_argument("--auth-token", default=os.environ.get("DRYAD_AUTH_TOKEN"),
+                   help="bearer token for the metrics endpoint (env "
+                        "DRYAD_AUTH_TOKEN; /healthz stays open)")
+    t.add_argument("--quiet", action="store_true")
+    t.set_defaults(fn=cmd_train)
+
+    pr = sub.add_parser("predict", help="predict with a saved model")
+    pr.add_argument("--model", required=True)
+    pr.add_argument("--data", required=True)
+    pr.add_argument("--out", required=True)
+    pr.add_argument("--raw", action="store_true", help="raw scores (no link)")
+    pr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pr.set_defaults(fn=cmd_predict)
+
+    d = sub.add_parser("dump", help="dump the model as JSON")
+    d.add_argument("--model", required=True)
+    d.add_argument("--out")
+    d.add_argument("--text", action="store_true",
+                   help="the versioned text model (Booster.load_any reads "
+                        "it back)")
+    d.set_defaults(fn=cmd_dump)
     s = sub.add_parser("serve", help="online inference service")
     s.add_argument("--model", required=True, action="append",
                    help="model path (npz or text), or NAME=path for a "
@@ -264,6 +488,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split big predict buckets over every visible card "
                         "(auto: from 32768 row-outputs when there are two or "
                         "more; on: every bucket that divides)")
+    s.add_argument("--drift-window", type=int, default=8192,
+                   help="drift monitor window in rows of recent traffic, "
+                        "for models that carry a reference profile; 0 "
+                        "turns drift telemetry off")
     s.add_argument("--warmup", action="store_true",
                    help="capture every (version, bucket) program at "
                         "startup and arm the recompile tripwire")

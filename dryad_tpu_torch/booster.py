@@ -11,7 +11,10 @@ Holds the same tree arrays as ``dryad_tpu.Booster.tree_arrays()``, shaped
 package loads in the other.  Beside predict the booster gives leaf ids
 (``pred_leaf``), TreeSHAP contributions (``pred_contrib``,
 ``engine/shap.py``), ``refit`` on new rows (``engine/refit.py``),
-``feature_importance`` and ``dump_model``.
+``feature_importance`` and ``dump_model``.  ``profile`` is the optional
+train-time drift baseline (``data/profile.ReferenceProfile``); it rides
+in both formats under the reference's ``profile`` key, and files without
+it load with ``profile`` None.
 """
 
 from __future__ import annotations
@@ -36,11 +39,20 @@ _DTYPES = {"feature": np.int32, "threshold": np.int32, "left": np.int32,
            "default_left": bool, "cover": np.float32}
 
 
+def _profile_from_dict(d):
+    """The optional profile section as an object (None when absent)."""
+    if not d:
+        return None
+    from dryad_tpu_torch.data.profile import ReferenceProfile
+
+    return ReferenceProfile.from_json_dict(d)
+
+
 class Booster:
     def __init__(self, params: Params, mapper: BinMapper,
                  arrays: dict[str, np.ndarray], init_score,
                  max_depth_seen: int, best_iteration: int = -1,
-                 train_state: Optional[dict] = None):
+                 train_state: Optional[dict] = None, profile=None):
         missing = [k for k in ARRAY_KEYS if k not in arrays]
         if missing:
             raise ValueError(f"tree arrays missing: {missing}")
@@ -60,6 +72,8 @@ class Booster:
         # a process-group run's collective plan per iteration
         # (``engine/train.comm_stats``), else None
         self.comm_stats: Optional[dict] = None
+        # the drift baseline (data/profile.py), or None
+        self.profile = profile
 
     @property
     def num_total_trees(self) -> int:
@@ -226,6 +240,8 @@ class Booster:
                 "best_iteration": self.best_iteration,
                 "train_state": self.train_state,
                 "format_version": 1}
+        if self.profile is not None:
+            meta["profile"] = self.profile.to_json_dict()
         buf = io.BytesIO()
         np.savez_compressed(
             buf, **self.arrays, init_score=self.init_score,
@@ -246,8 +262,7 @@ class Booster:
         every tree's node arrays.  Floats are the exact f64 widening of the
         stored f32 (JSON round-trips them exactly); bitsets are sparse,
         ``{node: [CAT_WORDS words]}`` for nodes with a set bit.  The loop
-        state is not written; the reference's optional drift profile is
-        neither written nor read."""
+        state is not written; the drift profile is, when there is one."""
         a = self.arrays
         trees = []
         for t in range(self.num_total_trees):
@@ -278,6 +293,9 @@ class Booster:
             "mapper": self.mapper.to_json_dict(),
             "trees": trees,
         }
+        if self.profile is not None:
+            # integer counts and score states: JSON round-trips them
+            doc["profile"] = self.profile.to_json_dict()
         return json.dumps(doc, indent=1)
 
     def save_text(self, path: str) -> None:
@@ -311,7 +329,8 @@ class Booster:
                    mapper_from_json_dict(doc["mapper"]), arrays,
                    np.asarray(doc["init_score"], np.float32),
                    int(doc["max_depth_seen"]),
-                   int(doc.get("best_iteration", -1)))
+                   int(doc.get("best_iteration", -1)),
+                   profile=_profile_from_dict(doc.get("profile")))
 
     @classmethod
     def load_text(cls, path: str) -> "Booster":
@@ -330,7 +349,7 @@ class Booster:
     def from_bytes(cls, data: bytes) -> "Booster":
         """A model file of either package.  Arrays an older reference file
         lacks take the reference's defaults (gain and cover 0,
-        default_left True); its optional drift profile is not read."""
+        default_left True)."""
         with np.load(io.BytesIO(data)) as z:
             meta = json.loads(bytes(z["meta"]).decode())
             arrays = {k: z[k] for k in ARRAY_KEYS if k in z.files}
@@ -342,4 +361,5 @@ class Booster:
                        BinMapper.from_bytes(bytes(z["mapper"])), arrays,
                        z["init_score"], meta["max_depth_seen"],
                        meta.get("best_iteration", -1),
-                       meta.get("train_state"))
+                       meta.get("train_state"),
+                       _profile_from_dict(meta.get("profile")))

@@ -19,7 +19,9 @@ Binning contract:
 Sketching and binning go feature by feature, in blocks of ``_BLOCK``
 columns copied contiguous and spread over a few threads: numpy's sorts
 and searches release the interpreter lock, and each feature's result
-depends on its own column alone, so the threads change no value.
+depends on its own column alone, so the threads change no value.  A large
+matrix narrower than ``_BLOCK`` columns a thread (Higgs' 28) splits into
+narrower blocks, one or more a thread.
 """
 
 from __future__ import annotations
@@ -36,20 +38,26 @@ MISSING_BIN = 0
 # features per task, and the most threads the host pass uses
 _BLOCK = 64
 _MAX_THREADS = 8
+# cells from which a matrix splits into blocks narrower than ``_BLOCK``
+_SPLIT_CELLS = 1 << 22
 
 
 def _by_feature(X: np.ndarray, fn) -> list:
     """``[fn(f, column f) for f in range(F)]`` of a (N, F) matrix, each
-    column handed over contiguous; blocks of ``_BLOCK`` columns run on a
-    thread pool."""
-    F = X.shape[1]
+    column handed over contiguous; blocks of at most ``_BLOCK`` columns
+    run on a thread pool."""
+    N, F = X.shape
+    threads = min(_MAX_THREADS, os.cpu_count() or 1)
+    width = _BLOCK
+    if N * F >= _SPLIT_CELLS:
+        width = max(1, min(_BLOCK, -(-F // threads)))
 
     def block(f0: int) -> list:
-        cols = np.ascontiguousarray(X[:, f0:f0 + _BLOCK].T)
+        cols = np.ascontiguousarray(X[:, f0:f0 + width].T)
         return [fn(f0 + j, cols[j]) for j in range(cols.shape[0])]
 
-    starts = range(0, F, _BLOCK)
-    threads = min(_MAX_THREADS, os.cpu_count() or 1, len(starts))
+    starts = range(0, F, width)
+    threads = min(threads, len(starts))
     if threads <= 1:
         return [r for f0 in starts for r in block(f0)]
     with ThreadPoolExecutor(threads) as pool:

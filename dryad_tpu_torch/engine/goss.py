@@ -24,6 +24,11 @@ counts, 2 KB each), and the number of top rows, a SUM all-reduce.  Every
 rank's mask and amplified g and h are then the single process's slice bit
 for bit, and a rank without rows in the bag still enters both
 collectives.
+
+``|g|`` is a correctly rounded float32 root (``correct_sqrt``), as numpy
+and XLA give it.  Rows whose sums of squares sit one ulp apart must keep
+roots that order them as the reference's do, since one ulp moves a row
+across the threshold.
 """
 
 from __future__ import annotations
@@ -66,6 +71,15 @@ def goss_uniform_dev(seed: int, iteration: int, num_rows: int,
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def correct_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x`` on every
+    device: a float64 root, rounded once to float32 (53 bits are at least
+    2 x 24 + 2, so the double rounding gives the correctly rounded root).
+    ``torch.sqrt`` of float32 on some CPU builds is one ulp off for a
+    sizable share of inputs."""
+    return torch.sqrt(x.double()).float()
+
+
 def top_threshold(absg: torch.Tensor, top_n: int) -> torch.Tensor:
     """The ``top_n``-th largest of ``absg``, from one full sort: the
     selection's one sort an iteration (``engine/probes.py`` times it)."""
@@ -80,10 +94,10 @@ def goss_select(p, N: int, g_all: torch.Tensor, h_all: torch.Tensor,
     that must never compete (they take -1 and can never reach the
     threshold).  ``|g|`` is ``sqrt`` of the sum of squares over the K
     columns, added column by column, the order XLA reduces a short row
-    in; at K = 1 that is ``sqrt(g * g)``.  The threshold is the
-    ``top_n``-th largest value: of a full sort, or of the group's radix
-    select."""
-    absg = torch.sqrt(row_sum(g_all * g_all)[:, 0])
+    in; at K = 1 that is ``sqrt(g * g)``, rounded correctly
+    (``correct_sqrt``).  The threshold is the ``top_n``-th largest value:
+    of a full sort, or of the group's radix select."""
+    absg = correct_sqrt(row_sum(g_all * g_all)[:, 0])
     absg = torch.where(valid, absg, -1.0)
     top_n = max(1, int(round(p.goss_top_rate * N)))
     if group is None:

@@ -60,9 +60,13 @@ The run's collective plan (``comm_stats``) is exported as the
 ``dryad_comm_*`` gauges and kept as ``booster.comm_stats``.
 
 Every device-to-host fetch of the loop (``eval``, ``checkpoint``,
-``final``) runs under the fetch watchdog (``obs/watchdog.py``), and the
-run's first tree is its compile boundary (``engine/introspect.py``,
-family ``train.step``).
+``final``) runs under the fetch watchdog (``obs/watchdog.py``) and a span
+(``train.fetch.eval|checkpoint|final``), and the run's first tree is its
+compile boundary (``engine/introspect.py``, family ``train.step``).
+While the registry records, each iteration records the spans
+``train.iteration`` (its wall, the one ``tree_seconds`` keeps) and
+``train.grow`` (the host's wall of queueing its K trees) and sets the
+gauge ``dryad_train_iteration``; no span adds a synchronisation.
 """
 
 from __future__ import annotations
@@ -113,6 +117,9 @@ from dryad_tpu_torch.engine.predict import (
 )
 from dryad_tpu_torch.metrics.device import make_evaluator
 from dryad_tpu_torch.objectives import get_objective, renew_alpha
+from dryad_tpu_torch.obs.registry import default_registry
+from dryad_tpu_torch.obs.spans import record as record_span
+from dryad_tpu_torch.obs.spans import span
 from dryad_tpu_torch.obs.watchdog import watch_fetch
 
 TREE_KEYS = ("feature", "threshold", "left", "right", "value", "gain",
@@ -495,7 +502,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         """One fetch of every pending eval, then the books in order."""
         if not deferred:
             return
-        with watch_fetch("eval", deferred[-1][0]):
+        with watch_fetch("eval", deferred[-1][0]), span("train.fetch.eval"):
             fetched = torch.stack([torch.stack(v)
                                    for _, v in deferred]).cpu()
         for (it_d, _), vals in zip(deferred, fetched.tolist()):
@@ -512,6 +519,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
     ones_feat = torch.ones(F, dtype=torch.bool, device=device)
     cuda = device.type == "cuda"
     tree_seconds = []
+    obs = default_registry()
+    obs_iter = None         # the iteration gauge, bound at first use
     for it in range(start_iter, n_iters):
         # a checkpoint taken at the early-stop boundary restores stale >=
         # rounds; growing past it would diverge from the stopped run
@@ -546,6 +555,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             gh = rf_gh if rf_gh is not None else grads(score)
         if p.boosting == "goss":
             gh, bag = goss_columns(p, it, gh, bag, group)
+        t_grow = time.perf_counter() if obs.enabled else None
         for k, (g, h) in enumerate(gh):
             t = it * K + k
             # the compile boundary of the run's tree program: the first
@@ -579,6 +589,10 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                 for vXb, vs in zip(vXbs, vscores):
                     vs[:, k] = add_tree(table, tree["value"], vXb, vs[:, k],
                                         depth_bound, bitset)
+        if t_grow is not None:
+            # the host's wall of queueing the K trees (on the card, not
+            # their device time: the loop does not synchronize here)
+            record_span("train.grow", time.perf_counter() - t_grow)
         if value_scale is not None:
             # the replay-sum over the rescaled table, the function a
             # resumed run rebuilds its scores with (incremental deltas
@@ -605,7 +619,7 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             if not sync_eval:
                 deferred.append((it, vals_dev))
             else:
-                with watch_fetch("eval", it):
+                with watch_fetch("eval", it), span("train.fetch.eval"):
                     vals = torch.stack(vals_dev).cpu().tolist()  # one fetch
                 for vi, ((vname, _), (mname, higher, _)) in enumerate(
                         zip(valids, evaluators)):
@@ -622,7 +636,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             callback(it, info)
         if checkpointer is not None and checkpointer.due(it + 1):
             flush_deferred()
-            with watch_fetch("checkpoint", it + 1):
+            with watch_fetch("checkpoint", it + 1), \
+                    span("train.fetch.checkpoint"):
                 ckpt = _materialize(p, data.mapper, out, (it + 1) * K, init,
                                     max_depth_prev, best_iteration,
                                     best_value, stale)
@@ -636,12 +651,18 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             # per-iteration wall time; a synchronisation, not a fetch
             torch.cuda.synchronize(device)
         tree_seconds.append(time.perf_counter() - t0)
+        if obs.enabled:
+            record_span("train.iteration", tree_seconds[-1])
+            if obs_iter is None:
+                obs_iter = obs.gauge("dryad_train_iteration",
+                                     "Last boosting iteration")
+            obs_iter.set(it)
         if stop:
             n_iters = it + 1
             break
 
     flush_deferred()
-    with watch_fetch("final", n_iters):
+    with watch_fetch("final", n_iters), span("train.fetch.final"):
         booster = _materialize(p, data.mapper, out, n_iters * K, init,
                                max_depth_prev, best_iteration, best_value,
                                stale)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dryad_tpu_torch.engine.goss import correct_sqrt
 from dryad_tpu_torch.metrics import HIGHER_BETTER, ndcg_at_k, resolve_metric
 from dryad_tpu_torch.objectives import row_sum, softmax
 
@@ -83,7 +84,7 @@ def error_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def rmse_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     d = y - s
-    return torch.sqrt((d * d).mean())
+    return correct_sqrt((d * d).mean())
 
 
 def mse_device(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,8 @@
 histograms, read as one ``snapshot()`` dict or as the Prometheus text
 ``exposition()`` that ``/metrics`` serves.
 
-The counterpart of ``dryad_tpu/obs/registry.py``, cut to what serving
-records.  Its contracts hold here too:
+The counterpart of ``dryad_tpu/obs/registry.py``, less its linear
+histogram kind.  Its contracts hold here too:
 
 * host-side only: producers record values the host already holds (a wall
   delta, a count, a queue depth), never a device tensor;
@@ -240,6 +240,12 @@ class Registry:
         self._lock = threading.Lock()
         self._families: dict[str, _Family] = {}
 
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
     def _family(self, name: str, kind: str, help: str) -> _Family:
         fam = self._families.get(name)
         if fam is None:
@@ -252,6 +258,17 @@ class Registry:
             raise ValueError(
                 f"metric {name!r} already registered as a {fam.kind}")
         return fam
+
+    def reset_prefix(self, prefix: str) -> None:
+        """Drop every series of the families whose name starts with
+        ``prefix``: a journal's new ``run_start`` begins a new run, whose
+        ``dryad_run_*`` series must not carry the last run's counts."""
+        with self._lock:
+            fams = [f for f in self._families.values()
+                    if f.name.startswith(prefix)]
+        for fam in fams:
+            with fam.lock:
+                fam.values.clear()
 
     def counter(self, name: str, help: str = "") -> _Family:
         return self._family(name, COUNTER, help)
@@ -314,8 +331,8 @@ _default_lock = threading.Lock()
 
 
 def default_registry() -> Registry:
-    """The shared registry serving records into; created enabled unless
-    ``DRYAD_OBS=0``."""
+    """The shared registry training and serving record into; created
+    enabled unless ``DRYAD_OBS=0``; ``set_default_registry`` swaps it."""
     global _default
     if _default is None:
         with _default_lock:
@@ -324,3 +341,14 @@ def default_registry() -> Registry:
                     enabled=os.environ.get("DRYAD_OBS", "1") != "0")
     return _default
 
+
+
+def set_default_registry(registry: Registry) -> Registry:
+    """Replace the process default (tests); returns the old one, so the
+    caller can restore it."""
+    global _default
+    with _default_lock:
+        old = _default if _default is not None else Registry(
+            enabled=os.environ.get("DRYAD_OBS", "1") != "0")
+        _default = registry
+    return old

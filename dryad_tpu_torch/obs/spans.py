@@ -13,9 +13,16 @@ already does; no span adds a device synchronisation.  With the registry
 disabled ``span`` returns one shared null context and ``record_at``
 returns at once: nothing is allocated.
 
-The counterpart of ``dryad_tpu/obs/spans.py``; its trace sink (the span
-ring behind ``/trace``) is not ported, so the ``trace`` id a request
-carries is accepted and not recorded.
+``record`` records a stage that just ended, from its duration (the
+training loop's per-iteration series).
+
+A trace sink (``set_trace_sink``) receives every completed span as
+``(path, t0_s, dur_s[, trace])``, the request's trace id included:
+``obs/trace_export.py`` installs its ring there and renders Chrome
+trace_event JSON from it.  The sink fires only while the registry
+records, and an exception in it never reaches the caller.
+
+The counterpart of ``dryad_tpu/obs/spans.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,22 @@ SECONDS = "dryad_span_seconds_total"
 COUNT = "dryad_span_count_total"
 
 _TLS = threading.local()
+
+#: the trace sink: None, or a callable(path, t0_s, dur_s[, trace])
+_TRACE_SINK = None
+
+
+def set_trace_sink(sink) -> None:
+    """Install (or clear, with None) the span trace sink; it must be cheap
+    and accept ``(path, t0_s, dur_s)`` and an optional fourth ``trace``
+    argument (``trace_export.SpanTrace.record``)."""
+    global _TRACE_SINK
+    _TRACE_SINK = sink
+
+
+def sink_active() -> bool:
+    """Whether a span trace sink is installed."""
+    return _TRACE_SINK is not None
 
 
 class _NullSpan:
@@ -78,6 +101,12 @@ class _Span:
         if stack and stack[-1] is self:
             stack.pop()
         _emit(self._reg, self.path, dt)
+        sink = _TRACE_SINK
+        if sink is not None:
+            try:
+                sink(self.path, self._t0, dt)
+            except Exception:   # noqa: BLE001 — tracing never breaks
+                pass            # the caller
         return False
 
 
@@ -90,13 +119,52 @@ def span(name: str, registry: Optional[Registry] = None):
     return _Span(reg, name)
 
 
+def record(name: str, seconds: float,
+           registry: Optional[Registry] = None) -> None:
+    """Record a stage that just ended and lasted ``seconds``; ``name`` is
+    the full path (no nesting prefix)."""
+    reg = registry if registry is not None else default_registry()
+    if not reg.enabled:
+        return
+    _emit(reg, name, seconds)
+    sink = _TRACE_SINK
+    if sink is not None:
+        try:
+            # the stage just ended: its start is its duration ago
+            sink(name, time.perf_counter() - seconds, seconds)
+        except Exception:   # noqa: BLE001 — tracing never breaks the caller
+            pass
+
+
 def record_at(name: str, t0_s: float, seconds: float,
               trace: Optional[str] = None,
               registry: Optional[Registry] = None) -> None:
     """Record a completed stage that started at ``t0_s`` (a
     ``perf_counter`` time) and lasted ``seconds``; ``name`` is the full
-    path."""
+    path; ``trace`` is the request's trace id, kept in the trace sink."""
     reg = registry if registry is not None else default_registry()
     if not reg.enabled:
         return
     _emit(reg, name, seconds)
+    sink = _TRACE_SINK
+    if sink is not None:
+        try:
+            sink(name, t0_s, seconds, trace)
+        except Exception:   # noqa: BLE001 — tracing never breaks the caller
+            pass
+
+
+def snapshot(registry: Optional[Registry] = None) -> dict:
+    """``{path: {"count": n, "total_s": s, "mean_ms": m}}``: the span slice
+    of the registry, as ``/stats`` serves it."""
+    reg = registry if registry is not None else default_registry()
+    walls = reg.counter(SECONDS).series()     # the seconds first (_emit)
+    counts = reg.counter(COUNT).series()
+    out = {}
+    for lbl, total in walls.items():
+        # the label block is span="<path>"
+        path = lbl.split('"', 2)[1] if '"' in lbl else lbl
+        n = counts.get(lbl, 0.0)
+        out[path] = {"count": int(n), "total_s": round(total, 6),
+                     "mean_ms": round(total / n * 1e3, 3) if n else 0.0}
+    return out

@@ -27,7 +27,8 @@ Layers (one module each):
 
 from dryad_tpu_torch.serve.batcher import (MicroBatcher, Request,
                                            ServeOverloaded, ServeTimeout)
-from dryad_tpu_torch.serve.bench import run_bench, run_bench_compare
+from dryad_tpu_torch.serve.bench import (run_bench, run_bench_compare,
+                                         run_bench_drift)
 from dryad_tpu_torch.serve.cache import (CompiledPredictCache,
                                          PreparedPredict, bucket_rows)
 from dryad_tpu_torch.serve.metrics import ModelStats, ServeMetrics
@@ -38,5 +39,5 @@ __all__ = [
     "CompiledPredictCache", "MicroBatcher", "ModelEntry", "ModelRegistry",
     "ModelStats", "PredictServer", "PreparedPredict", "Request",
     "ServeMetrics", "ServeOverloaded", "ServeTimeout", "bucket_rows",
-    "run_bench", "run_bench_compare",
+    "run_bench", "run_bench_compare", "run_bench_drift",
 ]

@@ -14,7 +14,8 @@ spread (max/min - 1) beside the rows/s; above 5% the capture is flagged
 ``suspect_capture``.  ``run_bench_compare`` measures the overlapped
 dispatch pipeline against the serial loop on otherwise identical
 servers; ``run_bench_layout`` the packed node words against the SoA
-traversal.  The counterpart of ``dryad_tpu/serve/bench.py``.
+traversal; ``run_bench_drift`` the drift monitors on against off.  The
+counterpart of ``dryad_tpu/serve/bench.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def run_bench(model, *, device=None, clients: int = 4,
               max_batch_rows: int = 256, max_wait_ms: float = 1.0,
               queue_size: int = 1024, min_bucket: int = 8, seed: int = 0,
               pipeline_depth: int = 2, arms: int = 1,
-              feature_pool: Optional[np.ndarray] = None) -> dict:
+              feature_pool: Optional[np.ndarray] = None,
+              drift="auto", drift_window: int = 4096) -> dict:
     """Run the closed loop on ``device`` (default: the card); returns the
     stats snapshot plus the bench fields (rows/s, per-arm spread,
     recompiles_after_warmup).  ``model`` is a Booster or a model path."""
@@ -45,7 +47,8 @@ def run_bench(model, *, device=None, clients: int = 4,
     server = PredictServer(device=device, max_batch_rows=max_batch_rows,
                            max_wait_ms=max_wait_ms, queue_size=queue_size,
                            min_bucket=min_bucket,
-                           pipeline_depth=pipeline_depth)
+                           pipeline_depth=pipeline_depth,
+                           drift=drift, drift_window=drift_window)
     server.registry.add(booster)
     rng = np.random.default_rng(seed)
     if feature_pool is None:
@@ -134,6 +137,44 @@ def summary_line(report: dict, label: str = "serve") -> dict:
         "suspect_capture": report["suspect_capture"],
         "pipeline_depth": report["pipeline_depth"],
         "mesh_shards": report["mesh_shards"],
+    }
+
+
+def run_bench_drift(model, *, arms: int = 2, **kw) -> dict:
+    """The drift monitors' cost: the same closed loop on two otherwise
+    identical servers, monitors on (the model carrying a profile) and
+    off.  ``drift_overhead_ms`` is the cost per request,
+    ``drift_overhead_pct`` the rows/s given up, and
+    ``drift_overhead_spread`` the larger of the two arms' spreads (above
+    ``SPREAD_SUSPECT`` the figure is noise)."""
+    booster = model if isinstance(model, Booster) else Booster.load_any(model)
+    if getattr(booster, "profile", None) is None:
+        # the on arm must run a live monitor: a baseline of a pool binned
+        # through the model's own mapper
+        from dryad_tpu_torch.data.profile import profile_from_binned
+
+        rng = np.random.default_rng(kw.get("seed", 0))
+        pool = rng.standard_normal(
+            (2048, booster.mapper.num_features)).astype(np.float32)
+        booster.profile = profile_from_binned(
+            booster, booster.mapper.transform(pool), device=kw.get("device"))
+    on = run_bench(booster, drift="auto", arms=arms, **kw)
+    off = run_bench(booster, drift=False, arms=arms, **kw)
+    if not on.get("drift"):
+        raise RuntimeError("the monitored arm built no drift monitor; the "
+                           "comparison measured nothing")
+    pct = (off["rows_per_s"] / on["rows_per_s"] - 1
+           if on["rows_per_s"] > 0 else 0.0)
+    ms = ((1.0 / on["requests_per_s"] - 1.0 / off["requests_per_s"]) * 1e3
+          if on["requests_per_s"] > 0 and off["requests_per_s"] > 0 else 0.0)
+    return {
+        "drift_overhead_ms": round(ms, 4),
+        "drift_overhead_pct": round(pct, 4),
+        "drift_overhead_spread": round(max(on["spread_rows_per_s"],
+                                           off["spread_rows_per_s"]), 3),
+        "drift_rows_per_s_on": round(on["rows_per_s"], 1),
+        "drift_rows_per_s_off": round(off["rows_per_s"], 1),
+        "drift_windows": dict(on["drift"]),
     }
 
 

@@ -6,16 +6,28 @@ Endpoints (JSON in and out):
                      "model": null, "binned": false, "timeout": null}
                     -> {"predictions": [...], "version": v}
     GET  /stats     -> PredictServer.stats()
+    GET  /models    -> {"active": v, "versions": [...], "aliases": {...}}
+    POST /models/load      {"path": "...", "activate": true,
+                            "name": null} -> {"version": v}
+    POST /models/activate  {"version": v} -> {"version": v}
+    POST /models/rollback  -> {"version": v}
     GET  /metrics   -> Prometheus text exposition of the telemetry
                        registry
-    GET  /obs       -> the registry's snapshot() JSON
+    GET  /obs       -> the registry's snapshot() JSON, with a "drift"
+                       block of raw window counts per profiled model
+    GET  /trace     -> Chrome trace_event JSON of the span ring
+                       (``obs/trace_export.py``; needs enable_tracing())
+    GET  /trace/events -> the ring's raw events, its drop count and a
+                       clock sample
     GET  /clock     -> {"perf_s", "wall_s"} (auth-exempt)
     GET  /healthz   -> 200 {"ok": true} | 503 {"ok": false, "degraded":
                        [...]} (always auth-exempt)
 
-``X-Dryad-Trace`` on /predict is passed through with the request and
-echoed on the response; ``X-Dryad-Priority`` (``interactive`` or
-``bulk``) labels the per-(priority, stage) latency histograms.
+``X-Dryad-Trace`` on /predict is passed through with the request (a
+16-hex id is minted when it is absent and tracing is on) and echoed on
+the response; the request's stage spans land in the span ring under it.
+``X-Dryad-Priority`` (``interactive`` or ``bulk``) labels the
+per-(priority, stage) latency histograms.
 
 Routing: ``version`` pins a registry version, ``model`` routes by name;
 the default is the active version.
@@ -33,8 +45,7 @@ Requests ride the same micro-batcher as in-process callers
 POSTs coalesce), and numbers cross as JSON: Python floats widen fp32
 exactly, so a float32 reader gets the served bits back.
 
-The counterpart of ``dryad_tpu/serve/http.py``; its model-admin routes,
-``/trace`` and trace-id minting are not ported.
+The counterpart of ``dryad_tpu/serve/http.py``.
 """
 
 from __future__ import annotations
@@ -43,11 +54,13 @@ import json
 import sys
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 
+from dryad_tpu_torch.obs import trace_export
 from dryad_tpu_torch.obs.exporter import authorized, send_unauthorized
 from dryad_tpu_torch.obs.health import healthz_payload
 from dryad_tpu_torch.obs.registry import default_registry
@@ -79,22 +92,23 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send_raw(self, code: int, body: bytes, ctype: str,
                   extra_headers: Optional[dict] = None) -> None:
+        # logged before the status line goes out: a client reading an error
+        # status returns on the headers alone, so its next request could
+        # otherwise be logged ahead of this one
+        self._log_request(code)
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
-        # logged before the body goes out, so a client's next request
-        # cannot be logged ahead of this one
-        self._log_request(code)
         self.wfile.write(body)
 
     def _authorized(self) -> bool:
         if authorized(self, self.server.auth_token):
             return True
-        send_unauthorized(self)
         self._log_request(401)
+        send_unauthorized(self)
         return False
 
     def _log_request(self, status: int) -> None:
@@ -144,13 +158,34 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if not self._authorized():
             return
+        server = self.server.predict_server
         if self.path == "/stats":
-            self._send(200, self.server.predict_server.stats())
+            self._send(200, server.stats())
         elif self.path == "/metrics":
             self._send_raw(200, self.server.obs_registry.exposition().encode(),
                            "text/plain; version=0.0.4; charset=utf-8")
         elif self.path == "/obs":
-            self._send(200, self.server.obs_registry.snapshot())
+            doc = self.server.obs_registry.snapshot()
+            drift = server.drift_state()
+            if drift:
+                doc["drift"] = drift
+            self._send(200, doc)
+        elif self.path == "/trace":
+            buf = trace_export.active_trace()
+            self._send_raw(200, trace_export.dumps_trace(
+                buf.events() if buf is not None else ()).encode(),
+                "application/json")
+        elif self.path == "/trace/events":
+            buf = trace_export.active_trace()
+            events, dropped = buf.export() if buf is not None else ([], 0)
+            self._send(200, {"events": [list(e) for e in events],
+                             "dropped": dropped,
+                             "clock": {"perf_s": time.perf_counter(),
+                                       "wall_s": time.time()}})
+        elif self.path == "/models":
+            self._send(200, {"active": server.registry.active_version,
+                             "versions": server.registry.versions(),
+                             "aliases": server.registry.aliases()})
         else:
             self._send(404, {"error": f"unknown path {self.path}"})
 
@@ -160,16 +195,39 @@ class _Handler(BaseHTTPRequestHandler):
             return
         server = self.server.predict_server
         try:
+            body = self._read_json()
+            if self.path == "/models/load":
+                version = server.load_model(
+                    body["path"], activate=bool(body.get("activate", True)),
+                    name=body.get("name"))
+                self._req_version = version
+                self._send(200, {"version": version})
+                return
+            if self.path == "/models/activate":
+                version = int(body["version"])
+                server.activate(version)
+                self._req_version = version
+                self._send(200, {"version": version})
+                return
+            if self.path == "/models/rollback":
+                version = server.rollback()
+                self._req_version = version
+                self._send(200, {"version": version})
+                return
             if self.path != "/predict":
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
-            body = self._read_json()
             self._fire_fault("request")
             trace = self.headers.get(TRACE_HEADER)
             priority = (self.headers.get(PRIORITY_HEADER)
                         or "interactive").lower()
             if priority not in ("interactive", "bulk"):
                 priority = "interactive"
+            if trace is None and trace_export.tracing_active(
+                    self.server.obs_registry):
+                # minted only while tracing is on: nothing is allocated
+                # on the untraced path
+                trace = uuid.uuid4().hex[:16]
             # resolve the entry first: binned rows arrive in the model's
             # bin dtype, and the answer names the version that served
             entry = server.registry.get(body.get("version"),

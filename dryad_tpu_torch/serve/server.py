@@ -30,8 +30,17 @@ them; ``sharded=False`` keeps one card.
 (``policy.gates.stats_block``): the table's source, the device key and
 the newest decision of every gate.
 
-The counterpart of ``dryad_tpu/serve/server.py``.  Not ported: the drift
-monitors (the port's boosters carry no reference profile).
+Drift monitors (``obs/drift.py``): one per model version whose file
+carries a reference profile, made at its first batch.  ``_prepare``
+counts the binned rows it is about to run into the version's monitor,
+and ``_execute`` the raw scores it fetched; ``drift_report`` and
+``stats()["drift"]`` give the PSI against the profile over the last
+``drift_window`` rows or so.  With ``drift="off"``, ``drift_window=0``
+or the obs registry disabled the monitor table stays None and the
+request path allocates no drift state; a model without a profile costs
+one dict probe a batch.
+
+The counterpart of ``dryad_tpu/serve/server.py``.
 """
 
 from __future__ import annotations
@@ -52,21 +61,27 @@ from dryad_tpu_torch.serve.registry import ModelRegistry
 # "min_work"; the server's default threshold resolves through the table
 SHARDED_MIN_WORK = GATE_DEFAULTS["predict_sharded"]["min_work"]
 
+_DRIFT_UNSET = object()      # "not probed yet" in the monitor table
+
 
 class _PreparedGroup:
-    """One model-version group of a prepared batch (see ``_prepare``)."""
+    """One model-version group of a prepared batch (see ``_prepare``).
+    ``drift`` is the version's DriftMonitor or None: ``_prepare`` counted
+    the binned rows into it and ``_execute`` counts the raw scores (the
+    pipeline's hand-off queue orders the two)."""
 
     __slots__ = ("idxs", "entry", "prepared", "row_counts", "raw_flags",
-                 "error")
+                 "error", "drift")
 
     def __init__(self, idxs, entry=None, prepared=None, row_counts=None,
-                 raw_flags=None, error=None):
+                 raw_flags=None, error=None, drift=None):
         self.idxs = idxs
         self.entry = entry
         self.prepared = prepared
         self.row_counts = row_counts
         self.raw_flags = raw_flags
         self.error = error
+        self.drift = drift
 
 
 class PredictServer:
@@ -74,11 +89,16 @@ class PredictServer:
                  max_wait_ms: float = 2.0, queue_size: int = 256,
                  min_bucket: int = 8, pipeline_depth: int = 2,
                  device_budget_bytes: Optional[int] = None,
-                 sharded="auto", sharded_threshold: Optional[int] = None):
+                 sharded="auto", sharded_threshold: Optional[int] = None,
+                 drift="auto", drift_window: int = 8192):
         from dryad_tpu_torch import resolve_device
 
         self.device = resolve_device(device)
         self.metrics = ServeMetrics()
+        self.drift_window = int(drift_window)
+        drift_on = (drift not in (False, 0, "off", "none")
+                    and self.drift_window > 0 and self.metrics.obs_enabled)
+        self._drift_monitors: Optional[dict] = {} if drift_on else None
         self.registry = ModelRegistry(budget_bytes=device_budget_bytes,
                                       metrics=self.metrics)
         devices = self._shard_devices(sharded)
@@ -246,10 +266,16 @@ class PredictServer:
                      np.concatenate([batch[i].rows for i in idxs], axis=0))
                 if not binned:
                     X = entry.booster.mapper.transform(X)
+                # drift counts the bin ids the program is about to read
+                mon = None
+                if self._drift_monitors is not None:
+                    mon = self._drift_monitor(entry)
+                    if mon is not None:
+                        mon.observe_features(X)
                 out.append(_PreparedGroup(
                     idxs, entry, self.cache.prepare_raw(entry, X),
                     [batch[i].rows.shape[0] for i in idxs],
-                    [batch[i].raw_score for i in idxs]))
+                    [batch[i].raw_score for i in idxs], drift=mon))
             except Exception as e:  # noqa: BLE001 — fail only this group
                 out.append(_PreparedGroup(idxs, error=e))
         return out
@@ -266,6 +292,10 @@ class PredictServer:
                 continue
             try:
                 raw = self.cache.execute_raw(g.prepared)
+                if g.drift is not None:
+                    # the raw margins, before the link: the profile's
+                    # score histograms are of raw scores
+                    g.drift.observe_scores(raw)
                 offset = 0
                 for i, rows, raw_flag in zip(g.idxs, g.row_counts,
                                              g.raw_flags):
@@ -280,6 +310,55 @@ class PredictServer:
     def _dispatch(self, batch: list[Request]) -> list:
         """Serial-mode dispatch: the two stages in line."""
         return self._execute(self._prepare(batch))
+
+    # ---- drift monitors (obs/drift.py) -------------------------------------
+    def _drift_monitor(self, entry):
+        """The version's monitor, made at its first batch when the model
+        carries a profile (None is cached otherwise).  Runs on the
+        collector thread only."""
+        table = self._drift_monitors
+        mon = table.get(entry.version, _DRIFT_UNSET)
+        if mon is _DRIFT_UNSET:
+            profile = getattr(entry.booster, "profile", None)
+            if profile is None:
+                mon = None
+            else:
+                from dryad_tpu_torch.obs.drift import DriftMonitor
+
+                # labelled by the registry name when there is one, else
+                # by the version
+                names = [n for n, v in self.registry.aliases().items()
+                         if v == entry.version]
+                label = names[0] if names else f"v{entry.version}"
+                mon = DriftMonitor(
+                    profile.feature_counts,
+                    ref_score_state=profile.score_hist.get("train"),
+                    model=label, window_rows=self.drift_window,
+                    registry=self.metrics.obs_registry)
+            table[entry.version] = mon
+        return mon
+
+    def drift_state(self) -> dict:
+        """Raw drift blocks (window counts) by model label, as ``/obs``
+        serves them for an exact merge across replicas."""
+        if not self._drift_monitors:
+            return {}
+        out = {}
+        # one copy of the table: the collector thread may add a version
+        for mon in list(self._drift_monitors.values()):
+            if mon is not None:
+                block = mon.export_state()
+                out[block["model"]] = block
+        return out
+
+    def drift_report(self, budget_psi: Optional[float] = None) -> dict:
+        """PSI verdicts by model label (this also sets the
+        ``dryad_drift_*`` gauges)."""
+        if not self._drift_monitors:
+            return {}
+        return {mon.model: mon.snapshot(budget_psi)
+                for mon in list(self._drift_monitors.values())
+                if mon is not None}
 
     # ---- observability -----------------------------------------------------
     def stats(self) -> dict:
@@ -297,4 +376,10 @@ class PredictServer:
         from dryad_tpu_torch.policy.gates import stats_block
 
         snap["policy"] = stats_block()
+        drift = self.drift_report()
+        if drift:
+            snap["drift"] = {
+                model: {"rows": r["rows"], "psi_max": r["psi_max"],
+                        "score_psi": r["score_psi"]}
+                for model, r in drift.items()}
         return snap

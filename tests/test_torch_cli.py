@@ -1,0 +1,247 @@
+"""The port's ``train``, ``predict`` and ``dump`` commands on the CPU: the
+counterparts of ``tests/test_cli.py:26-50,106-126,175-185``.
+
+* A round trip of ``train`` (with a valid set and ``--log-jsonl``),
+  ``predict`` and ``dump`` (JSON and ``--text``) with ``--device cpu``;
+  the model file carries its drift baseline, loads in the reference and
+  predicts there bitwise, profile included.
+* CSR ``.npz`` input through ``bin_csr``.
+* Argument parsing and the guards that run before any data loads.
+* ``--metrics-port`` with ``DRYAD_METRICS_HOLD_S``: ``/healthz``,
+  ``/metrics`` and ``/stats`` scraped during the hold show the loop's 5
+  iterations.
+* ``serve --drift-window 0`` serves without monitors; the default window
+  serves with one.
+"""
+
+import io
+import json
+import os
+import socket
+import threading
+import time
+import urllib.request
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+
+import dryad_tpu
+from dryad_tpu.datasets import criteo_like, higgs_like
+from dryad_tpu.metrics import auc
+
+import dryad_tpu_torch as dt
+from dryad_tpu_torch.__main__ import main
+from torch_layout import one_torch_thread  # noqa: F401 (autouse)
+
+CFG = dict(objective="binary", num_trees=5, num_leaves=7, max_bins=32)
+
+
+@pytest.fixture()
+def paths(tmp_path):
+    X, y = higgs_like(2000, seed=41)
+    np.save(tmp_path / "X.npy", X)
+    np.save(tmp_path / "y.npy", y)
+    np.save(tmp_path / "Xv.npy", X[:500])
+    np.save(tmp_path / "yv.npy", y[:500])
+    (tmp_path / "cfg.json").write_text(json.dumps(CFG))
+    return tmp_path
+
+
+def _train(paths, *extra):
+    return main(["train", "--config", str(paths / "cfg.json"),
+                 "--data", str(paths / "X.npy"),
+                 "--label", str(paths / "y.npy"),
+                 "--device", "cpu", "--quiet", *extra])
+
+
+def test_train_predict_dump_roundtrip(paths, monkeypatch):
+    monkeypatch.setenv("DRYAD_PROFILE", "1")
+    model = str(paths / "m.dryad")
+    assert _train(paths, "--valid", str(paths / "Xv.npy"),
+                  "--valid-label", str(paths / "yv.npy"),
+                  "--model", model,
+                  "--log-jsonl", str(paths / "log.jsonl")) == 0
+    lines = [json.loads(line) for line in open(paths / "log.jsonl")]
+    assert len(lines) == 5 and "valid_auc" in lines[0]
+    b = dt.Booster.load(model)
+    assert b.profile is not None
+    assert sorted(b.profile.score_hist) == ["train", "valid"]
+
+    assert main(["predict", "--model", model, "--data",
+                 str(paths / "X.npy"), "--out", str(paths / "p.npy"),
+                 "--device", "cpu"]) == 0
+    assert main(["predict", "--model", model, "--data",
+                 str(paths / "X.npy"), "--out", str(paths / "r.npy"),
+                 "--device", "cpu", "--raw"]) == 0
+    preds, raw = np.load(paths / "p.npy"), np.load(paths / "r.npy")
+    X, y = np.load(paths / "X.npy"), np.load(paths / "y.npy")
+    assert auc(y, preds) > 0.6
+    # the port's file predicts bitwise in the reference, profile included
+    jb = dryad_tpu.Booster.load(model)
+    np.testing.assert_array_equal(jb.predict(X), preds)
+    np.testing.assert_array_equal(jb.predict(X, raw_score=True), raw)
+    assert jb.profile.to_json_dict() == b.profile.to_json_dict()
+
+    assert main(["dump", "--model", model, "--out",
+                 str(paths / "m.json")]) == 0
+    dump = json.loads((paths / "m.json").read_text())
+    assert dump["num_iterations"] == 5 and len(dump["trees"]) == 5
+    assert main(["dump", "--model", model, "--text", "--out",
+                 str(paths / "m.txt")]) == 0
+    again = dt.Booster.load_any(str(paths / "m.txt"))
+    assert again.profile == b.profile
+    np.testing.assert_array_equal(
+        again.predict(X, raw_score=True, device="cpu"), raw)
+    # the text model is the predict command's input too
+    assert main(["predict", "--model", str(paths / "m.txt"), "--data",
+                 str(paths / "X.npy"), "--out", str(paths / "t.npy"),
+                 "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(np.load(paths / "t.npy"), preds)
+
+
+def test_cli_csr_npz_train_predict(tmp_path):
+    (indptr, indices, values, F), y, cat_ids = criteo_like(n=2000, seed=43)
+    np.savez(tmp_path / "X.npz", indptr=indptr, indices=indices,
+             values=values, num_features=F)
+    np.save(tmp_path / "y.npy", y)
+    cfg = dict(objective="binary", num_trees=4, num_leaves=15, max_bins=64,
+               categorical_features=list(cat_ids))
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    model = str(tmp_path / "m.dryad")
+    assert main(["train", "--config", str(tmp_path / "cfg.json"),
+                 "--data", str(tmp_path / "X.npz"), "--label",
+                 str(tmp_path / "y.npy"), "--model", model,
+                 "--device", "cpu", "--quiet"]) == 0
+    assert main(["predict", "--model", model, "--data",
+                 str(tmp_path / "X.npz"), "--out", str(tmp_path / "p.npy"),
+                 "--device", "cpu"]) == 0
+    preds = np.load(tmp_path / "p.npy")
+    assert preds.shape == (2000,) and auc(y, preds) > 0.55
+    # the reference's CLI predicts the port's file bitwise on the same CSR
+    from dryad_tpu.__main__ import main as jmain
+
+    assert jmain(["predict", "--model", model, "--data",
+                  str(tmp_path / "X.npz"),
+                  "--out", str(tmp_path / "jp.npy")]) == 0
+    np.testing.assert_array_equal(np.load(tmp_path / "jp.npy"), preds)
+
+
+def test_cli_arg_parsing_and_guards(paths, monkeypatch, capsys):
+    with pytest.raises(SystemExit):                 # --data is required
+        main(["train", "--label", "y.npy"])
+    with pytest.raises(SystemExit):                 # no such device
+        main(["train", "--data", "x", "--label", "y", "--device", "tpu"])
+    with pytest.raises(SystemExit):
+        main(["predict", "--model", "m"])           # --data, --out
+    with pytest.raises(SystemExit):
+        main(["dump"])                              # --model
+    with pytest.raises(SystemExit):
+        main(["serve"])                             # --model
+    with pytest.raises(SystemExit):
+        main(["serve", "--model", "m.dryad", "--device", "gpu"])
+    capsys.readouterr()
+    missing = str(paths / "absent.npy")
+    # the guards run before any data is read (the files do not exist)
+    with pytest.raises(SystemExit, match="--valid requires --valid-label"):
+        main(["train", "--data", missing, "--label", missing,
+              "--valid", missing, "--device", "cpu", "--quiet"])
+    with pytest.raises(SystemExit, match="--resume requires"):
+        main(["train", "--data", missing, "--label", missing, "--resume",
+              "--device", "cpu", "--quiet"])
+    monkeypatch.setenv("DRYAD_METRICS_HOLD_S", "soon")
+    with pytest.raises(SystemExit, match="DRYAD_METRICS_HOLD_S"):
+        main(["train", "--data", missing, "--label", missing,
+              "--device", "cpu", "--quiet"])
+    monkeypatch.delenv("DRYAD_METRICS_HOLD_S")
+    with pytest.raises(SystemExit, match="--request requires --out"):
+        main(["serve", "--model", str(paths / "nope.dryad"),
+              "--request", str(paths / "X.npy"), "--device", "cpu"])
+    # a failing run still stops its exporter and removes the trace sink
+    from dryad_tpu_torch.obs import spans
+
+    with pytest.raises(FileNotFoundError):
+        main(["train", "--data", missing, "--label", missing,
+              "--device", "cpu", "--quiet", "--metrics-port", "0",
+              "--trace-out", str(paths / "t.json")])
+    assert spans._TRACE_SINK is None
+    assert json.loads((paths / "t.json").read_text())["traceEvents"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_metrics_port_serves_the_run_during_the_hold(paths, monkeypatch):
+    from dryad_tpu_torch.obs.registry import Registry
+
+    # a registry of this run's own, restored after it
+    monkeypatch.setattr("dryad_tpu_torch.obs.registry._default", Registry())
+    port = _free_port()
+    monkeypatch.setenv("DRYAD_METRICS_HOLD_S", "4")
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = _train(paths, "--metrics-port", str(port),
+                                  "--model", str(paths / "m.dryad"))
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            result["error"] = e
+
+    base = f"http://127.0.0.1:{port}"
+    t = threading.Thread(target=run)
+    t.start()
+    try:
+        stats = None
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and t.is_alive():
+            try:
+                stats = json.loads(urllib.request.urlopen(
+                    base + "/stats", timeout=5).read())
+            except OSError:
+                stats = None
+            if stats and stats["spans"].get("train.fetch.final"):
+                break
+            time.sleep(0.05)
+        assert stats is not None, result
+        assert stats["spans"]["train.iteration"]["count"] == 5
+        assert stats["gauges"]["dryad_train_iteration"][""] == 4
+        assert "ok" in stats["bench_trends"]      # the trends provider
+        assert json.loads(urllib.request.urlopen(
+            base + "/healthz", timeout=5).read())["ok"] is True
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=5).read().decode()
+        assert "dryad_span_count_total" in text
+    finally:
+        t.join(60)
+    assert result == {"rc": 0}
+    assert os.path.exists(paths / "m.dryad")     # saved after the hold
+    with pytest.raises(OSError):
+        urllib.request.urlopen(base + "/healthz", timeout=2)
+
+
+def test_serve_drift_window_zero_serves_without_monitors(paths,
+                                                         monkeypatch):
+    monkeypatch.setenv("DRYAD_PROFILE", "1")
+    model = str(paths / "m.dryad")
+    assert _train(paths, "--model", model) == 0
+    outs, stats = [], []
+    for window in ("0", "8192"):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert main(["serve", "--model", model, "--device", "cpu",
+                         "--max-batch-rows", "64", "--drift-window", window,
+                         "--request", str(paths / "X.npy"),
+                         "--out", str(paths / f"s{window}.npy")]) == 0
+        text = buf.getvalue()
+        stats.append(json.loads(text[text.index("{"):]))
+        outs.append(np.load(paths / f"s{window}.npy"))
+    assert "drift" not in stats[0]
+    assert stats[1]["drift"]["v1"]["rows"] == 2000
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert main(["predict", "--model", model, "--data",
+                 str(paths / "X.npy"), "--out", str(paths / "d.npy"),
+                 "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(outs[0], np.load(paths / "d.npy"))

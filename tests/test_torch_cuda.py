@@ -34,7 +34,12 @@ card bitwise the CPU and K1; the unpacked routing on the card as the
 other card-vs-CPU tree tests; a stage probe liveness-proven on the card
 with one kernel launch a step; the serving cache's introspection gauges
 for every bucket, answers bitwise with introspection on and off, and
-``stats()["policy"]`` naming the card.
+``stats()["policy"]`` naming the card; the drift baseline a card run
+attaches equal to the CPU profile of the same model and rows, served
+answers bitwise with the drift monitors on and off, the CLI's card
+predict bitwise its ``--device cpu`` predict, and GOSS's gradient norm
+bitwise numpy's with a 7-class GOSS run on the card growing the CPU's
+trees (integer arrays equal, values within 1e-4).
 """
 
 import numpy as np
@@ -1014,3 +1019,131 @@ def test_serving_stats_policy_block_on_card(cuda_device):
     assert kind in block["device_keys"]
     assert block["decisions"]["predict_layout"]["arm"] in ("packed",
                                                            "legacy")
+
+
+@pytest.mark.cuda
+def test_profile_on_card_equals_cpu(cuda_device, monkeypatch):
+    """The drift baseline a card run attaches equals the profile of the
+    same model and rows scored on the CPU (the predicts are bitwise)."""
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.data.profile import build_reference_profile
+
+    monkeypatch.setenv("DRYAD_PROFILE", "1")
+    X, y = datasets.higgs_like(20_000, seed=31)
+    ds = Dataset(X[:16_000], y[:16_000], max_bins=64)
+    vds = ds.bind(X[16_000:], y[16_000:])
+    b = dt.train({"objective": "binary", "num_trees": 6, "num_leaves": 31},
+                 ds, [vds], device="cuda")
+    assert b.profile is not None
+    for cap in (65536, 5000):
+        card = build_reference_profile(b, ds, [vds], max_rows=cap,
+                                       device="cuda")
+        cpu = build_reference_profile(b, ds, [vds], max_rows=cap,
+                                      device="cpu")
+        assert card.to_json_dict() == cpu.to_json_dict()
+    assert b.profile.to_json_dict() == build_reference_profile(
+        b, ds, [vds], device="cpu").to_json_dict()
+
+
+@pytest.mark.cuda
+def test_serving_on_card_bitwise_with_drift_on_and_off(cuda_device,
+                                                       monkeypatch):
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.serve import PredictServer
+
+    monkeypatch.setenv("DRYAD_PROFILE", "1")
+    X, y = datasets.higgs_like(12_000, seed=32)
+    b = dt.train({"objective": "binary", "num_trees": 8, "num_leaves": 31},
+                 Dataset(X[:10_000], y[:10_000], max_bins=64),
+                 device="cuda")
+    outs = []
+    for drift in ("auto", "off"):
+        server = PredictServer(device="cuda", max_batch_rows=512,
+                               drift=drift, drift_window=1024)
+        server.registry.add(b)
+        with server:
+            outs.append([server.predict(X[10_000 + i:10_000 + i + n],
+                                        raw_score=True)
+                         for i, n in ((0, 1), (1, 300), (301, 700))])
+            report = server.drift_report(0.2)
+        assert bool(report) == (drift == "auto")
+        if report:
+            assert report["v1"]["rows"] == 1001
+            assert not report["v1"]["breached"]
+    for a, c in zip(*outs):
+        np.testing.assert_array_equal(a, c)
+    np.testing.assert_array_equal(
+        np.concatenate(outs[0]),
+        b.predict(X[10_000:11_001], raw_score=True, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_cli_predict_on_card_equals_cpu(cuda_device, tmp_path):
+    import json
+
+    from dryad_tpu_torch.__main__ import main
+
+    X, y = datasets.higgs_like(8000, seed=33)
+    np.save(tmp_path / "X.npy", X)
+    np.save(tmp_path / "y.npy", y)
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"objective": "binary", "num_trees": 5, "num_leaves": 15,
+         "max_bins": 64}))
+    model = str(tmp_path / "m.dryad")
+    assert main(["train", "--config", str(tmp_path / "cfg.json"),
+                 "--data", str(tmp_path / "X.npy"), "--label",
+                 str(tmp_path / "y.npy"), "--model", model, "--quiet"]) == 0
+    for dev in ("cuda", "cpu"):
+        for raw in ((), ("--raw",)):
+            assert main(["predict", "--model", model, "--data",
+                         str(tmp_path / "X.npy"), "--device", dev,
+                         "--out", str(tmp_path / f"{dev}{len(raw)}.npy"),
+                         *raw]) == 0
+    for r in (0, 1):
+        np.testing.assert_array_equal(np.load(tmp_path / f"cuda{r}.npy"),
+                                      np.load(tmp_path / f"cpu{r}.npy"))
+
+
+@pytest.mark.cuda
+def test_goss_selection_on_card_matches_cpu(cuda_device):
+    """GOSS's |g| on the card is numpy's correctly rounded root on a K=7
+    equal-score case (every row's sum of squares one of two adjacent
+    floats) and on random g, the selection there equals the CPU's, and a
+    7-class GOSS run on the card grows the CPU's trees."""
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.engine import goss
+    from dryad_tpu_torch.objectives import get_objective, row_sum
+
+    X, y = datasets.covertype_like(3000, seed=3)
+    params = {"objective": "multiclass", "num_class": 7, "boosting": "goss",
+              "num_leaves": 15, "num_trees": 3, "max_bins": 64,
+              "growth": "depthwise", "max_depth": 4}
+    p = Params.from_dict(params)
+    obj = get_objective(p)
+    init = np.asarray(obj.init_score(y, None), np.float32).reshape(-1)
+    score = torch.from_numpy(np.tile(init, (len(y), 1)))
+    for dev in ("cuda", "cpu"):
+        g, h = obj.grad_hess(score.to(dev), torch.from_numpy(
+            y.astype(np.float32)).to(dev))
+        sums = row_sum(g * g)[:, 0]
+        absg = goss.correct_sqrt(sums).cpu().numpy()
+        np.testing.assert_array_equal(absg, np.sqrt(sums.cpu().numpy()))
+        u = goss.goss_uniform_dev(p.seed, 0, len(y), dev)
+        _, _, mask = goss.goss_select(p, len(y), g, h, u,
+                                      torch.ones(len(y), dtype=torch.bool,
+                                                 device=dev))
+        if dev == "cuda":
+            card_mask = mask.cpu().numpy()
+        else:
+            np.testing.assert_array_equal(card_mask, mask.numpy())
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(0, 4, 1_000_000).astype(np.float32))
+    np.testing.assert_array_equal(goss.correct_sqrt(x.cuda()).cpu().numpy(),
+                                  np.sqrt(x.numpy()))
+    ds = Dataset(X, y, max_bins=64)
+    card = dt.train(params, ds, device="cuda").tree_arrays()
+    cpu = dt.train(params, ds, device="cpu").tree_arrays()
+    for k in ("feature", "threshold", "left", "right", "default_left"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    np.testing.assert_allclose(card["value"], cpu["value"], rtol=1e-4,
+                               atol=1e-6)

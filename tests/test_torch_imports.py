@@ -102,7 +102,12 @@ def test_scan_covers_the_training_loop_modules():
             "cv.py", "sklearn.py", "policy/__init__.py", "policy/table.py",
             "policy/gates.py", "policy/device.py", "policy/calibrate.py",
             "engine/probes.py", "engine/introspect.py", "obs/trends.py",
-            "obs/profiler.py", "obs/watchdog.py"} <= names
+            "obs/profiler.py", "obs/watchdog.py", "obs/drift.py",
+            "obs/slo.py", "obs/trace_export.py", "obs/journal_tail.py",
+            "obs/exporter.py", "obs/spans.py", "obs/registry.py",
+            "resilience/journal.py", "data/profile.py", "__main__.py",
+            "serve/server.py", "serve/http.py", "serve/bench.py",
+            "convert.py"} <= names
 
 
 def test_policy_imports_without_torch():
@@ -131,3 +136,41 @@ def test_policy_imports_without_torch():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "torch-free"
+
+
+def test_obs_journal_and_profile_import_without_torch():
+    """The new host-side modules import no torch: drift, slo, the trace
+    export, the journal tail, the exporter, the run journal and the
+    reference profile (whose predict imports torch only when it runs)."""
+    code = (
+        "import sys\n"
+        "import dryad_tpu_torch.obs.drift, dryad_tpu_torch.obs.slo\n"
+        "import dryad_tpu_torch.obs.trace_export\n"
+        "import dryad_tpu_torch.obs.journal_tail\n"
+        "import dryad_tpu_torch.obs.exporter\n"
+        "import dryad_tpu_torch.resilience.journal\n"
+        "import dryad_tpu_torch.data.profile\n"
+        "from dryad_tpu_torch.obs.exporter import start_exporter\n"
+        "ex = start_exporter(port=0); ex.stop()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'torch')\n"
+        "assert not bad, bad[:5]\n"
+        "print('torch-free')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "torch-free"
+
+
+def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
+    """``train`` and ``predict`` default to the card and raise with none,
+    before any data is read."""
+    from dryad_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "absent.npy")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--data", missing, "--label", missing, "--quiet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["predict", "--model", missing, "--data", missing,
+              "--out", str(tmp_path / "p.npy")])

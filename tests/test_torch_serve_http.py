@@ -12,6 +12,11 @@
 * ``python -m dryad_tpu_torch serve --request ... --out ... --device
   cpu`` as a subprocess equals the direct predict; without ``--device
   cpu`` and with no card it fails.
+* ``GET /models`` and ``POST /models/load|activate|rollback`` answer as
+  the reference's server does, and the served answers after each are the
+  direct predicts; ``/trace/events`` and ``/trace`` hold the request's
+  spans under its trace id (minted when absent while tracing is on);
+  ``/obs`` carries the drift block of a profiled model.
 """
 
 import io
@@ -236,3 +241,128 @@ def test_cli_one_shot_equals_direct_predict(model, tmp_path):
                env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
+
+
+# ---- the model-admin routes, /trace and the drift block ---------------------
+
+def _reference_http(path):
+    from dryad_tpu.serve import PredictServer as JServer
+    from dryad_tpu.serve.http import make_http_server as j_make
+
+    server = JServer(backend="cpu", max_wait_ms=0.5)
+    server.load_model(path)
+    h = _Http.__new__(_Http)
+    h.server = server
+    h.httpd = j_make(server, port=0)
+    h.base = f"http://127.0.0.1:{h.httpd.server_address[1]}"
+    h.thread = threading.Thread(target=h.httpd.serve_forever, daemon=True)
+    return h
+
+
+def test_models_routes_match_reference(model, tmp_path):
+    """``GET /models`` and ``POST /models/load|activate|rollback`` answer
+    as the reference's server does, and every answer after them is
+    bitwise the direct predict of the version that should serve."""
+    path_a, X, tb_a = model
+    Xb, yb = higgs_like(600, seed=8)
+    jb = dryad_tpu.train(dict(objective="binary", num_trees=5, num_leaves=5,
+                              max_bins=32),
+                         dryad_tpu.Dataset(Xb, yb, max_bins=32),
+                         backend="cpu")
+    path_b = str(tmp_path / "b.dryad")
+    jb.save(path_b)
+    tb_b = dt.Booster.load(path_b)
+    direct = {1: tb_a.predict(X[:7], device="cpu"),
+              2: tb_b.predict(X[:7], device="cpu")}
+    steps = [("GET", "/models", None),
+             ("POST", "/models/load", {"path": path_b, "name": "next"}),
+             ("GET", "/models", None),
+             ("POST", "/models/activate", {"version": 1}),
+             ("GET", "/models", None),
+             ("POST", "/models/rollback", {}),
+             ("GET", "/models", None),
+             ("POST", "/models/load", {"path": path_a, "activate": False}),
+             ("GET", "/models", None)]
+    answers = []
+    for h in (_Http(_server(model)), _reference_http(path_a)):
+        got = []
+        with h:
+            for method, route, body in steps:
+                resp = (h.get(route) if method == "GET"
+                        else h.post(route, body))
+                got.append(json.loads(resp.read()))
+                out = json.loads(h.post("/predict",
+                                        {"rows": X[:7].tolist()}).read())
+                v = out["version"]
+                if v in direct:
+                    assert np.array_equal(
+                        np.asarray(out["predictions"], np.float32),
+                        direct[v]), (route, v)
+            with pytest.raises(urllib.error.HTTPError) as err:
+                h.post("/models/activate", {"version": 99})
+            assert err.value.code == 400
+        answers.append(got)
+    assert answers[0] == answers[1]
+    assert answers[0][1] == {"version": 2}
+    assert answers[0][2]["active"] == 2 and answers[0][2]["aliases"] == {
+        "next": 2}
+
+
+def test_trace_events_carry_the_request_trace_id(model):
+    from dryad_tpu_torch.obs.trace_export import (disable_tracing,
+                                                  enable_tracing)
+
+    path, X, tb = model
+    buf = enable_tracing()
+    buf.clear()
+    try:
+        with _Http(_server(model)) as h:
+            resp = h.post("/predict", {"rows": X[:3].tolist()},
+                          headers={TRACE_HEADER: "feedface"})
+            assert resp.headers[TRACE_HEADER] == "feedface"
+            # no header while tracing is on: an id is minted and echoed
+            minted = h.post("/predict", {"rows": X[:2].tolist()}).headers[
+                TRACE_HEADER]
+            assert minted and len(minted) == 16 and minted != "feedface"
+            ev = json.loads(h.get("/trace/events").read())
+            assert set(ev) == {"events", "dropped", "clock"}
+            tagged = {e[4] for e in ev["events"] if len(e) > 4 and e[4]}
+            assert {"feedface", minted} <= tagged
+            paths = {e[0] for e in ev["events"] if e[4] == "feedface"}
+            assert "serve.request/predict" in paths, paths
+            doc = json.loads(h.get("/trace").read())
+            assert any(e.get("args", {}).get("trace") == "feedface"
+                       for e in doc["traceEvents"] if e["ph"] == "X")
+        disable_tracing()
+        with _Http(_server(model)) as h:
+            resp = h.post("/predict", {"rows": X[:2].tolist()})
+            assert resp.headers.get(TRACE_HEADER) is None
+            assert json.loads(h.get("/trace/events").read())["events"] == []
+    finally:
+        disable_tracing()
+        buf.clear()
+
+
+def test_obs_carries_the_drift_block(model, tmp_path):
+    from dryad_tpu_torch.data.profile import build_reference_profile
+
+    path, X, tb = model
+    b = dt.Booster.load(path)
+    b.profile = build_reference_profile(
+        b, dt.Dataset(X, np.zeros(len(X), np.float32), mapper=b.mapper),
+        device="cpu")
+    with_profile = str(tmp_path / "p.dryad")
+    b.save(with_profile)
+    server = PredictServer(device="cpu", max_wait_ms=0.5)
+    server.load_model(with_profile, name="champion")
+    with _Http(server) as h:
+        h.post("/predict", {"rows": X[:40].tolist()}).read()
+        obs = json.loads(h.get("/obs").read())
+        block = obs["drift"]["champion"]
+        assert block["rows"] == 40 and block["score"][2] == 40
+        assert block["ref_features"] == b.profile.feature_counts
+        stats = json.loads(h.get("/stats").read())
+        assert stats["drift"]["champion"]["rows"] == 40
+    with _Http(_server(model)) as h:                # no profile: no block
+        h.post("/predict", {"rows": X[:4].tolist()}).read()
+        assert "drift" not in json.loads(h.get("/obs").read())

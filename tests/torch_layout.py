@@ -48,4 +48,5 @@ def port_of(ref_booster):
     return booster_from_reference(
         b.tree_arrays(), b.mapper.to_json_dict(), b.init_score,
         b.params.to_dict(), b.max_depth_seen, b.best_iteration,
-        b.train_state)
+        b.train_state, None if getattr(b, "profile", None) is None
+        else b.profile.to_json_dict())
