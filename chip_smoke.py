@@ -9,11 +9,14 @@
 Phases (any failed check exits non-zero):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel); count
+   ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel, and the
+   native host layer's ``g++`` beside them); count
    the atomic instructions in each built library (``cuobjdump -sass``):
    no shared-memory compare-and-swap in the histogram kernels;
 2. Higgs-shaped data, ``rows`` training rows + 1M held-out rows, from the
-   seed; one capture tree of the wired path records its kernels' inputs;
+   seed, sketched and binned by the native host layer (28 native
+   sketches, one native binning); one capture tree of the wired path
+   records its kernels' inputs;
 3. K1 layout mode (histograms) on the card vs its plain version at the
    root and at the widest level (P=128): bitwise equal (counts and g/h:
    both sum in the tree's fixed point), two launches bitwise equal; K2
@@ -376,6 +379,27 @@ Phases (any failed check exits non-zero):
    ``np.sqrt`` on a 7-class equal-score case, and a 7-class GOSS run on
    the card growing the CPU's trees (integer arrays equal, values within
    1e-4).
+38. the native host layer and supervised training (M17, M15b): (a) the
+   ``g++`` build's seconds; the 1M held-out rows sketched and binned
+   natively and with ``DRYAD_NATIVE=0``: edges and bins bitwise, both
+   timed; (b) on phase 37's draw cut to ``higgs_like(1M + 100k, seed +
+   37)`` (for the script's time; widths kept) at the headline config (20
+   trees, the 100k rows as the valid set), a straight run and a
+   ``supervise_train`` run with a checkpoint every 4 iterations and
+   injected ``device_unavailable`` at dispatch 5, ``oom`` at dispatch 9
+   and ``fetch_death`` at the checkpoint fetch of iteration 12: trees,
+   eval history and valid scores bitwise; the journal holds 3 ``fault``,
+   3 ``resume``, 4 ``segment_start`` and one ``complete``; 9 K1 and 8 K2
+   launches a grown tree, the 26 trees the segments grow included (path
+   "supervised"); both walls; (c) fresh processes on the git-ignored
+   ``_sup_rows/`` (removed after; the first two start before (b) and run
+   beside it): a ``torch.empty`` of twice the card's memory classifies as
+   ``oom`` and the process then grows a headline tree; a supervised run
+   whose hook indexes a CUDA tensor out of range at dispatch 6 journals
+   ``device_unavailable``, then ``fail_closed`` with
+   ``sticky_device_error``, and exits non-zero; ``python -m
+   dryad_tpu_torch train --supervise --resume`` on its checkpoint
+   directory finishes 12 trees bitwise the straight run's first 12.
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
@@ -3608,8 +3632,10 @@ SERVE_SMALL = {"objective": "regression", "growth": "depthwise",
                "learning_rate": 0.1, "num_trees": 20}
 SERVE_BUCKETS = (1, 8, 64, 512, 4096)    # latency is measured at these
 SERVE_SHAPES = (1, 7, 8, 9, 63, 64, 100, 511, 512, 4095, 4096, 5000)
-SERVE_LAT_REQS = 500                     # sequential requests per bucket
-SERVE_BULK = dict(clients=4, sizes=(4096,), duration_s=4.0, arms=2)
+# sequential requests per bucket, and the bulk bench's windows: cut from
+# 500 and 4 s for the script's time (phase 38 pushed it past 900 s)
+SERVE_LAT_REQS = 300
+SERVE_BULK = dict(clients=4, sizes=(4096,), duration_s=2.5, arms=2)
 
 
 def serve_launches(fn) -> int:
@@ -5587,6 +5613,307 @@ def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> dict:
     return launches
 
 
+SUP_DIR = os.path.join(ROOT, "_sup_rows")
+# phase 37's draw and headline config, 20 trees, a checkpoint every 4;
+# the rows cut from phase 37's 2M + 200k for the script's time
+SUP_ROWS = 1_000_000
+SUP_VALID = 100_000
+SUP = dict(CLI)
+SUP_EVERY = 4
+SUP_POINTS = ((5, "device_unavailable", "dispatch"),
+              (9, "oom", "dispatch"),
+              (12, "fetch_death", "fetch"))
+# trees grown under SUP_POINTS: 0-4, then 4-8 from checkpoint 4, 8-11
+# from checkpoint 8, 8-19 from checkpoint 8 again
+SUP_GROWN = 5 + 5 + 4 + 12
+STICKY_AT = 6                    # the sticky child's faulting dispatch
+STICKY_TREES = 12
+CHILD_TIMEOUT_S = 240
+
+
+def fault_child(kind: str, d: str, device: str = "cuda") -> int:
+    """Phase 38 (c)'s fresh processes on the card, over ``d``'s rows.
+    ``oom``: a ``torch.empty`` of twice the card's memory, classified,
+    then one headline tree grown in the same process.  ``sticky``: a
+    supervised run whose hook indexes a CUDA tensor out of range at
+    dispatch ``STICKY_AT`` and synchronises; it must fail closed, and the
+    process exits 3.  Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.resilience import (FaultError, RetryPolicy,
+                                            classify_fault, is_sticky,
+                                            supervise_train)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        cuda_build.build_all()
+    out: dict = {"kind": kind}
+    if kind == "oom":
+        total = (torch.cuda.get_device_properties(0).total_memory
+                 if dev.type == "cuda" else 1 << 40)
+        try:
+            torch.empty(2 * total, dtype=torch.uint8, device=dev)
+            out["class"] = "allocated"
+        except Exception as e:  # noqa: BLE001 — classified and reported
+            out.update({"class": classify_fault(e), "sticky": is_sticky(e),
+                        "type": type(e).__name__, "message": str(e)[:160]})
+    ds = dt.Dataset(np.load(os.path.join(d, "X.npy")),
+                    np.load(os.path.join(d, "y.npy")), max_bins=256)
+    if kind == "oom":
+        cuda_build.reset_counts()
+        b = dt.train(dict(SUP, num_trees=1), ds, device=dev)
+        out["launches"] = dict(cuda_build.counts)
+        out["splits"] = int((b.tree_arrays()["feature"] >= 0).sum())
+        print(json.dumps(out), flush=True)
+        return 0
+
+    def out_of_range(site: str, it: int) -> None:
+        if site == "dispatch" and it == STICKY_AT:
+            x = torch.zeros(4, device=dev)
+            x[torch.tensor([1 << 30], device=dev)].sum().item()
+            torch.cuda.synchronize(dev)
+
+    try:
+        supervise_train(dict(SUP, num_trees=STICKY_TREES), ds, device=dev,
+                        checkpoint_dir=os.path.join(d, "ck"),
+                        checkpoint_every=SUP_EVERY,
+                        journal=os.path.join(d, "journal.jsonl"),
+                        fault_injector=out_of_range,
+                        policy=RetryPolicy(backoff_base_s=0.0))
+    except FaultError as e:
+        out.update({"reason": e.reason, "class": e.kind,
+                    "cause": type(e.__cause__).__name__})
+        print(json.dumps(out), flush=True)
+        # the context is poisoned: leave without tearing it down
+        os._exit(3)
+    out["reason"] = None
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _child(kind: str, dev) -> subprocess.Popen:
+    code = ("import sys, chip_smoke; sys.exit(chip_smoke.fault_child("
+            "sys.argv[1], sys.argv[2], sys.argv[3]))")
+    return subprocess.Popen([sys.executable, "-c", code, kind, SUP_DIR,
+                             dev.type],
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _child_out(proc: subprocess.Popen, what: str, t0: float) -> tuple:
+    """(return code, the last stdout line's JSON, seconds since ``t0``,
+    its launch) of a child, killed at ``CHILD_TIMEOUT_S``."""
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"supervise: the {what} child passed {CHILD_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(bool(lines), f"supervise: the {what} child printed no result "
+          f"(rc {proc.returncode}):\n{err[-3000:]}")
+    return proc.returncode, json.loads(lines[-1]), time.perf_counter() - t0
+
+
+def phase_supervise(dt, a, Xv, dev, report) -> dict:
+    """Phase 38: the native host layer on the card's host, a supervised
+    run at the headline widths on the card, and real CUDA faults in fresh
+    processes (module doc).  Returns the supervised run's launches."""
+    import numpy as np
+
+    from dryad_tpu_torch import datasets, native
+    from dryad_tpu_torch.data.binning import bin_matrix
+    from dryad_tpu_torch.data.sketch import sketch_features
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.resilience import (FaultInjector, RetryPolicy,
+                                            RunJournal, supervise_train)
+
+    rep: dict = {}
+    steps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    # (a) native sketch and bins of the 1M held-out rows = the numpy path
+    check(native.available(), "native: the host layer is not available")
+    rep["native_build_s"] = native.build_seconds
+    timed = {}
+    for arm in ("native", "numpy"):
+        if arm == "numpy":
+            os.environ["DRYAD_NATIVE"] = "0"
+        try:
+            native.reset_counts()
+            t0 = time.perf_counter()
+            mapper = sketch_features(Xv, max_bins=256)
+            t1 = time.perf_counter()
+            xb = bin_matrix(Xv, mapper)
+            t2 = time.perf_counter()
+        finally:
+            os.environ.pop("DRYAD_NATIVE", None)
+        timed[arm] = (mapper, xb, dict(native.counts))
+        rep[f"{arm}_sketch_s"], rep[f"{arm}_bin_s"] = t1 - t0, t2 - t1
+    (mn, xn, cn), (mp, xp, cp) = timed["native"], timed["numpy"]
+    check(cn == {"sketch": Xv.shape[1], "bin": 1}
+          and cp == {"sketch": 0, "bin": 0},
+          f"native: counts {cn} native, {cp} numpy")
+    check(all(np.array_equal(fn.edges, fp.edges)
+              and fn.edges.dtype == fp.edges.dtype
+              for fn, fp in zip(mn.features, mp.features))
+          and mn.to_json_dict() == mp.to_json_dict(),
+          "native: sketch edges != the numpy path's")
+    check(xn.dtype == xp.dtype and np.array_equal(xn, xp),
+          "native: bins != the numpy path's")
+    del timed, mn, xn, mp, xp
+    built = ("reused" if native.build_seconds is None
+             else f"built in {native.build_seconds:.2f} s")
+    print(f"native host layer: {built}; "
+          f"{len(Xv)} x {Xv.shape[1]} sketch {rep['native_sketch_s']:.3f} s / "
+          f"numpy {rep['numpy_sketch_s']:.3f} s, bins "
+          f"{rep['native_bin_s']:.3f} s / numpy {rep['numpy_bin_s']:.3f} s "
+          "(bit for bit); phase 2 binned natively in "
+          f"{report['data_seconds']:.1f} s (17.3 s on the numpy path, "
+          "measured in another call)", flush=True)
+    lap("native")
+
+    # (b) a supervised run at the headline widths = the straight run
+    X, y = datasets.higgs_like(SUP_ROWS + SUP_VALID, seed=a.seed + 37)
+    ds = dt.Dataset(X[:SUP_ROWS], y[:SUP_ROWS], max_bins=256)
+    dv = ds.bind(X[SUP_ROWS:], y[SUP_ROWS:])
+    Xs = X[SUP_ROWS:]
+    os.makedirs(SUP_DIR, exist_ok=True)
+    np.save(os.path.join(SUP_DIR, "X.npy"), X[:SUP_ROWS])
+    np.save(os.path.join(SUP_DIR, "y.npy"), y[:SUP_ROWS])
+    with open(os.path.join(SUP_DIR, "cfg.json"), "w") as fh:
+        json.dump(dict(SUP, num_trees=STICKY_TREES), fh)
+    del X, y
+    ds.device_arrays(dev)        # the uploads, outside both walls
+    dv.device_arrays(dev)
+    lap("data")
+    children: list = []
+    try:
+        # (c)'s first two children start now and run beside (b), for the
+        # script's time (their set-up is host work; (b)'s walls are
+        # noisier for it)
+        t_children = time.perf_counter()
+        oom, sticky = _child("oom", dev), _child("sticky", dev)
+        children += [oom, sticky]
+        t0 = time.perf_counter()
+        straight = dt.train(SUP, ds, [dv], device=dev)
+        sync()
+        rep["straight_wall_s"] = time.perf_counter() - t0
+        injector = FaultInjector(SUP_POINTS)
+        journal = os.path.join(SUP_DIR, "supervised.jsonl")
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        sup = supervise_train(SUP, ds, [dv], device=dev,
+                              checkpoint_dir=os.path.join(SUP_DIR, "sck"),
+                              checkpoint_every=SUP_EVERY, journal=journal,
+                              fault_injector=injector,
+                              policy=RetryPolicy(backoff_base_s=0.0))
+        sync()
+        rep["supervised_wall_s"] = time.perf_counter() - t0
+        launches = dict(cuda_build.counts)
+        check(injector.pending == 0, "supervise: a fault point never fired")
+        check_launches(launches, {"hist": 9 * SUP_GROWN,
+                                  "perm": 8 * SUP_GROWN},
+                       "supervised run (replays included)")
+        ta, tb = straight.tree_arrays(), sup.tree_arrays()
+        for k in ta:
+            check(np.array_equal(ta[k], tb[k]),
+                  f"supervise: the supervised trees differ in {k}")
+        check(sup.train_state.get("eval_history")
+              == straight.train_state.get("eval_history"),
+              "supervise: eval history != the straight run's")
+        check(np.array_equal(predict_rows(sup, Xs, raw_score=True,
+                                          device=dev),
+                             predict_rows(straight, Xs, raw_score=True,
+                                          device=dev)),
+              "supervise: valid scores != the straight run's")
+        kinds = [e["event"] for e in RunJournal.read(journal)]
+        want = {"fault": 3, "resume": 3, "segment_start": 4, "complete": 1}
+        rep["journal"] = {k: kinds.count(k) for k in want}
+        check(rep["journal"] == want,
+              f"supervise: journal holds {rep['journal']}, want {want}")
+        rep["valid_auc_last"] = straight.train_state["eval_history"][
+            "valid_auc"][-1][1]
+        print(f"supervised: 3 faults, {SUP_GROWN} trees grown for "
+              f"{SUP['num_trees']}, trees and valid scores bitwise the "
+              f"straight run; wall {rep['supervised_wall_s']:.2f} s against "
+              f"{rep['straight_wall_s']:.2f} s straight", flush=True)
+        del sup, ds, dv
+        lap("supervised")
+
+        # (c) a real OOM and a real sticky fault in fresh processes, then
+        # the sticky run's directory resumed by the command line
+        rc, out, rep["oom_child_s"] = _child_out(oom, "oom", t_children)
+        check(rc == 0 and out["class"] == "oom" and not out["sticky"],
+              f"supervise: a 2x allocation did not classify as oom: {out}")
+        check(out["launches"] == {"hist": 9, "hist_rows": 0, "perm": 8,
+                                  "nat": 0} and out["splits"] > 0,
+              f"supervise: no headline tree after the oom: {out}")
+        rep["oom"] = out
+        rc, out, rep["sticky_child_s"] = _child_out(sticky, "sticky",
+                                                    t_children)
+        check(rc != 0 and out["reason"] == "sticky_device_error"
+              and out["class"] == "device_unavailable",
+              f"supervise: the sticky child (rc {rc}) gave {out}")
+        rep["sticky"] = dict(out, rc=rc)
+        events = RunJournal.read(os.path.join(SUP_DIR, "journal.jsonl"))
+        tail = [e for e in events if e["event"] in ("fault", "fail_closed")]
+        check([e["event"] for e in tail] == ["fault", "fail_closed"]
+              and tail[0]["kind"] == "device_unavailable"
+              and tail[1]["reason"] == "sticky_device_error",
+              f"supervise: the sticky journal ends {tail}")
+        lap("children")
+        model = os.path.join(SUP_DIR, "m.dryad")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "dryad_tpu_torch", "train", "--config",
+             os.path.join(SUP_DIR, "cfg.json"), "--data",
+             os.path.join(SUP_DIR, "X.npy"), "--label",
+             os.path.join(SUP_DIR, "y.npy"), "--model", model,
+             "--checkpoint-dir", os.path.join(SUP_DIR, "ck"),
+             "--checkpoint-every", str(SUP_EVERY), "--supervise",
+             "--resume", "--journal",
+             os.path.join(SUP_DIR, "journal.jsonl"), "--device", dev.type,
+             "--quiet"],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=CHILD_TIMEOUT_S)
+        rep["resume_child_s"] = time.perf_counter() - t0
+        check(res.returncode == 0,
+              f"supervise: the fresh --resume failed:\n{res.stderr[-3000:]}")
+        got = dt.Booster.load(model).tree_arrays()
+        check(all(np.array_equal(got[k], v[:STICKY_TREES])
+                  for k, v in ta.items()),
+              "supervise: the fresh-process resume != the straight run")
+        last = RunJournal.read_last_run(os.path.join(SUP_DIR,
+                                                     "journal.jsonl"))
+        check(last[1]["resume_iteration"] == 4
+              and last[-1]["event"] == "complete",
+              f"supervise: the resume's journal {last[:2]} ... {last[-1]}")
+        lap("resume")
+    finally:
+        for proc in children:               # a failed check stops them too
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(SUP_DIR, ignore_errors=True)
+    rep["step_seconds"] = steps
+    print("supervise: " + json.dumps(rep, default=str), flush=True)
+    print("supervise: native sketch and bins = numpy's bit for bit; a "
+          "supervised run with 3 injected faults = the straight run (9 K1 "
+          "+ 8 K2 a grown tree); a real OOM classified and survived; a "
+          "real sticky fault failed closed; its directory resumed in a "
+          "fresh process bitwise", flush=True)
+    report["supervise"] = rep
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -5627,7 +5954,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     import dryad_tpu_torch as dt
-    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch import datasets, native
     from dryad_tpu_torch.engine import cuda_build
 
     check(min(a.trees, a.eps_trees, a.bag_trees, a.bag_legacy_trees) >= 2,
@@ -5656,10 +5983,17 @@ def main() -> int:
                     "trees": a.trees, "seed": a.seed, "eps_rows": a.eps_rows,
                     "eps_trees": a.eps_trees}
 
-    # ---- 1. build ---------------------------------------------------------
+    # ---- 1. build (the native host layer's g++ beside the nvcc runs) ------
+    gxx = ThreadPoolExecutor(1)
+    native_build = gxx.submit(native.available)
     cuda_build.build_all()
     print(f"kernels built in {cuda_build.build_seconds:.2f} s", flush=True)
     report["build_seconds"] = cuda_build.build_seconds
+    check(native_build.result(), "native: the host layer is not available")
+    gxx.shutdown()
+    print("native host layer " + ("reused" if native.build_seconds is None
+                                  else f"built in {native.build_seconds:.2f} s"),
+          flush=True)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         for name, log in cuda_build.build_log.items():
@@ -5674,7 +6008,11 @@ def main() -> int:
               flush=True)
     t0 = time.perf_counter()
     X, y = datasets.higgs_like(a.rows + HOLDOUT_ROWS, seed=a.seed)
+    native.reset_counts()
     ds = dt.Dataset(X[:a.rows], y[:a.rows], max_bins=256)
+    report["native_counts_phase2"] = dict(native.counts)
+    check(native.counts == {"sketch": 28, "bin": 1},
+          f"data: the Dataset did not bin natively ({native.counts})")
     # the raw training rows stay for phase 34
     Xraw, Xv, yv = X[:a.rows], X[a.rows:], y[a.rows:]
     del X
@@ -5826,8 +6164,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_launches = phase_cli(dt, a, ds, Xv, dev, report, serve_model)
-    del ds, Xv, yv, serve_model
+    del ds, serve_model
     mark("37")
+    # ---- 38. the native host layer and supervised training --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sup_launches = phase_supervise(dt, a, Xv, dev, report)
+    del Xv, yv
+    mark("38")
     ahead.shutdown()
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
@@ -5848,7 +6192,7 @@ def main() -> int:
                "serve_train": sv_launches, "distributed": dist_launches,
                **st_paths, "rest_of_distribution": rest_launches,
                "profile": pf_launches, "policy_headline": ph_launches,
-               "cli_train": cli_launches}
+               "cli_train": cli_launches, "supervised": sup_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

@@ -47,8 +47,10 @@ It refits leaf values on new rows (``Booster.refit``), cross-validates
 (``cv``) and wraps all of this in scikit-learn-style estimators
 (``dryad_tpu_torch.sklearn``).  It trains over a process group, one rank
 per process, bit for bit as one process would
-(``dryad_tpu_torch.distributed``).  It imports nothing of ``jax`` or of
-``dryad_tpu``.
+(``dryad_tpu_torch.distributed``), supervises long runs through device
+faults (``dryad_tpu_torch.resilience.supervise_train``), and sketches and
+bins raw rows in C++ when ``g++`` is present (``dryad_tpu_torch.native``).
+It imports nothing of ``jax`` or of ``dryad_tpu``.
 """
 
 from __future__ import annotations
@@ -119,7 +121,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
           callback=None, callbacks=None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10,
           resume: bool = False, device=None, group=None,
-          profile_dir: Optional[str] = None, **kw: Any) -> Booster:
+          profile_dir: Optional[str] = None, chunk_hook=None,
+          chunk_policy=None, **kw: Any) -> Booster:
     """Train a booster on ``device`` (default: the card).
 
     Every valid set is scored on the device after each ``eval_period``-th
@@ -140,7 +143,10 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
     ``cuda``) and writes the Chrome trace ``train_trace.json`` there
     (open it in Perfetto or ``chrome://tracing``).  The returned model
     carries its drift baseline (``booster.profile``, ``data/profile.py``)
-    unless ``DRYAD_PROFILE=0`` or it trained under ``group``."""
+    unless ``DRYAD_PROFILE=0`` or it trained under ``group``.
+    ``chunk_hook``/``chunk_policy`` are the supervisor's loop surfaces
+    (``engine/train.py``; most callers want ``resilience.
+    supervise_train``)."""
     from dryad_tpu_torch.callbacks import combine
     from dryad_tpu_torch.config import make_params
     from dryad_tpu_torch.engine.train import train_device
@@ -194,7 +200,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
         booster = train_device(p, train_set, valid,
                                init_booster=init_booster, callback=cb,
                                checkpointer=checkpointer, device=dev,
-                               group=group)
+                               group=group, chunk_hook=chunk_hook,
+                               chunk_policy=chunk_policy)
     else:
         import torch
 
@@ -205,7 +212,8 @@ def train(params: "Params | Mapping[str, Any] | None" = None,
             booster = train_device(p, train_set, valid,
                                    init_booster=init_booster, callback=cb,
                                    checkpointer=checkpointer, device=dev,
-                                   group=group)
+                                   group=group, chunk_hook=chunk_hook,
+                                   chunk_policy=chunk_policy)
         prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
     if group is None:
         # a rank holds only its own rows; a group's model has no profile

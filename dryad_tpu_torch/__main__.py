@@ -4,7 +4,8 @@ train|predict|dump|serve|profile``.
     python -m dryad_tpu_torch train --config params.json --data X.npy \
         --label y.npy [--valid Xv.npy --valid-label yv.npy] \
         [--model out.dryad] [--checkpoint-dir DIR --checkpoint-every N \
-        --resume] [--metrics-port N [--metrics-host H] [--auth-token T]] \
+        --resume] [--supervise [--journal run.jsonl] [--retry-budget N]] \
+        [--metrics-port N [--metrics-host H] [--auth-token T]] \
         [--trace-out trace.json] [--log-jsonl log.jsonl] \
         [--profile-dir DIR] [--device cuda|cpu] [--quiet]
     python -m dryad_tpu_torch predict --model m.dryad --data X.npy \
@@ -33,9 +34,14 @@ metrics exporter (``obs/exporter.py``: ``/healthz``, ``/metrics``,
 stops it after the run; ``DRYAD_METRICS_HOLD_S`` keeps it up that many
 seconds more.  ``--trace-out`` writes the run's spans as Chrome
 trace_event JSON (``obs/trace_export.py``), also when the run fails.
-The reference's ``--supervise``, ``--journal`` and ``--retry-budget``
-(the supervised run) are not ported yet.  ``predict`` bins CSR ``.npz``
-rows with ``bin_csr``.  ``dump`` prints ``dump_model()`` JSON, or with
+``--supervise`` trains under ``resilience.supervise_train`` (it needs
+``--checkpoint-dir``; continuing a directory that already holds
+checkpoints needs ``--resume``): classified faults resume from the newest
+checkpoint within ``--retry-budget``, and ``--journal`` writes the run's
+journal, tailed into the registry under ``--metrics-port``.  A sticky
+CUDA error fails closed (exit non-zero); the same command with
+``--resume`` continues the directory in a fresh process.  ``predict``
+bins CSR ``.npz`` rows with ``bin_csr``.  ``dump`` prints ``dump_model()`` JSON, or with
 ``--text`` the versioned text model (``Booster.load_any`` reads it).
 
 ``serve`` loads one or more model files (npz or text, written by either
@@ -116,6 +122,28 @@ def cmd_train(args) -> int:
         raise SystemExit("--valid requires --valid-label")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
+    if args.supervise and not args.checkpoint_dir:
+        raise SystemExit("--supervise requires --checkpoint-dir "
+                         "(resume is the recovery mechanism)")
+    if args.supervise and not args.resume:
+        # faults mid-run always resume, but continuing a prior
+        # invocation's checkpoints must be asked for, as without
+        # supervision: a stale directory under changed params or data
+        # would give a mixed model
+        from dryad_tpu_torch.checkpoint import Checkpointer
+
+        if Checkpointer.has_checkpoints(args.checkpoint_dir):
+            raise SystemExit(
+                f"--supervise found existing checkpoints in "
+                f"{args.checkpoint_dir}; pass --resume to continue "
+                "that run, or clear the directory to start fresh")
+    if not args.supervise:
+        if args.journal:
+            raise SystemExit("--journal is the supervised-run journal; "
+                             "it requires --supervise")
+        if args.retry_budget is not None:
+            raise SystemExit("--retry-budget configures the supervised "
+                             "fault budget; it requires --supervise")
     try:
         hold = float(os.environ.get("DRYAD_METRICS_HOLD_S", "0") or 0)
     except ValueError:
@@ -129,7 +157,7 @@ def cmd_train(args) -> int:
     # the device is resolved before the data loads: no card, no load
     device = dt.resolve_device(args.device)
 
-    exporter = None
+    exporter = tail = None
     if args.metrics_port is not None:
         from dryad_tpu_torch.obs.exporter import start_exporter
         from dryad_tpu_torch.obs.trends import stats_provider
@@ -144,6 +172,12 @@ def cmd_train(args) -> int:
         if not args.quiet:
             print(f"metrics on http://{exporter.host}:{exporter.port}  "
                   "(GET /stats, /metrics, /trace, /healthz)")
+        if args.journal:
+            # the supervised run's fault, backoff and resume series appear
+            # on /stats as they happen
+            from dryad_tpu_torch.obs.journal_tail import JournalTail
+
+            tail = JournalTail(args.journal).start()
     trace_buf = None
     if args.trace_out:
         from dryad_tpu_torch.obs import trace_export
@@ -168,18 +202,37 @@ def cmd_train(args) -> int:
         if args.log_jsonl:
             logger = JsonlLogger(args.log_jsonl)
             callbacks.append(logger)
-        booster = dt.train(params, ds, valid_sets, callbacks=callbacks,
-                           checkpoint_dir=args.checkpoint_dir,
-                           checkpoint_every=args.checkpoint_every,
-                           resume=args.resume, device=device,
-                           profile_dir=args.profile_dir)
+        if args.supervise:
+            from dryad_tpu_torch.resilience import (RetryPolicy,
+                                                    supervise_train)
+
+            policy = (RetryPolicy() if args.retry_budget is None
+                      else RetryPolicy(retry_budget=args.retry_budget))
+            booster = supervise_train(
+                params, ds, valid_sets, device=device, policy=policy,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                journal=args.journal, callbacks=callbacks,
+                profile_dir=args.profile_dir)
+        else:
+            booster = dt.train(params, ds, valid_sets, callbacks=callbacks,
+                               checkpoint_dir=args.checkpoint_dir,
+                               checkpoint_every=args.checkpoint_every,
+                               resume=args.resume, device=device,
+                               profile_dir=args.profile_dir)
     finally:
         if trace_buf is not None:
             from dryad_tpu_torch.obs import trace_export
 
             try:
+                journal_events = ()
+                if args.journal and os.path.exists(args.journal):
+                    from dryad_tpu_torch.resilience.journal import RunJournal
+
+                    journal_events = RunJournal.read_last_run(args.journal)
                 trace_export.write_trace(args.trace_out,
-                                         span_events=trace_buf.events())
+                                         span_events=trace_buf.events(),
+                                         journal_events=journal_events)
                 if not args.quiet:
                     print(f"wrote Chrome trace -> {args.trace_out}")
             except Exception as e:  # noqa: BLE001 — the trace must not
@@ -189,9 +242,11 @@ def cmd_train(args) -> int:
                 trace_export.disable_tracing()
         if logger is not None:
             logger.close()
+        if exporter is not None and hold > 0:
+            time.sleep(hold)
+        if tail is not None:
+            tail.stop()
         if exporter is not None:
-            if hold > 0:
-                time.sleep(hold)
             exporter.stop()
     if args.model:
         booster.save(args.model)
@@ -432,6 +487,14 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--checkpoint-dir")
     t.add_argument("--checkpoint-every", type=int, default=10)
     t.add_argument("--resume", action="store_true")
+    t.add_argument("--supervise", action="store_true",
+                   help="supervised run: classify device faults and "
+                        "resume from the newest checkpoint (needs "
+                        "--checkpoint-dir)")
+    t.add_argument("--journal",
+                   help="supervised-run journal JSONL path (with --supervise)")
+    t.add_argument("--retry-budget", type=int, default=None,
+                   help="supervised-run fault budget before failing closed")
     t.add_argument("--log-jsonl", help="per-iteration metrics JSONL path")
     t.add_argument("--profile-dir",
                    help="trace the run with torch.profiler into this "

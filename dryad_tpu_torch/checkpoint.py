@@ -34,6 +34,16 @@ class Checkpointer:
         self.keep = int(keep)
         os.makedirs(directory, exist_ok=True)
 
+    @staticmethod
+    def has_checkpoints(directory: str) -> bool:
+        """Whether ``directory`` holds a checkpoint, without creating it
+        (the CLI's ``--supervise`` guard asks before any data loads)."""
+        try:
+            return any(_PATTERN.match(name)
+                       for name in os.listdir(directory))
+        except OSError:
+            return False
+
     def _path(self, iteration: int) -> str:
         return os.path.join(self.directory, f"ckpt_{iteration:08d}.dryad")
 

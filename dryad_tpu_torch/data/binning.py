@@ -1,5 +1,7 @@
 """Binning front ends: dense matrices and CSR sparse input, through the
 frozen ``BinMapper`` (see data/sketch.py for the bit-exact contract).
+Dense matrices bin in the native host layer (``dryad_tpu_torch/native``)
+when it is available, as in ``dryad_tpu/data/binning.py``.
 
 The sparse path serves Criteo-shaped data: the CSR triple is binned block
 by block of rows, absent entries taking their feature's zero-value bin,
@@ -22,9 +24,17 @@ _BLOCK_ROWS = 65536
 
 
 def bin_matrix(X: np.ndarray, mapper) -> np.ndarray:
-    """Dense raw features -> bin ids (N, F) uint8/uint16 (a bundled
-    mapper bins through its base, then folds)."""
-    return mapper.transform(np.asarray(X, np.float32))
+    """Dense raw features -> bin ids (N, F) uint8/uint16: through the
+    native host layer when it is available, else ``mapper.transform`` (a
+    bundled mapper bins through its base, then folds)."""
+    if hasattr(mapper, "fold"):
+        return mapper.transform(X)
+    from dryad_tpu_torch import native
+
+    out = native.bin_matrix(np.asarray(X, np.float32), mapper)
+    if out is not None:
+        return out
+    return mapper.transform(X)
 
 
 def zero_bins(mapper: BinMapper) -> np.ndarray:

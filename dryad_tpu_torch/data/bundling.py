@@ -32,7 +32,7 @@ from typing import Sequence
 
 import numpy as np
 
-from dryad_tpu_torch.data.binning import zero_bins
+from dryad_tpu_torch.data.binning import bin_matrix, zero_bins
 from dryad_tpu_torch.data.sketch import BinMapper
 
 
@@ -198,7 +198,7 @@ class BundledMapper:
                         + [bool(base_cat[f]) for f in self.rest], bool)
 
     def transform(self, X: np.ndarray) -> np.ndarray:
-        return self.fold(self.base.transform(np.asarray(X, np.float32)))
+        return self.fold(bin_matrix(np.asarray(X, np.float32), self.base))
 
     def fold(self, Xb_base: np.ndarray) -> np.ndarray:
         """Fold a binned matrix of the base layout (CSR ingest)."""

@@ -2,8 +2,12 @@
 
 A copy of ``dryad_tpu/data/sketch.py``'s canonical numpy path, so that the
 port bins through the same frozen edges as the reference and binned ids
-agree bit for bit.  The reference's optional native sketch is not copied:
-it must match this numpy path anyway.
+agree bit for bit.  A numerical column is sketched by the native host
+layer (``dryad_tpu_torch/native``) when it is available, as the
+reference's ``_sketch_numerical`` does; the numpy path is its spec and
+its fallback (``DRYAD_NATIVE=0``, no ``g++``).  ``BinMapper.transform``
+stays numpy, as the reference's does; ``data/binning.py::bin_matrix`` is
+the native binning's entry.
 
 Binning contract:
 
@@ -18,8 +22,9 @@ Binning contract:
 
 Sketching and binning go feature by feature, in blocks of ``_BLOCK``
 columns copied contiguous and spread over a few threads: numpy's sorts
-and searches release the interpreter lock, and each feature's result
-depends on its own column alone, so the threads change no value.  A large
+and searches, and the native sketch, release the interpreter lock, and
+each feature's result depends on its own column alone, so the threads
+change no value.  A large
 matrix narrower than ``_BLOCK`` columns a thread (Higgs' 28) splits into
 narrower blocks, one or more a thread.
 """
@@ -79,6 +84,17 @@ class FeatureBins:
         return self.n_bins - 1
 
 
+def _sketch_numerical(col: np.ndarray, max_bins: int) -> FeatureBins:
+    """The native sketch when it is available, else the numpy spec."""
+    from dryad_tpu_torch import native
+
+    edges = native.sketch_numerical(col, max_bins)
+    if edges is not None:
+        return FeatureBins(False, edges, np.empty(0, np.float32),
+                           np.empty(0, np.int32), int(edges.size) + 2)
+    return _sketch_numerical_np(col, max_bins)
+
+
 def _sketch_numerical_np(col: np.ndarray, max_bins: int) -> FeatureBins:
     finite = col[np.isfinite(col)]
     if finite.size == 0:
@@ -121,7 +137,7 @@ def sketch_column(col: np.ndarray, max_bins: int,
                   categorical: bool) -> FeatureBins:
     """One feature's recipe from its raw values."""
     return (_sketch_categorical(col, max_bins) if categorical
-            else _sketch_numerical_np(col, max_bins))
+            else _sketch_numerical(col, max_bins))
 
 
 def sketch_features(X: np.ndarray, max_bins: int = 256,

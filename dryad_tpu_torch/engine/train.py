@@ -39,7 +39,14 @@ rebuild the train and valid scores by replaying the trees in fp32 tree
 order, the order in which the straight run added them, so a resumed run
 reproduces the straight one bit for bit.  The reference's chunked
 dispatch arm is not ported: it exists for a remote TPU's program-length
-limit.
+limit.  The loop is the reference's per-iteration arm, with its hook
+sites for supervision (``resilience/``): ``chunk_hook("dispatch", it)``
+at the head of each iteration and ``chunk_hook("fetch", it)`` inside the
+watchdog bracket of each fetch (a synchronous eval at ``it``, a
+checkpoint and the deferred evals it flushes at ``it + 1``, the final
+fetch at the run's iteration count).  ``chunk_policy`` is taken as the
+reference's trainer takes it, and never consulted: there are no chunks
+to cap.  Without a hook nothing is called.
 
 Under a process group (``group``, ``engine/distributed.RowGroup``) each
 rank trains on its own rows and every rank ends with the same booster,
@@ -338,7 +345,9 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                  init_booster: Optional[Booster] = None,
                  callback: Optional[Callable[[int, dict], None]] = None,
                  checkpointer=None, device: torch.device,
-                 group=None) -> Booster:
+                 group=None,
+                 chunk_hook: Optional[Callable[[str, int], None]] = None,
+                 chunk_policy=None) -> Booster:
     p = params.validate()
     if data.y is None:
         raise ValueError("training needs labels")
@@ -499,7 +508,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             evaluators[0][1])
 
     def flush_deferred() -> None:
-        """One fetch of every pending eval, then the books in order."""
+        """One fetch of every pending eval, then the books in order (under
+        the bracket of the checkpoint or final fetch that flushes them)."""
         if not deferred:
             return
         with watch_fetch("eval", deferred[-1][0]), span("train.fetch.eval"):
@@ -528,6 +538,8 @@ def train_device(params: Params, data: Dataset, valid=None, *,
                 and stale >= p.early_stopping_rounds):
             n_iters = it
             break
+        if chunk_hook is not None:
+            chunk_hook("dispatch", it)
         t0 = time.perf_counter()
         row_mask, feat_mask = sample_masks(
             p, it, n_all, F, None if group is None
@@ -619,8 +631,12 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             if not sync_eval:
                 deferred.append((it, vals_dev))
             else:
-                with watch_fetch("eval", it), span("train.fetch.eval"):
-                    vals = torch.stack(vals_dev).cpu().tolist()  # one fetch
+                with watch_fetch("eval", it):
+                    if chunk_hook is not None:
+                        chunk_hook("fetch", it)
+                    with span("train.fetch.eval"):
+                        # one fetch
+                        vals = torch.stack(vals_dev).cpu().tolist()
                 for vi, ((vname, _), (mname, higher, _)) in enumerate(
                         zip(valids, evaluators)):
                     info[f"{vname}_{mname}"] = vals[vi]
@@ -635,12 +651,14 @@ def train_device(params: Params, data: Dataset, valid=None, *,
         if callback is not None:
             callback(it, info)
         if checkpointer is not None and checkpointer.due(it + 1):
-            flush_deferred()
-            with watch_fetch("checkpoint", it + 1), \
-                    span("train.fetch.checkpoint"):
-                ckpt = _materialize(p, data.mapper, out, (it + 1) * K, init,
-                                    max_depth_prev, best_iteration,
-                                    best_value, stale)
+            with watch_fetch("checkpoint", it + 1):
+                if chunk_hook is not None:
+                    chunk_hook("fetch", it + 1)
+                flush_deferred()
+                with span("train.fetch.checkpoint"):
+                    ckpt = _materialize(p, data.mapper, out, (it + 1) * K,
+                                        init, max_depth_prev, best_iteration,
+                                        best_value, stale)
             if eval_history is not None:
                 ckpt.train_state["eval_history"] = eval_history
             if group is None or group.rank == 0:
@@ -661,11 +679,14 @@ def train_device(params: Params, data: Dataset, valid=None, *,
             n_iters = it + 1
             break
 
-    flush_deferred()
-    with watch_fetch("final", n_iters), span("train.fetch.final"):
-        booster = _materialize(p, data.mapper, out, n_iters * K, init,
-                               max_depth_prev, best_iteration, best_value,
-                               stale)
+    with watch_fetch("final", n_iters):
+        if chunk_hook is not None:
+            chunk_hook("fetch", n_iters)
+        flush_deferred()
+        with span("train.fetch.final"):
+            booster = _materialize(p, data.mapper, out, n_iters * K, init,
+                                   max_depth_prev, best_iteration,
+                                   best_value, stale)
     if eval_history is not None:
         booster.train_state["eval_history"] = eval_history
     booster.tree_seconds = tree_seconds

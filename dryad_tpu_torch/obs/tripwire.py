@@ -10,6 +10,8 @@ an armed program increments
 window (a model load compiles new shapes) and ``arm`` again closes it and
 clears the degradation: re-warm and re-arm is the recovery path.
 ``begin_program`` starts a new generation (forgets keys, disarms).
+``add_listener(fn)`` calls ``fn(program, detail)`` at each unexpected
+compile (the supervisor journals them as ``recompile_unexpected``).
 
 The counterpart of ``dryad_tpu/obs/tripwire.py``; host-side only, and
 ``note_compile`` returns at once with the registry disabled.
@@ -18,7 +20,7 @@ The counterpart of ``dryad_tpu/obs/tripwire.py``; host-side only, and
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 from dryad_tpu_torch.obs.health import HealthState, default_health
 from dryad_tpu_torch.obs.registry import Registry, default_registry
@@ -37,6 +39,7 @@ class RecompileTripwire:
         self._lock = threading.Lock()
         self._keys: dict[str, set] = {}      # program -> seen keys
         self._armed: dict[str, bool] = {}
+        self._listeners: list[Callable[[str, str], None]] = []
 
     def _reg(self) -> Registry:
         return (self._registry if self._registry is not None
@@ -91,14 +94,41 @@ class RecompileTripwire:
                         "Compile boundaries by program family").labels(
                 program=program).inc()
         if fired:
+            self.unexpected(program, detail or f"new program key {key!r} "
+                            "after warmup")
+        return new
+
+    def unexpected(self, program: str, detail: str = "") -> None:
+        """Count an unexpected compile, degrade ``/healthz`` and tell the
+        listeners."""
+        reg = self._reg()
+        if reg.enabled:
             reg.counter("dryad_recompile_unexpected_total",
                         "Compiles observed after the expected-compile "
                         "budget was spent").labels(program=program).inc()
-            self._hp().degrade(
-                health_reason(program),
-                f"unexpected recompile in {program}: "
-                + (detail or f"new program key {key!r} after warmup"))
-        return new
+        self._hp().degrade(health_reason(program),
+                           f"unexpected recompile in {program}: {detail}")
+        with self._lock:
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(program, detail)
+            except Exception:   # noqa: BLE001 — a dead listener must not
+                pass            # break the producer's dispatch path
+
+    def add_listener(self, fn: Callable[[str, str], None]
+                     ) -> Callable[[], None]:
+        """Register ``fn(program, detail)`` for unexpected compiles;
+        returns its remover."""
+        with self._lock:
+            self._listeners.append(fn)
+
+        def remove() -> None:
+            with self._lock:
+                if fn in self._listeners:
+                    self._listeners.remove(fn)
+
+        return remove
 
 
 _default: Optional[RecompileTripwire] = None

@@ -16,9 +16,10 @@ other than ``_default``'s (``CalibrationTable.overrides_gate``): a gate
 no entry changes resolves without touching a device, whatever the table
 holds.
 
-Three gates have no site in the port: ``partition`` (no masked-reduce /
+Three gates route no call in the port: ``partition`` (no masked-reduce /
 gather column select), ``chunk_cap`` (the chunked dispatch arm is not
-ported) and ``hist_backend`` (the port's ``"auto"`` takes the kernels
+ported; ``resilience/policy.py`` reads its ladder through ``gate_value``)
+and ``hist_backend`` (the port's ``"auto"`` takes the kernels
 on every platform it has, whatever a table says).  They resolve all the
 same, so a table crosses whole.
 """

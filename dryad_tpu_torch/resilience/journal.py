@@ -9,8 +9,8 @@ instant events.  The event vocabulary is the reference's (``run_start``,
 fleet's and continual loop's families), so a journal of either package
 reads in the other.  Stdlib only.
 
-The counterpart of ``dryad_tpu/resilience/journal.py``; its producers,
-the supervisors, are not ported yet.
+The counterpart of ``dryad_tpu/resilience/journal.py``; its producer is
+``resilience/supervisor.py`` (the fleet's supervisor is not ported yet).
 """
 
 from __future__ import annotations

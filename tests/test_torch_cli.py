@@ -12,6 +12,12 @@ counterparts of ``tests/test_cli.py:26-50,106-126,175-185``.
   iterations.
 * ``serve --drift-window 0`` serves without monitors; the default window
   serves with one.
+* ``train --supervise --journal --retry-budget`` and their usage errors
+  (before any data loads); a supervised run's journal, tailed into the
+  registry under ``--metrics-port``, reads with the reference's
+  ``RunJournal.read`` and folds in its ``JournalTail``; a directory left
+  by a sticky CUDA error resumes through ``--supervise --resume`` bitwise
+  the straight run.
 """
 
 import io
@@ -245,3 +251,108 @@ def test_serve_drift_window_zero_serves_without_monitors(paths,
                  str(paths / "X.npy"), "--out", str(paths / "d.npy"),
                  "--device", "cpu"]) == 0
     np.testing.assert_array_equal(outs[0], np.load(paths / "d.npy"))
+
+
+def test_cli_supervise_flags_and_usage_errors(paths, tmp_path):
+    missing = str(paths / "absent.npy")
+    base = ["train", "--data", missing, "--label", missing, "--device",
+            "cpu", "--quiet"]
+    with pytest.raises(SystemExit, match="--supervise requires "
+                                         "--checkpoint-dir"):
+        main(base + ["--supervise"])
+    with pytest.raises(SystemExit, match="--journal is the supervised"):
+        main(base + ["--journal", str(tmp_path / "j.jsonl")])
+    with pytest.raises(SystemExit, match="--retry-budget configures"):
+        main(base + ["--retry-budget", "2"])
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    (ck / "ckpt_00000004.dryad").write_bytes(b"")
+    with pytest.raises(SystemExit, match="pass --resume"):
+        main(base + ["--supervise", "--checkpoint-dir", str(ck)])
+    # the guard creates no directory it asks about
+    fresh = tmp_path / "not_made"
+    with pytest.raises(FileNotFoundError):
+        main(base + ["--supervise", "--checkpoint-dir", str(fresh)])
+    assert not fresh.exists()
+
+
+def test_cli_supervised_journal_reads_in_the_reference(paths, monkeypatch):
+    from dryad_tpu.obs.journal_tail import JournalTail as RefTail
+    from dryad_tpu.obs.registry import Registry as RefRegistry
+    from dryad_tpu.resilience.journal import RunJournal as RefJournal
+
+    from dryad_tpu_torch.obs.registry import Registry
+
+    reg = Registry()
+    monkeypatch.setattr("dryad_tpu_torch.obs.registry._default", reg)
+    cfg = dict(CFG, max_depth=4, deep_layout="legacy")
+    (paths / "cfg.json").write_text(json.dumps(cfg))
+    journal = str(paths / "run.jsonl")
+    model = str(paths / "m.dryad")
+    assert _train(paths, "--supervise", "--checkpoint-dir",
+                  str(paths / "ck"), "--checkpoint-every", "2",
+                  "--journal", journal, "--retry-budget", "2",
+                  "--metrics-port", "0", "--model", model) == 0
+    events = RefJournal.read(journal)
+    assert events[0]["event"] == "run_start"
+    assert events[0]["retry_budget"] == 2
+    assert events[-1]["event"] == "complete"
+    assert events[-1]["iterations"] == cfg["num_trees"]
+    # the port's tail folded the run into its registry during the run
+    snap = reg.snapshot()
+    assert snap["counters"]["dryad_run_events_total"][
+        'event="complete"'] == 1
+    assert snap["gauges"]["dryad_run_iterations"][""] == cfg["num_trees"]
+    # and the reference's tail folds the same journal
+    rreg = RefRegistry()
+    tail = RefTail(journal, registry=rreg)
+    assert tail.poll() == len(events)
+    rsnap = rreg.snapshot()
+    assert rsnap["counters"]["dryad_run_events_total"] == snap["counters"][
+        "dryad_run_events_total"]
+    straight = dt.train(cfg, dt.Dataset(np.load(paths / "X.npy"),
+                                        np.load(paths / "y.npy"),
+                                        max_bins=cfg["max_bins"]),
+                        device="cpu")
+    got = dt.Booster.load(model)
+    for k, v in straight.tree_arrays().items():
+        np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)
+
+
+def test_cli_resumes_a_sticky_fault_in_a_fresh_run(paths):
+    """A sticky CUDA error leaves the checkpoint directory behind (the
+    supervisor fails closed); ``train --supervise --resume`` continues it
+    to the straight run's trees."""
+    import torch
+
+    from dryad_tpu_torch.resilience import (FaultError, RunJournal,
+                                            supervise_train)
+
+    # depth 4 on the legacy arm: the plain versions' cheapest route
+    cfg = dict(CFG, num_trees=8, max_depth=4, deep_layout="legacy")
+    (paths / "cfg.json").write_text(json.dumps(cfg))
+    ds = dt.Dataset(np.load(paths / "X.npy"), np.load(paths / "y.npy"),
+                    max_bins=cfg["max_bins"])
+    ck, journal = str(paths / "ck"), str(paths / "run.jsonl")
+
+    def sticky(site, it):
+        if site == "dispatch" and it == 6:
+            raise torch.AcceleratorError(
+                "CUDA error: an illegal memory access was encountered")
+
+    with pytest.raises(FaultError, match="fresh process"):
+        supervise_train(cfg, ds, device="cpu", checkpoint_dir=ck,
+                        checkpoint_every=4, journal=journal,
+                        fault_injector=sticky)
+    assert RunJournal.read(journal)[-1]["reason"] == "sticky_device_error"
+    model = str(paths / "m.dryad")
+    assert _train(paths, "--supervise", "--resume", "--checkpoint-dir", ck,
+                  "--checkpoint-every", "4", "--journal", journal,
+                  "--model", model) == 0
+    last = RunJournal.read_last_run(journal)
+    assert last[1]["resume_iteration"] == 4
+    assert last[-1]["event"] == "complete"
+    straight = dt.train(cfg, ds, device="cpu")
+    got = dt.Booster.load(model)
+    for k, v in straight.tree_arrays().items():
+        np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)

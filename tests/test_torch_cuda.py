@@ -39,7 +39,9 @@ attaches equal to the CPU profile of the same model and rows, served
 answers bitwise with the drift monitors on and off, the CLI's card
 predict bitwise its ``--device cpu`` predict, and GOSS's gradient norm
 bitwise numpy's with a 7-class GOSS run on the card growing the CPU's
-trees (integer arrays equal, values within 1e-4).
+trees (integer arrays equal, values within 1e-4); a supervised run with
+three injected faults bitwise the straight card run (trees, evals,
+predict).
 """
 
 import numpy as np
@@ -1147,3 +1149,41 @@ def test_goss_selection_on_card_matches_cpu(cuda_device):
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
     np.testing.assert_allclose(card["value"], cpu["value"], rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_supervised_run_on_card_equals_the_straight_run(cuda_device,
+                                                        tmp_path):
+    """Supervised training on the card at the headline widths, with a
+    dispatch fault, an out-of-memory fault and a fetch death at a
+    checkpoint, grows the uninterrupted card run's trees bit for bit."""
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch.resilience import (FaultInjector, RetryPolicy,
+                                            RunJournal, supervise_train)
+
+    X, y = datasets.higgs_like(60_000, seed=38)
+    ds = Dataset(X[:50_000], y[:50_000], max_bins=256)
+    dv = ds.bind(X[50_000:], y[50_000:])
+    params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+              "num_trees": 10}
+    straight = dt.train(params, ds, [dv], device=cuda_device)
+    injector = FaultInjector([(3, "device_unavailable", "dispatch"),
+                              (5, "oom", "dispatch"),
+                              (8, "fetch_death", "fetch")])
+    journal = str(tmp_path / "j.jsonl")
+    got = supervise_train(params, ds, [dv], device=cuda_device,
+                          checkpoint_dir=str(tmp_path / "ck"),
+                          checkpoint_every=2, journal=journal,
+                          fault_injector=injector,
+                          policy=RetryPolicy(backoff_base_s=0.0))
+    assert injector.pending == 0
+    for k, v in straight.tree_arrays().items():
+        np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)
+    assert (got.train_state.get("eval_history")
+            == straight.train_state.get("eval_history"))
+    np.testing.assert_array_equal(
+        got.predict(X[50_000:], device=cuda_device),
+        straight.predict(X[50_000:], device=cuda_device))
+    kinds = [e["event"] for e in RunJournal.read(journal)]
+    assert kinds.count("fault") == 3 and kinds[-1] == "complete"

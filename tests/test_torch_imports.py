@@ -107,7 +107,9 @@ def test_scan_covers_the_training_loop_modules():
             "obs/exporter.py", "obs/spans.py", "obs/registry.py",
             "resilience/journal.py", "data/profile.py", "__main__.py",
             "serve/server.py", "serve/http.py", "serve/bench.py",
-            "convert.py"} <= names
+            "convert.py", "native/__init__.py", "resilience/__init__.py",
+            "resilience/faults.py", "resilience/policy.py",
+            "resilience/supervisor.py"} <= names
 
 
 def test_policy_imports_without_torch():
@@ -160,6 +162,37 @@ def test_obs_journal_and_profile_import_without_torch():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "torch-free"
+
+
+def test_native_and_resilience_stand_alone():
+    """``native`` and ``resilience`` import neither jax nor the reference,
+    in a fresh interpreter; the native layer imports no torch, builds from
+    the port's own source into the port's ``_build/`` and loads nothing of
+    the reference's ``native/``."""
+    code = (
+        "import sys\n"
+        "from dryad_tpu_torch import native\n"
+        "assert native.available()\n"
+        "assert native.lib_path().startswith(%r)\n"
+        "assert native.SOURCE.startswith(%r)\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] == 'torch']\n"
+        "import dryad_tpu_torch.resilience as r\n"
+        "from dryad_tpu_torch.resilience import faults, policy, supervisor\n"
+        "assert r.RetryPolicy().ch_max_ladder\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
+        "assert not bad, bad\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libdryad_native' not in maps\n"
+        "print('alone')\n") % (str(PKG / "_build"), str(PKG / "native"),
+                               FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("DRYAD_NATIVE", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "alone"
+    src = (PKG / "native" / "src" / "dryad_native.cpp").read_text()
+    assert "predict_accumulate(" not in src and "tree_leaves(" not in src
 
 
 def test_cli_refuses_without_a_card(monkeypatch, tmp_path):

@@ -482,6 +482,50 @@ def run_config(name: str, data: dict, rank: int = 0, world: int = 1,
     return _tree_out(fit(**kw))
 
 
+# tests/test_torch_resilience.py's group: every rank under its own
+# supervisor with the same injection points (a dispatch fault, then a
+# fetch death at a checkpoint), against one process's straight run
+SUPERVISED = {"growth": "depthwise", "max_depth": 4, "num_leaves": 15,
+              "num_trees": 6}
+SUPERVISED_POINTS = ((3, "device_unavailable", "dispatch"),
+                     (4, "fetch_death", "fetch"))
+SUPERVISED_EVERY = 2
+
+
+def run_supervised(data: dict, rank: int = 0, world: int = 1,
+                   group: bool = True, ckpt_dir: str | None = None,
+                   journal: str | None = None) -> dict:
+    """``SUPERVISED`` on this rank's rows under ``supervise_train`` (one
+    process: the straight run on all the rows)."""
+    import torch
+
+    import dryad_tpu_torch as dt
+    from dryad_tpu_torch import Dataset
+    from dryad_tpu_torch.engine.distributed import RowGroup
+    from dryad_tpu_torch.resilience import (FaultInjector, RetryPolicy,
+                                            supervise_train)
+
+    Xb, y, _, mapper = data["num"]
+    p = dict(BASE, **SUPERVISED)
+    if not group:
+        return _tree_out(dt.train(p, Dataset.from_binned(Xb, mapper, y),
+                                  device="cpu"))
+    lo, hi = split_rows(Xb.shape[0], rank, world, None)
+    ds = Dataset.from_binned(Xb[lo:hi], mapper, y[lo:hi])
+    cpu = torch.device("cpu")
+    injector = FaultInjector(SUPERVISED_POINTS)
+    b = supervise_train(p, ds, device=cpu,
+                        group=RowGroup.build(ds.num_rows, device=cpu),
+                        checkpoint_dir=ckpt_dir,
+                        checkpoint_every=SUPERVISED_EVERY, journal=journal,
+                        fault_injector=injector,
+                        policy=RetryPolicy(backoff_base_s=0.0))
+    if injector.pending:
+        raise AssertionError(f"rank {rank}: {injector.pending} points "
+                             "never fired")
+    return _tree_out(b)
+
+
 def run_refused(name: str, data: dict, rank: int, world: int,
                 tmp: str) -> str:
     """The error a refused set raises under a group."""
@@ -520,6 +564,10 @@ def main(spec_path: str, rank: int) -> None:
             data = make_data()
             for name in spec["comm"]:
                 out[name] = run_comm(name, data, rank, world)
+        elif spec.get("supervise"):
+            out["supervised"] = run_supervised(
+                make_data(), rank, world, ckpt_dir=spec["ckpt_dir"],
+                journal=f"{spec_path}.{rank}.journal")
         elif spec.get("modes"):
             data = make_mode_data()
             for name in spec["modes"]:
