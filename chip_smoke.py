@@ -91,7 +91,7 @@ Phases (any failed check exits non-zero):
 17. Covertype-shaped multiclass (``covertype_like(581k + 100k, 54, 7,
    seed=11)``: 581k training rows, Covertype's size, and 100k held out as
    the valid set; 256 bins; the acceptance config: depthwise, max_depth 6,
-   63 leaves, 30 iterations of 7 class trees, cut to 12
+   63 leaves, 30 iterations of 7 class trees, cut to 9
    (``COV_ITERATIONS``) for the script's time): on the last class tree of
    a capture iteration (the second, where g and h differ by class), K1 at
    the root (P=1; its sums are that class's gradient column and no
@@ -207,8 +207,8 @@ Phases (any failed check exits non-zero):
    iteration 7 and resumed from checkpoints every 3, bitwise; each mode's
    card trees equal the CPU's (values within 1e-4).
 
-29. ``cv`` at the headline config on phase 2's Higgs rows: 5 stratified
-   folds (they partition the rows) of 10 trees, AUC every iteration: 9 K1
+29. ``cv`` at the headline config on phase 2's Higgs rows: 3 stratified
+   folds (``CV_FOLDS``, cut from 5 for the script's time) (they partition the rows) of 10 trees, AUC every iteration: 9 K1
    and 8 K2 launches a tree; each fold's last AUC within 1e-5 of the host
    AUC of its booster's card predict on its holdout; the mean curve
    rises; a second ``cv`` at 3 trees a fold bitwise the first 3
@@ -218,8 +218,10 @@ Phases (any failed check exits non-zero):
    values in tree order bitwise the raw predict; the booster re-indexed to
    feature ids >= 4096 (the structure-of-arrays traversal) on 100k rows
    widened to 4124 columns predicts bitwise as the packed arm; TreeSHAP of
-   2,000 rows on the card within 1e-9 of the CPU's, contributions plus
-   bias within 1e-5 of predict, rows/s; ``refit`` on the 1M held-out rows
+   500 rows (``SHAP_ROWS``, cut from 2,000 for the script's time) on the
+   card within 1e-9 of the CPU's, contributions plus bias within 1e-5 of
+   predict, rows/s; ``refit`` on the first 250k held-out rows
+   (``REFIT_ROWS``, cut from 1M)
    at decay 0.9, card = CPU structure and values within rtol 1e-5 / atol
    1e-6, two card runs bitwise, decay 1.0 bitwise the old values,
    seconds; a text model round trip predicts bitwise; split counts sum to
@@ -230,7 +232,8 @@ Phases (any failed check exits non-zero):
    and 9 K2 launches a tree; ``predict_proba`` of the 100k held-out rows
    sums to 1 within 1e-5 and is bitwise ``predict(clf.booster_, X)``;
 32. serving (``dryad_tpu_torch.serve``), last: the headline config
-   trained at ``serve_trees`` (500, the north star's count) trees on
+   trained at ``serve_trees`` (100, cut from the north star's 500 for
+   the script's time) trees on
    phase 2's rows (9 K1 and 8 K2 launches a tree; held-out AUC above 0.70
    and risen from tree 10; trees/s), saved, and served from the saved
    file beside a second, named model (20 regression trees, a text file):
@@ -282,7 +285,8 @@ Phases (any failed check exits non-zero):
    upload seconds of the resident tensor and of the streamed assembly
    (fresh sets, ending in ``torch.cuda.synchronize``), the host's peak-RSS
    growth during each (VmRSS sampled every 0.5 ms), trees/s of fresh
-   resident and streamed sets in three interleaved pairs, and each run's
+   resident and streamed sets in two interleaved pairs (of three, for the
+   script's time), and each run's
    peak device memory above what was allocated before it; (d) the first 2M rows (``WIDE_ROWS``, cut
    from 10M for the script's time) binned at 2048 bins: 5 trees on the
    legacy arm through arm A1 (no kernel launch), a second run bitwise,
@@ -318,7 +322,7 @@ Phases (any failed check exits non-zero):
    fixture (39 features, 26 categorical) and its bundled EFB fixture,
    each rank binning its CSR rows through the one mapper, 5 trees each;
    then this process as one NCCL rank trains (a) fused and (c) l1; (e)
-   phase 32's 500-tree model predicts the 1M held-out rows split over
+   phase 32's serving model predicts the 1M held-out rows split over
    ``[cuda:0, cuda:0]`` and over every visible card, bitwise the
    single-device predict; a cache whose sharded family splits each
    4096-row bucket over ``[cuda:0, cuda:0]`` (two CUDA graphs) serves 16
@@ -342,9 +346,10 @@ Phases (any failed check exits non-zero):
    ``stats()["policy"]`` names the card, and every captured bucket has
    its ``dryad_prog_launches``, ``dryad_prog_device_ms`` and
    ``dryad_prog_wall_ms`` gauges; (e) the runs of (c) export
-   ``dryad_fetch_inflight_age_seconds``; (f) a wide (20k x 2000, 50
-   trees) and a multiclass (20k x 54, 7 classes, 10 iterations) model
-   trained on the card, 50k held-out rows traversed by both
+   ``dryad_fetch_inflight_age_seconds``; (f) a wide (20k x 2000, 20
+   trees, cut from 50) and a multiclass (20k x 54, 7 classes, 5
+   iterations, cut from 10) model trained on the card, 20k held-out rows
+   (cut from 50k) traversed by both
    ``predict_layout`` arms through serving's and direct predict's
    programs: answers bitwise, each arm's device ms; (g) a new headline
    config's first tree and first predict of the 1M held-out rows, then
@@ -400,6 +405,40 @@ Phases (any failed check exits non-zero):
    ``sticky_device_error``, and exits non-zero; ``python -m
    dryad_tpu_torch train --supervise --resume`` on its checkpoint
    directory finishes 12 trees bitwise the straight run's first 12.
+39. the serving fleet and continual boosting (M15c, M15d), last: phase
+   37's 20-tree model at the headline widths (its drift profile
+   embedded) is generation 0, served by two real ``python -m
+   dryad_tpu_torch serve --device cuda --warmup`` replicas sharing the
+   card under ``fleet.FleetSupervisor`` (r1 through ``add_slot`` while
+   ``start`` spawns r0, so they start together) behind
+   ``fleet.FleetRouter``
+   (drift budget PSI 0.25, window 8192, every call with a timeout): (a)
+   ``replica_crash`` armed on r0's second request through
+   ``DRYAD_REPLICA_FAULTS``, under a closed loop of traced interactive
+   requests: no request fails, every trace id round-trips, every answer
+   is bitwise the in-process card predict, the journal runs
+   ``replica_crash`` -> ``replica_respawn`` -> ``replica_ready`` at
+   generation 1, the merged ``/trace`` holds one id with both forward
+   attempts, ``/metrics`` the merged ``dryad_fleet_latency_ms`` p99
+   gauges; (b) baseline traffic keeps ``GET /drift`` green; traffic
+   scaled 3x journals ``drift_breach``; the real ``RetrainScheduler``
+   launches ``python -m dryad_tpu_torch retrain --device cuda``, which
+   appends 10 trees on ``higgs_like(300k, seed + 39)`` scaled 3x, bitwise
+   an in-process ``train(init_model=)`` on the card (9 K1 and 8 K2 a
+   tree, path "fleet_append"); the probationed rolling push journals
+   ``generation_promoted`` and ``/drift`` goes green; a forced retrain
+   with ``retrain:1:bad_generation`` in ``DRYAD_CONTINUAL_FAULTS`` is
+   journaled ``generation_rolled_back``; no request fails across the
+   pushes and ``dryad_recompile_unexpected_total`` is 0 on every
+   replica; (c) a min-1 / max-3 ``CapacityController`` on the same
+   fleet: a 7-client ramp of 1024- and 2048-row requests, started
+   before the controller, until the scale-up starts, then one client
+   through its spawn: one ``scale_up`` with no shed, then the light load
+   retires a replica (``replica_retired``, ``scale_down``) with no
+   failed request; each replica's seconds to ready; then
+   ``fleet.bench.run_fleet_bench`` at 1 and 2 replicas (p50/p95/p99 by
+   priority; on one card it measures routing and shedding, not
+   scale-out).
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
@@ -446,7 +485,7 @@ EPS_HOLDOUT = 50_000            # of its 100k
 EPS_FEATURES = 2000
 COV_ROWS = 581_000
 COV_HOLDOUT = 100_000
-COV_ITERATIONS = 12             # of the acceptance config's 30, for the time
+COV_ITERATIONS = 9              # of the acceptance config's 30, for the time
 COV_FEATURES = 54
 COV_CLASSES = 7
 OUT = "chiprun_out"
@@ -3408,11 +3447,12 @@ def phase_mode_fixtures(dt, a, dev, report) -> tuple:
 # the histogram kernels' launch shape and both bounds
 # ---- phases 29-31: the rest of the user API (M16) --------------------------
 CV = dict(MODE_BASE, num_trees=10)
-CV_FOLDS = 5
+CV_FOLDS = 3                     # of 5, for the script's time
 CV_SHORT = 3
 SOA_ROWS = 100_000
 SOA_BASE = 4096          # first feature id past the packed words' 12 bits
-SHAP_ROWS = 2_000
+SHAP_ROWS = 500                  # of 2,000, for the script's time
+REFIT_ROWS = 250_000             # of the 1M held-out rows, for the time
 EST_TREES = 10
 
 
@@ -3540,14 +3580,15 @@ def phase_model_api(dt, booster, Xv, yv, dev, report) -> None:
                    "cpu_seconds": shap_cpu_s, "card_vs_cpu": err,
                    "efficiency_err": eff}
     # refit of every tree on the held-out rows
+    Xr, yr = Xv[:REFIT_ROWS], yv[:REFIT_ROWS]
     t0 = time.perf_counter()
-    r1 = booster.refit(Xv, yv, decay_rate=0.9, device=dev)
+    r1 = booster.refit(Xr, yr, decay_rate=0.9, device=dev)
     refit_s = time.perf_counter() - t0
-    r2 = booster.refit(Xv, yv, decay_rate=0.9, device=dev)
+    r2 = booster.refit(Xr, yr, decay_rate=0.9, device=dev)
     check(np.array_equal(r1.arrays["value"], r2.arrays["value"]),
           "refit: two card runs differ")
     t0 = time.perf_counter()
-    rc = booster.refit(Xv, yv, decay_rate=0.9, device=cpu)
+    rc = booster.refit(Xr, yr, decay_rate=0.9, device=cpu)
     refit_cpu_s = time.perf_counter() - t0
     for k, v in rc.tree_arrays().items():
         if k != "value":
@@ -3557,10 +3598,10 @@ def phase_model_api(dt, booster, Xv, yv, dev, report) -> None:
                       atol=1e-6), "refit: card vs CPU values")
     check(not np.array_equal(r1.arrays["value"], booster.arrays["value"]),
           "refit: no value moved")
-    same = booster.refit(Xv, yv, decay_rate=1.0, device=dev)
+    same = booster.refit(Xr, yr, decay_rate=1.0, device=dev)
     check(np.array_equal(same.arrays["value"], booster.arrays["value"]),
           "refit: decay 1.0 changed a value")
-    rep["refit"] = {"rows": Xv.shape[0], "seconds": refit_s,
+    rep["refit"] = {"rows": Xr.shape[0], "seconds": refit_s,
                     "cpu_seconds": refit_cpu_s,
                     "card_vs_cpu": float(np.abs(
                         r1.arrays["value"] - rc.arrays["value"]).max())}
@@ -3626,15 +3667,16 @@ _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
 
 
-SERVE = dict(MODE_BASE, num_trees=500)
+# 100 trees of the north star's 500, for the script's time
+SERVE = dict(MODE_BASE, num_trees=100)
 SERVE_SMALL = {"objective": "regression", "growth": "depthwise",
                "max_depth": 6, "num_leaves": 63, "max_bins": 256,
                "learning_rate": 0.1, "num_trees": 20}
 SERVE_BUCKETS = (1, 8, 64, 512, 4096)    # latency is measured at these
 SERVE_SHAPES = (1, 7, 8, 9, 63, 64, 100, 511, 512, 4095, 4096, 5000)
 # sequential requests per bucket, and the bulk bench's windows: cut from
-# 500 and 4 s for the script's time (phase 38 pushed it past 900 s)
-SERVE_LAT_REQS = 300
+# 500 and 4 s, then to 150 requests, for the script's time
+SERVE_LAT_REQS = 150
 SERVE_BULK = dict(clients=4, sizes=(4096,), duration_s=2.5, arms=2)
 
 
@@ -3953,7 +3995,7 @@ def _dist_run_report(booster, group, launches, trees: int) -> dict:
 def _nccl_vs_single(dt, dd, params, ds, dv, dev) -> dict:
     """One NCCL rank (the process group already joined) against one
     process, on the same config and valid set: trees/s of the two
-    interleaved (one process, the rank, three times over), then one whole
+    interleaved (one process, the rank, twice over), then one whole
     run of each at ``DIST_PROFILE_TREES`` trees under torch.profiler:
     device ms by kernel (set-up included), the tables in
     chiprun_out/profile_dist_{single,nccl}.txt, and the kernels whose
@@ -3974,7 +4016,7 @@ def _nccl_vs_single(dt, dd, params, ds, dv, dev) -> dict:
                 "nccl": lambda: rank(p)}
 
     rates: dict = {"single": [], "nccl": []}
-    for _ in range(3):
+    for _ in range(2):                  # of 3, for the script's time
         for name, fn in runs(params).items():
             rates[name].append(tree_summary(fn())["trees_per_s"])
     # the host's time inside the rank's collectives, a tree, by purpose
@@ -4294,7 +4336,8 @@ def phase_distributed(dt, a, ds, Xv, yv, dev, report, headline_trees
 # the spills of phase 34 (git-ignored; removed at the end of the phase)
 STREAM_DIR = os.path.join(ROOT, "_stream_rows")
 STREAM_RAGGED_ROWS = 999_983           # a chunking that divides nothing
-STREAM_PAIRS = 3                       # interleaved resident/streamed runs
+STREAM_PAIRS = 2                       # interleaved resident/streamed runs
+                                       # (of 3, for the script's time)
 # (d) and (e) run on the first WIDE_ROWS rows of phase 2 (cut from 10M for
 # the script's time)
 WIDE_ROWS = 2_000_000
@@ -4666,7 +4709,7 @@ def _rest_want(name: str, params: dict, F: int, rows: int) -> dict:
 
 
 def _rest_sharded(dt, booster, Xvb, dev, rep) -> dict:
-    """(e): the 500-tree model's predict of the held-out rows split over
+    """(e): the serving model's predict of the held-out rows split over
     [cuda:0, cuda:0] and over every visible card, bitwise the
     single-device predict; a cache whose sharded family splits each
     4096-row bucket over [cuda:0, cuda:0] serves bitwise the unsharded
@@ -4743,7 +4786,7 @@ def phase_rest(dt, a, ds, Xv, yv, dev, report, mslr, eps, serve_model
     """Phase 35: the rest of distribution (docstring).  ``mslr`` is phase
     20's (train, valid) sets, ``eps`` phase 16's binned Epsilon rows cut
     to ``REST_EPS_ROWS`` (X, y, mapper, valid X, valid y),
-    ``serve_model`` phase 32's 500-tree booster."""
+    ``serve_model`` phase 32's serving booster."""
     import numpy as np
     import torch
 
@@ -4927,15 +4970,16 @@ PROBE_K, PROBE_REPS = 3, 3
 # (f): the predict_layout entry held on a wide and a multiclass model:
 # (generator, its arguments, params), LAYOUT_ROWS rows to train on and
 # LAYOUT_HOLDOUT to traverse
-LAYOUT_ROWS, LAYOUT_HOLDOUT, LAYOUT_REPS = 20_000, 50_000, 10
+# (LAYOUT_HOLDOUT cut from 50k for the script's time)
+LAYOUT_ROWS, LAYOUT_HOLDOUT, LAYOUT_REPS = 20_000, 20_000, 10
 LAYOUT_MODELS = {
     "wide": ("epsilon_like", {"num_features": EPS_FEATURES, "seed": 13},
              {"objective": "regression", "growth": "depthwise",
               "max_depth": 6, "num_leaves": 63, "max_bins": 256,
-              "num_trees": 50}),
+              "num_trees": 20}),
     "multiclass": ("covertype_like", {"num_features": COV_FEATURES,
                                       "num_class": COV_CLASSES, "seed": 11},
-                   dict(COVERTYPE, num_trees=10)),
+                   dict(COVERTYPE, num_trees=5)),
 }
 # (g): introspection's cost on a new config's first tree and first
 # predict, in the order of these DRYAD_PROG values
@@ -5267,9 +5311,10 @@ def _post(url: str, body: dict, headers=None):
     return urllib.request.urlopen(req, timeout=120)
 
 
-def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> dict:
+def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> tuple:
     """Phase 37: the command line, drift, the HTTP routes and F2 on the
-    card (module doc).  Returns the CLI training run's launches."""
+    card (module doc).  Returns the CLI training run's launches and the
+    path of its model, copied for phase 39."""
     import threading
 
     import numpy as np
@@ -5383,6 +5428,10 @@ def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> dict:
         check(rep["valid_auc"][1] > rep["valid_auc"][0]
               and rep["valid_auc"][1] > 0.70,
               f"cli: valid AUC {rep['valid_auc']}")
+        # phase 39's generation 0: this 20-tree model and its profile
+        os.makedirs(FLEET_DIR, exist_ok=True)
+        gen0_path = os.path.join(FLEET_DIR, "m-gen0.dryad")
+        shutil.copyfile(model, gen0_path)
         lap("cli_train")
 
         # the model's profile against build_reference_profile on the CPU,
@@ -5610,7 +5659,7 @@ def phase_cli(dt, a, ds, Xv, dev, report, serve_model) -> dict:
           "bitwise with drift on and off; /models and /trace/events; F2 "
           "card = numpy", flush=True)
     report["cli"] = rep
-    return launches
+    return launches, gen0_path
 
 
 SUP_DIR = os.path.join(ROOT, "_sup_rows")
@@ -5914,6 +5963,509 @@ def phase_supervise(dt, a, Xv, dev, report) -> dict:
     return launches
 
 
+FLEET_DIR = os.path.join(ROOT, "_fleet")
+FLEET_STARTUP_S = 120.0          # a replica's torch import, card and warmup
+FLEET_TIMEOUT_S = 30.0           # every HTTP call of the phase
+FLEET_DRIFT_WINDOW = 8192        # the replicas' drift window (serve default)
+FLEET_PSI = 0.25                 # the router's PSI budget
+FLEET_SHIFT = 3.0                # the covariate scale of the shifted traffic
+FLEET_RETRAIN_ROWS = 300_000     # higgs_like(..., seed + 39), scaled
+FLEET_RETRAIN_TREES = 10
+FLEET_MAX_INFLIGHT = 8
+FLEET_BENCH = dict(replica_counts=(1, 2), clients=4, duration_s=0.5,
+                   sizes=(1, 64, 512), arms=1)
+
+
+class _Pump:
+    """Closed interactive loops through the router, one thread per
+    client, each in 1 s legs of one client until ``halt``: the drift
+    windows fill only while requests flow, so traffic spans the whole
+    drill, and the clients' legs never end together, so the admission
+    depth holds between legs."""
+
+    def __init__(self, host, port, payloads, seed, clients=1):
+        import threading
+
+        from dryad_tpu_torch.fleet.bench import _closed_loop
+
+        self.stats = {"requests": 0, "failures": 0, "trace_mismatches": 0}
+        self._stop = threading.Event()
+        lock = threading.Lock()
+
+        def run(s):
+            while not self._stop.is_set():
+                s += clients
+                r = _closed_loop(host, port, payloads, clients=1,
+                                 duration_s=1.0, seed=s, trace=True)
+                with lock:
+                    for k in self.stats:
+                        self.stats[k] += r[k]
+
+        self._threads = [threading.Thread(target=run, args=(seed + i,),
+                                          daemon=True)
+                         for i in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def halt(self) -> dict:
+        self._stop.set()
+        for t in self._threads:
+            t.join(FLEET_TIMEOUT_S)
+        return dict(self.stats)
+
+
+def _journal_has(path: str, kind: str, **match) -> list:
+    from dryad_tpu_torch.resilience.journal import RunJournal
+
+    return [e for e in RunJournal.read(path) if e["event"] == kind
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _wait(cond, timeout_s: float, what: str, interval_s: float = 0.1):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(interval_s)
+    fail(f"fleet: {what} within {timeout_s:.0f} s")
+
+
+def _http(host, port, method: str, path: str, body: bytes = b""):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=FLEET_TIMEOUT_S)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_fleet(dt, a, Xv, dev, report, gen0_path: str) -> dict:
+    """Phase 39: the serving fleet and continual boosting (M15c, M15d) on
+    the card (module doc).  Returns the in-process append's launches."""
+    steps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    rep: dict = {}
+    try:
+        launches = _fleet_drills(dt, a, Xv, dev, rep, gen0_path, lap)
+    finally:
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    rep["step_seconds"] = steps
+    print("fleet: " + json.dumps(rep, default=str), flush=True)
+    print("fleet: a replica crash under load dropped no request (journal "
+          "crash -> respawn -> ready at generation 1, trace ids round-trip, "
+          "one id holds both forwards, merged p99 gauges, answers = direct "
+          "card predict); drift breach -> retrain on the card (its trees = "
+          "the in-process append, 9 K1 + 8 K2 a tree) -> promoted; a bad "
+          "generation rolled back; no recompile; a min-1 / max-3 ramp "
+          "scaled up with zero shed and idle retired a replica", flush=True)
+    report["fleet"] = rep
+    return launches
+
+
+def _fleet_drills(dt, a, Xv, dev, rep, gen0_path, lap) -> dict:
+    """Phase 39's drills (a)-(c) and the bench; fills ``rep``."""
+    import threading
+
+    import numpy as np
+
+    from dryad_tpu_torch import datasets
+    from dryad_tpu_torch.continual import (JournalTailer, ProbationPublisher,
+                                           RetrainScheduler,
+                                           make_http_verdicts,
+                                           make_subprocess_launcher,
+                                           make_supervisor_push)
+    from dryad_tpu_torch.engine import cuda_build
+    from dryad_tpu_torch.fleet import (CapacityController, FleetRouter,
+                                       FleetSupervisor, serve_argv)
+    from dryad_tpu_torch.fleet.bench import _closed_loop, run_fleet_bench
+    from dryad_tpu_torch.obs.registry import Registry
+    from dryad_tpu_torch.obs.trace_export import (disable_tracing,
+                                                  enable_tracing)
+    from dryad_tpu_torch.resilience import faults as F
+    from dryad_tpu_torch.resilience.journal import RunJournal
+    from dryad_tpu_torch.resilience.policy import RetryPolicy
+
+    gen0 = dt.Booster.load_any(gen0_path)
+    check(gen0.profile is not None and gen0.num_iterations == CLI_TREES,
+          "fleet: generation 0 is not phase 37's 20-tree profiled model")
+    journal = os.path.join(FLEET_DIR, "fleet.jsonl")
+    out_dir = os.path.join(FLEET_DIR, "continual")
+    fresh = os.path.join(FLEET_DIR, "fresh.npz")
+    Xr, yr = datasets.higgs_like(FLEET_RETRAIN_ROWS, seed=a.seed + 39)
+    Xr = (Xr * np.float32(FLEET_SHIFT)).astype(np.float32)
+    np.savez(fresh, X=Xr, y=yr)
+
+    def payloads(sizes, scale=1.0, start=0):
+        out, direct = {}, {}
+        for n in sizes:
+            rows = np.ascontiguousarray(Xv[start:start + n]
+                                        * np.float32(scale))
+            out[n] = json.dumps({"rows": rows.tolist()}).encode()
+            direct[n] = gen0.predict(rows, device=dev)
+            start += n
+        return out, direct
+
+    reg = Registry()
+    buf = enable_tracing()            # the router's span ring (/trace)
+    buf.clear()
+    crash = F.encode_points([F.FaultPoint(site="request", iteration=2,
+                                          kind=F.REPLICA_CRASH)])
+    sup = FleetSupervisor(
+        lambda i, pf: serve_argv([f"m={gen0_path}"], pf, device="cuda",
+                                 warmup=True,
+                                 drift_window=FLEET_DRIFT_WINDOW),
+        1, policy=RetryPolicy(backoff_base_s=0.1, retry_budget=3),
+        journal=journal, registry=reg, probe_interval_s=0.1,
+        probe_timeout_s=5.0, startup_timeout_s=FLEET_STARTUP_S,
+        fault_env={0: crash}, log_dir=FLEET_DIR)
+    router = rs = ctrl = pump = None
+    try:
+        # r0 spawns in start(), r1 through add_slot() beside it, so the two
+        # pay their torch import and the card's set-up at once
+        with ThreadPoolExecutor(1) as pool:
+            started = pool.submit(sup.start)
+            _wait(lambda: sup.slots[0].proc is not None or started.done(),
+                  FLEET_STARTUP_S, "r0 was never spawned", interval_s=0.01)
+            r1 = sup.add_slot()
+            started.result()
+        check(r1 is not None and [s.name for s in sup.slots] == ["r0", "r1"]
+              and all(s.routable for s in sup.slots),
+              f"fleet: the two replicas did not start ({sup.states()})")
+        # generous latency budgets: (c)'s pressure is admission depth, and
+        # a breached window would hold its streak through the idle half
+        router = FleetRouter(sup, registry=reg,
+                             max_inflight=FLEET_MAX_INFLIGHT,
+                             request_timeout_s=FLEET_TIMEOUT_S,
+                             slo_budgets_ms={"interactive": 30000.0,
+                                             "bulk": 30000.0},
+                             drift_budget_psi=FLEET_PSI,
+                             drift_breach_after=2).start()
+        host, port = router.host, router.port
+        lap("start")
+
+        # (a) the crash drill: r0 dies at its second request under a
+        # closed interactive loop; every answer is the direct predict's
+        bodies, direct = payloads((1, 37, 211))
+        base_bodies, base_direct = payloads((1024, 2048), start=1000)
+        direct.update(base_direct)
+        bad = []
+
+        def on_response(status, body):
+            if status == 200:
+                got = np.asarray(json.loads(body)["predictions"],
+                                 np.float32)
+                if not np.array_equal(got, direct.get(len(got))):
+                    bad.append(len(got))
+
+        loop = _closed_loop(host, port, bodies, clients=3, duration_s=3.0,
+                            seed=2, trace=True, on_response=on_response)
+        st, body = _http(host, port, "GET", "/trace?k=0")
+        trace_doc = json.loads(body)
+        st_m, metrics = _http(host, port, "GET", "/metrics")
+        metrics = metrics.decode()
+        # while r0 respawns: the in-process append the retrain worker's
+        # generation must equal (nothing else launches kernels here)
+        cuda_build.reset_counts()
+        want1 = dt.train(gen0.params.replace(num_trees=FLEET_RETRAIN_TREES),
+                         dt.Dataset(Xr, yr, mapper=gen0.mapper), device=dev,
+                         init_model=gen0)
+        launches = dict(cuda_build.counts)
+        check_launches(launches, {"hist": 9 * FLEET_RETRAIN_TREES,
+                                  "perm": 8 * FLEET_RETRAIN_TREES},
+                       "fleet append")
+        del Xr, yr
+        _wait(lambda: all(s.routable for s in sup.slots), FLEET_STARTUP_S,
+              "replica 0 never respawned to routable")
+        # the fleet whole again: baseline traffic (training's distribution)
+        # through both replicas, answers bitwise, /drift green
+        tail = _closed_loop(host, port, base_bodies, clients=2,
+                            duration_s=0.5, seed=5, trace=True,
+                            on_response=on_response)
+
+        def drift():
+            st, body = _http(host, port, "GET", "/drift")
+            check(st == 200, f"fleet: GET /drift {st}")
+            return json.loads(body)
+
+        clean = drift()
+        check(clean["models"].get("m", {}).get("rows")
+              and not clean["models"]["m"]["breached"],
+              f"fleet: baseline traffic breached: {clean['models']}")
+        check(loop["failures"] == 0 and tail["failures"] == 0,
+              f"fleet: {loop['failures']} + {tail['failures']} failed "
+              "requests across the crash")
+        check(loop["requests"] >= 20, f"fleet: {loop['requests']} requests")
+        check(loop["trace_mismatches"] == 0 and tail["trace_mismatches"] == 0,
+              "fleet: a trace id did not round-trip")
+        check(not bad, f"fleet: {len(bad)} answers != the direct card "
+              "predict")
+        kinds = [(e["event"], e.get("replica"), e.get("generation"))
+                 for e in RunJournal.read(journal)]
+        seq = [k for k in kinds if k[1] == "r0" and k[0] in (
+            "replica_crash", "replica_respawn", "replica_ready")]
+        check(seq[:4] == [("replica_ready", "r0", 0),
+                          ("replica_crash", "r0", 0),
+                          ("replica_respawn", "r0", 0),
+                          ("replica_ready", "r0", 1)],
+              f"fleet: r0's journal runs {seq}")
+        check(_journal_has(journal, "replica_crash")[0]["exit_code"]
+              == F.REPLICA_CRASH_EXIT, "fleet: not the drill's exit code")
+        forwards: dict = {}
+        for ev in trace_doc["traceEvents"]:
+            tid = ev.get("args", {}).get("trace") if ev["ph"] == "X" else None
+            if tid and ev["args"]["path"].startswith("fleet.forward/"):
+                forwards.setdefault(tid, set()).add(ev["args"]["path"])
+        both = [t for t, p in forwards.items() if len(p) >= 2]
+        check(st == 200 and both, "fleet: no trace id holds both forward "
+              "attempts of the crashed request")
+        check(st_m == 200 and "dryad_fleet_latency_ms{" in metrics
+              and 'q="p99"' in metrics,
+              "fleet: /metrics lacks the merged p99 gauges")
+        rep["crash"] = {"requests": loop["requests"] + tail["requests"],
+                        "retries": reg.counter("dryad_fleet_retry_total",
+                                               "").value(),
+                        "traces_with_both_forwards": len(both)}
+        lap("crash")
+
+        # (b) drift and continual boosting
+        bad_gen = F.encode_points([F.FaultPoint(site="retrain", iteration=1,
+                                                kind=F.BAD_GENERATION)])
+        launch = make_subprocess_launcher(
+            fresh, out_dir, trees=FLEET_RETRAIN_TREES, device="cuda",
+            timeout_s=300.0, log_dir=out_dir,
+            extra_env={F.CONTINUAL_FAULTS_ENV: bad_gen})
+        publisher = ProbationPublisher(
+            make_supervisor_push(sup), make_http_verdicts(host, port),
+            journal=sup.journal, probation_polls=24, poll_interval_s=0.25,
+            clear_after=2, registry=reg)
+        rs = RetrainScheduler(
+            {"m": gen0_path}, launch, journal=sup.journal,
+            publisher=publisher,
+            policy=RetryPolicy(backoff_base_s=0.5, retry_budget=3),
+            cooldown_s=0.5, max_concurrent=1, poll_interval_s=0.1,
+            source=JournalTailer(journal), registry=reg).start()
+        shift_bodies, _ = payloads((1024, 2048), scale=FLEET_SHIFT,
+                                   start=5000)
+        pump = _Pump(host, port, shift_bodies, seed=100)
+
+        def breached():
+            drift()
+            return _journal_has(journal, "drift_breach", model="m")
+
+        _wait(breached, 60.0, "no drift_breach for the 3x shift",
+              interval_s=0.3)
+        lap("drift_breach")
+        promoted = _wait(lambda: _journal_has(
+            journal, "generation_promoted", model="m", generation=1), 240.0,
+            "generation 1 was never promoted", interval_s=0.2)
+
+        def green():
+            v = drift()["models"].get("m") or {}
+            return bool(v.get("rows")) and not v.get("breached")
+
+        _wait(green, 60.0, "/drift never went green on generation 1",
+              interval_s=0.3)
+        lap("generation_1")
+        _wait(lambda: rs.trigger("m", origin="forced") or _journal_has(
+            journal, "retrain_triggered", model="m", generation=2), 30.0,
+            "the forced retrain was never admitted", interval_s=0.1)
+        _wait(lambda: _journal_has(journal, "generation_rolled_back",
+                                   model="m", generation=2), 240.0,
+              "the bad generation was never rolled back", interval_s=0.2)
+        _wait(green, 60.0, "/drift never went green after the rollback",
+              interval_s=0.3)
+        lap("generation_2")
+        drill = pump.halt()
+        pump = None
+        rs.stop(timeout_s=FLEET_TIMEOUT_S)
+        state = rs.state()
+        recompiles = {}
+        for slot in sup.slots:
+            s, text = slot.proc.request("GET", "/metrics",
+                                        timeout_s=FLEET_TIMEOUT_S)
+            check(s == 200, f"fleet: {slot.name} /metrics {s}")
+            recompiles[slot.name] = sum(
+                float(line.split()[-1]) for line in text.decode().splitlines()
+                if line.startswith("dryad_recompile_unexpected_total"))
+        check(all(v == 0 for v in recompiles.values()),
+              f"fleet: unexpected recompiles {recompiles}")
+        evs = RunJournal.read(journal)
+
+        def n_of(kind, **m):
+            return len([e for e in evs if e["event"] == kind and all(
+                e.get(k) == v for k, v in m.items())])
+
+        story = [(e["event"], e.get("generation"), e.get("job"),
+                  e.get("reason"), e.get("verdict"))
+                 for e in evs if e.get("model") == "m"]
+        for kind, gen in (("retrain_triggered", 1), ("retrain_complete", 1),
+                          ("push_probation", 1), ("generation_promoted", 1),
+                          ("retrain_triggered", 2), ("retrain_complete", 2),
+                          ("push_probation", 2),
+                          ("generation_rolled_back", 2)):
+            check(n_of(kind, model="m", generation=gen) == 1,
+                  f"fleet: {n_of(kind, model='m', generation=gen)} {kind} "
+                  f"of generation {gen}; the model's journal: {story}")
+        rb = [e for e in evs if e["event"] == "generation_rolled_back"][0]
+        check(rb["prior"] == promoted[0]["path"] and rb["restore_ok"],
+              f"fleet: the rollback re-pushed {rb}")
+        check(not n_of("generation_promoted", generation=2)
+              and state["generation"].get("m") == 1 and not state["inflight"],
+              f"fleet: scheduler state {state}")
+        got1 = dt.Booster.load_any(promoted[0]["path"])
+        for k, v in want1.tree_arrays().items():
+            g = got1.tree_arrays()[k]
+            diff = np.flatnonzero(np.asarray(g != v).ravel())
+            check(g.shape == v.shape and diff.size == 0,
+                  f"fleet: generation 1's {k} != the in-process append at "
+                  f"{diff.size} entries, first {diff[:4].tolist()}: "
+                  f"{np.asarray(g).ravel()[diff[:4]].tolist()} against "
+                  f"{np.asarray(v).ravel()[diff[:4]].tolist()}")
+        check(np.array_equal(got1.init_score, want1.init_score)
+              and got1.num_iterations == CLI_TREES + FLEET_RETRAIN_TREES
+              and got1.profile is not None,
+              "fleet: generation 1 is not the appended, profiled model")
+        fails = drill["failures"]
+        check(fails == 0 and drill["trace_mismatches"] == 0
+              and drill["requests"] >= 20,
+              f"fleet: {fails} failed requests across the pushes "
+              f"({drill})")
+        rep["continual"] = {
+            "drift_clean_psi_max": clean["models"]["m"]["psi_max"],
+            "drift_breaches": n_of("drift_breach", model="m"),
+            "retrain_wall_s": [e["wall_s"] for e in evs
+                               if e["event"] == "retrain_complete"],
+            "pushes": n_of("push_complete"),
+            "requests": drill["requests"],
+            "recompiles_unexpected": recompiles,
+            "append_launches": launches}
+        lap("continual_checks")
+
+        # (c) elastic capacity: a min-1 / max-3 ramp, then idle.  The
+        # pressure is admission depth (the latency budgets are generous),
+        # so the ramp's requests are large: a replica's parse of them,
+        # not this process's client and router threads, sets how long
+        # each is in flight, and 7 clients hold the depth at or above
+        # the controller's saturation (5 of 8) on any host.  The ramp
+        # runs before the controller starts, so no poll sees the idle
+        # gap before it, and stops once the scale-up's slot is
+        # registered (its spawn begun); a one-client load, under the
+        # idle bound, then runs through the spawn, the scale-up and the
+        # retire that sustained headroom brings
+        shed0 = reg.counter("dryad_fleet_shed_total", "").value()
+        n0 = len(RunJournal.read(journal))
+        ramp_bodies, _ = payloads((1024, 2048), start=20_000)
+        ramp_pump = _Pump(host, port, ramp_bodies, seed=21, clients=7)
+        try:
+            ctrl = CapacityController(
+                sup, router.state.capacity_signals, min_replicas=1,
+                max_replicas=3, breach_after=2, idle_after=4,
+                cooldown_up_s=120.0, cooldown_down_s=1.5, saturation=0.6,
+                poll_interval_s=0.25, drain_timeout_s=FLEET_TIMEOUT_S,
+                registry=reg).start()
+            deadline = time.monotonic() + FLEET_TIMEOUT_S
+            while time.monotonic() < deadline and len(sup.slots) < 3:
+                time.sleep(0.02)
+        finally:
+            ramp = ramp_pump.halt()
+        check(len(sup.slots) == 3, f"fleet: the ramp never started a "
+              f"scale-up within {FLEET_TIMEOUT_S:.0f} s ({sup.states()}; "
+              f"controller {ctrl.state()}; the journal's last lines "
+              f"{RunJournal.read(journal)[n0:][-12:]})")
+        idle, light = {}, threading.Event()
+
+        def idle_loop():
+            s = 60
+            while not light.is_set():
+                s += 1
+                r = _closed_loop(host, port, bodies, clients=1,
+                                 duration_s=0.5, seed=s)
+                for k in ("requests", "failures"):
+                    idle[k] = idle.get(k, 0) + r[k]
+
+        th = threading.Thread(target=idle_loop, daemon=True)
+        th.start()
+        try:
+            _wait(lambda: [e for e in RunJournal.read(journal)[n0:]
+                           if e["event"] == "scale_up"], FLEET_STARTUP_S,
+                  "the scale-up's replica never became ready")
+            # the controller journals scale_down once the retire is done
+            _wait(lambda: [e for e in RunJournal.read(journal)[n0:]
+                           if e["event"] == "scale_down"], 60.0,
+                  "sustained idle never retired a replica")
+        finally:
+            ctrl.stop(timeout_s=FLEET_TIMEOUT_S)
+            light.set()
+            th.join(FLEET_TIMEOUT_S)
+        shed = reg.counter("dryad_fleet_shed_total", "").value() - shed0
+        ek = [e["event"] for e in RunJournal.read(journal)[n0:]]
+        check(ek.count("scale_up") == 1 and ek.count("scale_down") == 1
+              and ek.index("scale_up") < ek.index("replica_retire")
+              < ek.index("replica_retired") < ek.index("scale_down"),
+              f"fleet: the capacity journal runs {ek}")
+        check(shed == 0 and ramp["failures"] == 0
+              and ramp["trace_mismatches"] == 0
+              and idle.get("failures", 0) == 0,
+              f"fleet: {shed} shed, {ramp['failures']} + "
+              f"{idle.get('failures', 0)} failed across the ramp and drain")
+        rep["elastic"] = {"ramp_requests": ramp["requests"],
+                          "idle_requests": idle.get("requests", 0),
+                          "slots_after": len(sup.slots)}
+        lap("elastic")
+    finally:
+        if pump is not None:
+            pump.halt()
+        if rs is not None:
+            rs.stop(timeout_s=FLEET_TIMEOUT_S)
+        if ctrl is not None:
+            ctrl.stop(timeout_s=FLEET_TIMEOUT_S)
+        if router is not None:
+            router.stop()
+        sup.stop()
+        disable_tracing()
+        buf.clear()
+    evs = RunJournal.read(journal)
+    t_spawn, ready = {}, []
+    for e in evs:
+        key = (e.get("replica"), e.get("generation"))
+        if e["event"] == "replica_spawn":
+            t_spawn[key] = e["elapsed_s"]
+        elif e["event"] == "replica_ready" and key in t_spawn:
+            ready.append([f"{key[0]}g{key[1]}",
+                          e["elapsed_s"] - t_spawn[key]])
+    rep["seconds_to_ready"] = ready
+    print("fleet: seconds to ready " + json.dumps(ready), flush=True)
+    # the closed-loop bench at 1 and 2 replicas on the one card: routing
+    # and shedding, not scale-out
+    bench = run_fleet_bench(gen0_path, gen0.mapper.num_features,
+                            device="cuda", swap_drill=False,
+                            startup_timeout_s=FLEET_STARTUP_S, warmup=False,
+                            seed=a.seed, **FLEET_BENCH)
+    check(all(bench[f"fleet_failures_n{n}"] == 0
+              for n in FLEET_BENCH["replica_counts"]),
+          f"fleet bench: failed or shed requests {bench}")
+    rep["bench"] = bench
+    print("fleet bench (one card: routing and shedding, not scale-out): "
+          + json.dumps({f"n{n}": {
+              "rows_per_s": bench[f"fleet_rows_per_s_n{n}"],
+              "failed_or_shed": bench[f"fleet_failures_n{n}"],
+              **{f"{pr}_{q}_ms": bench[f"fleet_{pr}_{q}_ms_n{n}"]
+                 for pr in ("interactive", "bulk") for q in ("p50", "p99")}}
+              for n in FLEET_BENCH["replica_counts"]}), flush=True)
+    lap("bench")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, by_path, m, extra=None):
     e = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches,
@@ -5940,10 +6492,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--eps-rows", type=int, default=EPS_ROWS)
     ap.add_argument("--eps-holdout", type=int, default=EPS_HOLDOUT)
-    ap.add_argument("--eps-trees", type=int, default=12)
-    ap.add_argument("--bag-trees", type=int, default=12)
+    ap.add_argument("--eps-trees", type=int, default=8)
+    ap.add_argument("--bag-trees", type=int, default=8)
     ap.add_argument("--bag-legacy-trees", type=int, default=5)
-    ap.add_argument("--cov-default-trees", type=int, default=10)
+    ap.add_argument("--cov-default-trees", type=int, default=7)
     ap.add_argument("--serve-trees", type=int, default=SERVE["num_trees"])
     a = ap.parse_args()
 
@@ -6163,15 +6715,21 @@ def main() -> int:
     # ---- 37. the command line, drift, the HTTP routes, F2 ---------------
     gc.collect()
     torch.cuda.empty_cache()
-    cli_launches = phase_cli(dt, a, ds, Xv, dev, report, serve_model)
+    cli_launches, gen0_path = phase_cli(dt, a, ds, Xv, dev, report,
+                                        serve_model)
     del ds, serve_model
     mark("37")
     # ---- 38. the native host layer and supervised training --------------
     gc.collect()
     torch.cuda.empty_cache()
     sup_launches = phase_supervise(dt, a, Xv, dev, report)
-    del Xv, yv
     mark("38")
+    # ---- 39. the serving fleet and continual boosting -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_launches = phase_fleet(dt, a, Xv, dev, report, gen0_path)
+    del Xv, yv
+    mark("39")
     ahead.shutdown()
 
     by_path = {"wired": w_launches, "legacy_higgs": l_launches,
@@ -6192,7 +6750,8 @@ def main() -> int:
                "serve_train": sv_launches, "distributed": dist_launches,
                **st_paths, "rest_of_distribution": rest_launches,
                "profile": pf_launches, "policy_headline": ph_launches,
-               "cli_train": cli_launches, "supervised": sup_launches}
+               "cli_train": cli_launches, "supervised": sup_launches,
+               "fleet_append": fleet_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

@@ -18,6 +18,7 @@ counterparts of ``tests/test_cli.py:26-50,106-126,175-185``.
   ``RunJournal.read`` and folds in its ``JournalTail``; a directory left
   by a sticky CUDA error resumes through ``--supervise --resume`` bitwise
   the straight run.
+* ``fleet`` and ``retrain``: their usage errors, before any spawn or load.
 """
 
 import io
@@ -356,3 +357,49 @@ def test_cli_resumes_a_sticky_fault_in_a_fresh_run(paths):
     got = dt.Booster.load(model)
     for k, v in straight.tree_arrays().items():
         np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)
+
+
+def test_cli_fleet_and_retrain_usage_errors(tmp_path, monkeypatch, capsys):
+    """``fleet`` and ``retrain``: argument parsing, and the guards that run
+    before any replica is spawned or any model or data is read (none of
+    the files exist)."""
+    monkeypatch.setenv("DRYAD_TRACE", "0")     # no trace sink left behind
+    missing = str(tmp_path / "absent.dryad")
+    with pytest.raises(SystemExit):
+        main(["retrain"])                          # --model, --data, --out
+    with pytest.raises(SystemExit):
+        main(["retrain", "--model", missing, "--data", missing, "--out",
+              missing, "--device", "tpu"])         # no such device
+    with pytest.raises(SystemExit):
+        main(["fleet"])                            # --model
+    with pytest.raises(SystemExit):
+        main(["fleet", "--model", missing, "--device", "tpu"])
+    with pytest.raises(SystemExit):
+        main(["fleet", "--model", missing, "--retrain-device", "tpu"])
+    capsys.readouterr()
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    with pytest.raises(SystemExit, match="--refit-decay needs a resident"):
+        main(["retrain", "--model", missing, "--data", str(shards),
+              "--out", missing, "--refit-decay", "0.9", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--continual-data requires "
+                                         "--journal"):
+        main(["fleet", "--model", f"m={missing}", "--continual-data",
+              missing])
+    with pytest.raises(SystemExit, match="NAME=path model specs"):
+        main(["fleet", "--model", missing, "--continual-data", missing,
+              "--journal", str(tmp_path / "j.jsonl")])
+    with pytest.raises(SystemExit, match="--model-cap wants NAME=N"):
+        main(["fleet", "--model", missing, "--model-cap", "fraud"])
+    with pytest.raises(SystemExit, match="--min-replicas <= "
+                                         "--max-replicas"):
+        main(["fleet", "--model", missing, "--min-replicas", "3",
+              "--max-replicas", "2"])
+    # the port's flags and defaults: the card, unless asked for the CPU
+    from dryad_tpu_torch.__main__ import build_parser
+
+    args = build_parser().parse_args(["fleet", "--model", missing])
+    assert (args.device, args.retrain_device) == ("cuda", "cuda")
+    args = build_parser().parse_args(["retrain", "--model", missing,
+                                      "--data", missing, "--out", missing])
+    assert args.device == "cuda" and args.trees == 20

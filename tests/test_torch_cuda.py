@@ -41,7 +41,8 @@ predict bitwise its ``--device cpu`` predict, and GOSS's gradient norm
 bitwise numpy's with a 7-class GOSS run on the card growing the CPU's
 trees (integer arrays equal, values within 1e-4); a supervised run with
 three injected faults bitwise the straight card run (trees, evals,
-predict).
+predict); the ``retrain --device cuda`` worker's appended trees bitwise an
+in-process card append.
 """
 
 import numpy as np
@@ -1187,3 +1188,44 @@ def test_supervised_run_on_card_equals_the_straight_run(cuda_device,
         straight.predict(X[50_000:], device=cuda_device))
     kinds = [e["event"] for e in RunJournal.read(journal)]
     assert kinds.count("fault") == 3 and kinds[-1] == "complete"
+
+
+@pytest.mark.cuda
+def test_retrain_worker_on_card_equals_in_process_append(cuda_device,
+                                                         tmp_path):
+    """``python -m dryad_tpu_torch retrain --device cuda`` (the continual
+    worker, a subprocess) appends at the headline widths bit for bit the
+    trees of an in-process ``train(init_model=)`` on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import dryad_tpu_torch as dt
+
+    X, y = datasets.higgs_like(40_000, seed=39)
+    params = {"objective": "binary", "growth": "depthwise", "max_depth": 8,
+              "num_leaves": 255, "max_bins": 256, "learning_rate": 0.1,
+              "num_trees": 5}
+    base = dt.train(params, Dataset(X[:20_000], y[:20_000], max_bins=256),
+                    device=cuda_device)
+    path = str(tmp_path / "base.dryad")
+    base.save(path)
+    base = dt.Booster.load_any(path)
+    np.savez(tmp_path / "fresh.npz", X=X[20_000:], y=y[20_000:])
+    out = str(tmp_path / "gen1.dryad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "dryad_tpu_torch", "retrain", "--model", path,
+         "--data", str(tmp_path / "fresh.npz"), "--out", out, "--trees",
+         "4", "--device", "cuda"], cwd=root, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1])["trees_after"] == 9
+    want = dt.train(dict(params, num_trees=4),
+                    Dataset(X[20_000:], y[20_000:], mapper=base.mapper),
+                    device=cuda_device, init_model=base)
+    got = dt.Booster.load_any(out)
+    for k, v in want.tree_arrays().items():
+        np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)
+    np.testing.assert_array_equal(got.init_score, want.init_score)

@@ -109,7 +109,11 @@ def test_scan_covers_the_training_loop_modules():
             "serve/server.py", "serve/http.py", "serve/bench.py",
             "convert.py", "native/__init__.py", "resilience/__init__.py",
             "resilience/faults.py", "resilience/policy.py",
-            "resilience/supervisor.py"} <= names
+            "resilience/supervisor.py", "fleet/__init__.py",
+            "fleet/replica.py", "fleet/supervisor.py", "fleet/router.py",
+            "fleet/autoscale.py", "fleet/bench.py",
+            "continual/__init__.py", "continual/scheduler.py",
+            "continual/publish.py"} <= names
 
 
 def test_policy_imports_without_torch():
@@ -195,9 +199,58 @@ def test_native_and_resilience_stand_alone():
     assert "predict_accumulate(" not in src and "tree_leaves(" not in src
 
 
+def _control_plane_sources():
+    return sorted((PKG / "fleet").glob("*.py")) + sorted(
+        (PKG / "continual").glob("*.py"))
+
+
+def test_fleet_and_continual_import_without_torch():
+    """The control plane (``fleet`` and ``continual``, every module,
+    ``fleet.bench`` included) imports none of torch, jax or the reference,
+    directly or transitively, in a fresh interpreter: it must keep
+    supervising replicas while a card is wedged."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import dryad_tpu_torch.fleet as f, dryad_tpu_torch.continual as c\n"
+        "for pkg in (f, c):\n"
+        "    for m in pkgutil.walk_packages(pkg.__path__,"
+        " pkg.__name__ + '.'):\n"
+        "        importlib.import_module(m.name)\n"
+        "from dryad_tpu_torch.fleet import FleetSupervisor, FleetRouter\n"
+        "from dryad_tpu_torch.continual import RetrainScheduler\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        f" {FORBIDDEN + ('torch',)!r})\n"
+        "assert not bad, bad[:5]\n"
+        "print('torch-free', len([k for k in sys.modules"
+        " if k.startswith(('dryad_tpu_torch.fleet',"
+        " 'dryad_tpu_torch.continual'))]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["torch-free", "9"]
+
+
+@pytest.mark.parametrize("path", _control_plane_sources(),
+                         ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_control_plane_has_no_torch_import_statement(path):
+    """No import statement of the control plane names torch, even one
+    deferred into a function body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN + ("torch",), \
+                f"{path}: imports {n}"
+
+
 def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
-    """``train`` and ``predict`` default to the card and raise with none,
-    before any data is read."""
+    """``train``, ``predict`` and ``retrain`` default to the card and raise
+    with none, before any data is read."""
     from dryad_tpu_torch.__main__ import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -207,3 +260,7 @@ def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["predict", "--model", missing, "--data", missing,
               "--out", str(tmp_path / "p.npy")])
+    # the continual worker too, before it reads the model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["retrain", "--model", missing, "--data", missing,
+              "--out", str(tmp_path / "g.dryad")])
