@@ -218,7 +218,7 @@ Phases (any failed check exits non-zero):
    values in tree order bitwise the raw predict; the booster re-indexed to
    feature ids >= 4096 (the structure-of-arrays traversal) on 100k rows
    widened to 4124 columns predicts bitwise as the packed arm; TreeSHAP of
-   500 rows (``SHAP_ROWS``, cut from 2,000 for the script's time) on the
+   200 rows (``SHAP_ROWS``, cut from 2,000 for the script's time) on the
    card within 1e-9 of the CPU's, contributions plus bias within 1e-5 of
    predict, rows/s; ``refit`` on the first 250k held-out rows
    (``REFIT_ROWS``, cut from 1M)
@@ -232,7 +232,7 @@ Phases (any failed check exits non-zero):
    and 9 K2 launches a tree; ``predict_proba`` of the 100k held-out rows
    sums to 1 within 1e-5 and is bitwise ``predict(clf.booster_, X)``;
 32. serving (``dryad_tpu_torch.serve``), last: the headline config
-   trained at ``serve_trees`` (100, cut from the north star's 500 for
+   trained at ``serve_trees`` (50, cut from the north star's 500 for
    the script's time) trees on
    phase 2's rows (9 K1 and 8 K2 launches a tree; held-out AUC above 0.70
    and risen from tree 10; trees/s), saved, and served from the saved
@@ -439,9 +439,24 @@ Phases (any failed check exits non-zero):
    ``fleet.bench.run_fleet_bench`` at 1 and 2 replicas (p50/p95/p99 by
    priority; on one card it measures routing and shedding, not
    scale-out).
+40. the audit (M15e), run right after phase 6 on phase 2's rows: first
+   ``torch.cuda.set_sync_debug_mode("warn")`` must warn once each for
+   ``.item()``, ``.tolist()`` and ``.cpu()`` of a card tensor (the host
+   sync count rests on it); then one headline tree under the op census
+   (``dryad_tpu_torch/analysis/census.py``): 9 K1 and 8 K2 events on
+   uint8 128-byte records, zero row-scale sorts, zero c10d ops, its host
+   syncs equal to the card golden (``goldens/census.json``, ``card``,
+   written by ``python -m dryad_tpu_torch.analysis --update-goldens
+   --device cuda``), and the tree bitwise phase 4's first; K1 at that tree's root and K2 at
+   its depth-4 move against their plain versions, as in phase 3; then
+   the census's single-process small arms on the card: kernel events,
+   row-scale sorts and collectives equal to the CPU goldens, host syncs
+   equal to the card goldens; one JSON line with the counts, the phase's
+   seconds and the card's name and power limit.
 
 Phases 24-31 run after phase 15, while the Higgs rows are still held; the
 log's ``phase seconds`` keys them "24-27", "28", "29-30" and "31".  Phase
+40 runs after phase 6 (key "40").  Phase
 32 runs after phase 23 on the same rows, kept on the host until then.
 
 Each kernel's time is held beside two bounds, the bytes over the memory
@@ -1093,6 +1108,105 @@ def phase_wired(dt, a, ds, Xv, yv, dev, report) -> tuple:
     print("wired profile: " + json.dumps(prof), flush=True)
     report["profile"] = prof
     return params, booster, rep["launches"], level
+
+
+def phase_audit(ds, dev, params, first_tree, report) -> dict:
+    """Phase 40: the audit on the card (module doc)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dryad_tpu_torch.analysis import census as ce
+    from dryad_tpu_torch.engine import cuda_build, hist, leafperm
+
+    t0 = time.perf_counter()
+    # the sync count rests on the debug mode warning at each host sync
+    x = torch.arange(16, device=dev)
+    for name, fn in (("item", lambda: x.sum().item()),
+                     ("tolist", lambda: x.tolist()),
+                     ("cpu", lambda: x.cpu())):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        n = sum(ce.SYNC_WARNING in str(m.message) for m in w)
+        check(n == 1, f"audit: sync debug mode gave {n} sync warnings for "
+              f".{name}() (want 1)")
+    # one headline tree under the census, K1's root and K2's depth-4 move
+    # captured for the plain-version checks
+    seen: dict = {"hist": [], "perm": []}
+    real = (hist.hist_tiles, leafperm.permute_records)
+
+    def spy_hist(*args, **kw):
+        if not seen["hist"]:
+            seen["hist"].append(args)
+        return real[0](*args, **kw)
+
+    def spy_perm(*args, **kw):
+        seen["perm"].append(args if len(seen["perm"]) == 4 else None)
+        return real[1](*args, **kw)
+
+    check({k: v for k, v in params.items() if k != "num_trees"}
+          == ce.HEADLINE_PARAMS,
+          f"audit: phase 4's config {params} is not the census's headline "
+          f"config {ce.HEADLINE_PARAMS}")
+    hist.hist_tiles, leafperm.permute_records = spy_hist, spy_perm
+    cuda_build.reset_counts()
+    try:
+        booster, cen, bad = ce.census_headline(ds, device=dev)
+    finally:
+        hist.hist_tiles, leafperm.permute_records = real
+    launches = dict(cuda_build.counts)
+    check(not bad, f"audit: headline tree invariants: {bad}")
+    check(dict(cen.kernels) == {"hist_tiles": 9, "permute_records": 8},
+          f"audit: headline tree kernel events {dict(cen.kernels)}")
+    check(launches["hist"] == 9 and launches["perm"] == 8,
+          f"audit: headline tree launches {launches}")
+    for kname in ("hist_tiles", "permute_records"):
+        for sig in cen.kernel_sigs[kname]:
+            check(sig.startswith("(uint8(") and ", 128)," in sig,
+                  f"audit: {kname} records are not uint8 x 128: {sig}")
+    check(cen.row_sorts == 0, f"audit: {cen.row_sorts} row-scale sorts")
+    check(not cen.collectives, f"audit: collectives {cen.collectives}")
+    golden = ce.card_headline()
+    check(golden is not None, "audit: no card golden for the headline tree")
+    check(cen.syncs == golden["syncs"],
+          f"audit: headline tree host syncs {cen.syncs} != card golden "
+          f"{golden['syncs']}")
+    mine = booster.tree_arrays()
+    for k, v in mine.items():
+        check(np.array_equal(v[0], first_tree[k][0]),
+              f"audit: the censused tree differs from phase 4's in {k!r}")
+    root = check_hist(seen["hist"][0], "audit K1 root", 3)
+    perm = check_perm(seen["perm"][4], 3)
+    del seen
+    # the single-process small arms on the card
+    arms = [n for n in ce.ARMS if ce.ARMS[n][2] != "group"]
+    rep = ce.run_census(arm_names=arms, device="cuda")
+    for arm in rep.arms:
+        check(arm.ok, f"audit: arm {arm.name} on the card: {arm.failures}")
+    check(rep.drift_ok, f"audit: {rep.drift}")
+    out = {"headline": {"kernels": dict(cen.kernels),
+                        "row_sorts": cen.row_sorts,
+                        "slot_sorts": cen.slot_sorts,
+                        "collectives": dict(cen.collectives),
+                        "syncs": cen.syncs, "ops": len(cen.stream),
+                        "digest": cen.digest},
+           "k1_root": brief(root), "k2_move": brief(perm),
+           "arms": {arm.name: {"kernels": dict(arm.census.kernels),
+                               "row_sorts": arm.census.row_sorts,
+                               "collectives": dict(arm.census.collectives),
+                               "syncs": arm.census.syncs}
+                    for arm in rep.arms},
+           "digest_notes": rep.notes,
+           "seconds": time.perf_counter() - t0, "card": smi_line()}
+    print("audit: " + json.dumps(out), flush=True)
+    report["audit"] = out
+    return launches
 
 
 def phase_fixture(dt, dev, report) -> None:
@@ -3451,7 +3565,7 @@ CV_FOLDS = 3                     # of 5, for the script's time
 CV_SHORT = 3
 SOA_ROWS = 100_000
 SOA_BASE = 4096          # first feature id past the packed words' 12 bits
-SHAP_ROWS = 500                  # of 2,000, for the script's time
+SHAP_ROWS = 200                  # of 2,000, for the script's time
 REFIT_ROWS = 250_000             # of the 1M held-out rows, for the time
 EST_TREES = 10
 
@@ -3667,16 +3781,16 @@ _SHAPE_KEYS = ("smem_bytes", "blocks", "features_per_block",
                "bytes_bound_ms", "update_bound_ms")
 
 
-# 100 trees of the north star's 500, for the script's time
-SERVE = dict(MODE_BASE, num_trees=100)
+# 50 trees of the north star's 500, for the script's time
+SERVE = dict(MODE_BASE, num_trees=50)
 SERVE_SMALL = {"objective": "regression", "growth": "depthwise",
                "max_depth": 6, "num_leaves": 63, "max_bins": 256,
                "learning_rate": 0.1, "num_trees": 20}
 SERVE_BUCKETS = (1, 8, 64, 512, 4096)    # latency is measured at these
 SERVE_SHAPES = (1, 7, 8, 9, 63, 64, 100, 511, 512, 4095, 4096, 5000)
 # sequential requests per bucket, and the bulk bench's windows: cut from
-# 500 and 4 s, then to 150 requests, for the script's time
-SERVE_LAT_REQS = 150
+# 500 and 4 s, then to 150 and 100 requests, for the script's time
+SERVE_LAT_REQS = 100
 SERVE_BULK = dict(clients=4, sizes=(4096,), duration_s=2.5, arms=2)
 
 
@@ -6594,6 +6708,9 @@ def main() -> int:
     # phase 33's yardstick
     w_trees = w_booster.tree_arrays()
     mark("3-6")
+    # ---- 40. the audit: the op census on the card ------------------------
+    audit_launches = phase_audit(ds, dev, w_params, w_trees, report)
+    mark("40")
     # ---- 7. wired vs legacy, tie-free fixture -----------------------------
     phase_fixture(dt, dev, report)
     mark("7")
@@ -6751,7 +6868,7 @@ def main() -> int:
                **st_paths, "rest_of_distribution": rest_launches,
                "profile": pf_launches, "policy_headline": ph_launches,
                "cli_train": cli_launches, "supervised": sup_launches,
-               "fleet_append": fleet_launches}
+               "fleet_append": fleet_launches, "audit": audit_launches}
 
     def launches(k):
         return sum(p[k] for p in by_path.values())

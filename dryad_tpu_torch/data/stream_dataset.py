@@ -48,13 +48,14 @@ class ChunkPrefetcher:
     that a producer blocked on a full queue sees the flag, and joins the
     thread.  A read error is kept and re-raised in the consumer."""
 
+    GUARDED_BY = {"_closed": "_lock", "_error": "_lock"}
+
     def __init__(self, read: Callable[[int], np.ndarray], n_chunks: int,
                  depth: int = 2):
         self._read = read
         self._n = int(n_chunks)
         self._q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
         self._lock = threading.Lock()
-        # guarded by _lock: the stop flag and the reader's error
         self._closed = False
         self._error: Optional[BaseException] = None
         self._thread = threading.Thread(

@@ -15,10 +15,17 @@ this machine may have no ``nvcc``.
 layout mode), ``hist_rows`` (K1, row mode), ``perm`` (K2) and ``nat`` (K3).
 A wrapper adds one where it launches its kernel and nowhere else.
 ``launch_info`` keeps the shape of each histogram kernel's last launch.
+
+``boundary(name, *inputs)`` brackets each kernel wrapper's work, the
+launch on the card and the plain version on the CPU alike, for the op
+census (``analysis/census.py``): the census records one kernel event per
+bracket and counts none of the ops inside it.  With no census running it
+is a null context and changes nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +47,17 @@ launch_info: dict[str, dict] = {}
 build_seconds: float | None = None
 build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+#: the op census's kernel hook, ``hook(name, inputs) -> context``; None
+#: unless a census runs (``analysis/census.py`` sets and clears it)
+census_hook = None
+
+
+def boundary(name: str, *inputs):
+    """The context one kernel wrapper's work runs in (module doc)."""
+    hook = census_hook
+    return contextlib.nullcontext() if hook is None else hook(name, inputs)
 
 
 def reset_counts() -> None:

@@ -17,7 +17,7 @@ Two modes share one kernel source (``csrc/hist.cu``) and its arithmetic
   source tile of plan tile i (-1 = dead).
 * row mode, ``hist_rows`` (the legacy plan arm, and the root pass): a
   per-tree record table ``recs`` (N, 2 + ceil(F*itemsize/4)) int32 of
-  words [g, h, bin bytes] (``tile_plan.make_records``) of any width, and a
+  words [g, h, bin bytes] (``make_records``) of any width, and a
   plan ``buf`` of row ids, where N marks an empty slot.
 
 Fixed-point sums.  The grower picks one shift per tree for g and one for h
@@ -176,6 +176,24 @@ def record_words(num_features: int, itemsize: int) -> int:
     return 2 + -(-num_features * itemsize // 4)
 
 
+def make_records(Xb: torch.Tensor, g: torch.Tensor,
+                 h: torch.Tensor) -> torch.Tensor:
+    """Per-tree (N, 2 + ceil(F*itemsize/4)) int32 record table
+    [g, h, bin words]: the bits of g and h, then the bins' little-endian
+    bytes (u16 bins as 2-byte units), padded to whole words.  g/h do not
+    change within a tree, so every level reads rows from this one table."""
+    N, F = Xb.shape
+    isz = 1 if Xb.dtype == torch.uint8 else 2    # leafperm.bin_itemsize
+    W = record_words(F, isz)
+    xb = Xb if isz == 1 else Xb.to(torch.int16)
+    rec = torch.zeros((N, W), dtype=torch.int32, device=Xb.device)
+    rec[:, 0] = g.to(torch.float32).view(torch.int32)
+    rec[:, 1] = h.to(torch.float32).view(torch.int32)
+    rec.view(torch.uint8)[:, 8:8 + F * isz] = (
+        xb.contiguous().view(torch.uint8).view(N, F * isz))
+    return rec
+
+
 def _check_rows(recs, buf, tile_leaf, num_cols, total_bins, num_features,
                 itemsize):
     _check_common(tile_leaf, num_cols, total_bins, itemsize, recs.device)
@@ -217,21 +235,22 @@ def hist_tiles(rec: torch.Tensor, src: torch.Tensor, tile_leaf: torch.Tensor,
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(rec, src, tile_leaf, P, B, F, itemsize)
     check_shift(shift, rec.device)
-    if rec.device.type == "cpu":
-        return hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize,
-                                shift, reduce)
-    if not rec.is_contiguous():
-        raise ValueError("rec must be contiguous")
-    dev = rec.device
-    src = src.to(torch.int32).contiguous()
-    tile_leaf = tile_leaf.to(torch.int32).contiguous()
-    acc, out, n_used = _outputs(P, F, B, dev, reduce)
-    cuda_build.launch_hist(
-        "hist", cuda_build.lib("hist").dryad_hist_tiles, dev,
-        rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(), src.numel(),
-        n_used.data_ptr(), acc.data_ptr(), F, B, int(itemsize),
-        shift.data_ptr(), out_ptr(out), P)
-    return out if out is not None else finish(acc, shift, reduce)
+    with cuda_build.boundary("hist_tiles", rec, src, tile_leaf):
+        if rec.device.type == "cpu":
+            return hist_tiles_plain(rec, src, tile_leaf, P, B, F, itemsize,
+                                    shift, reduce)
+        if not rec.is_contiguous():
+            raise ValueError("rec must be contiguous")
+        dev = rec.device
+        src = src.to(torch.int32).contiguous()
+        tile_leaf = tile_leaf.to(torch.int32).contiguous()
+        acc, out, n_used = _outputs(P, F, B, dev, reduce)
+        cuda_build.launch_hist(
+            "hist", cuda_build.lib("hist").dryad_hist_tiles, dev,
+            rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(),
+            src.numel(), n_used.data_ptr(), acc.data_ptr(), F, B,
+            int(itemsize), shift.data_ptr(), out_ptr(out), P)
+        return out if out is not None else finish(acc, shift, reduce)
 
 
 def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
@@ -244,25 +263,27 @@ def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check_rows(recs, buf, tile_leaf, P, B, F, itemsize)
     check_shift(shift, recs.device)
-    if recs.device.type == "cpu":
-        return hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize,
-                               shift, reduce)
-    if not recs.is_contiguous():
-        raise ValueError("recs must be contiguous")
-    dev = recs.device
-    N, W = recs.shape
-    n_tiles = tile_leaf.numel()
-    buf = buf.to(torch.int32).contiguous()
-    tile_leaf = tile_leaf.to(torch.int32).contiguous()
-    # the kernel marks the plan tiles with a live row here
-    src = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    acc, out, n_used = _outputs(P, F, B, dev, reduce)
-    cuda_build.launch_hist(
-        "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev,
-        recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
-        tile_leaf.data_ptr(), n_tiles, n_used.data_ptr(), acc.data_ptr(),
-        F, B, int(itemsize), shift.data_ptr(), out_ptr(out), P)
-    return out if out is not None else finish(acc, shift, reduce)
+    with cuda_build.boundary("hist_rows", recs, buf, tile_leaf):
+        if recs.device.type == "cpu":
+            return hist_rows_plain(recs, buf, tile_leaf, P, B, F, itemsize,
+                                   shift, reduce)
+        if not recs.is_contiguous():
+            raise ValueError("recs must be contiguous")
+        dev = recs.device
+        N, W = recs.shape
+        n_tiles = tile_leaf.numel()
+        buf = buf.to(torch.int32).contiguous()
+        tile_leaf = tile_leaf.to(torch.int32).contiguous()
+        # the kernel marks the plan tiles with a live row here
+        src = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        acc, out, n_used = _outputs(P, F, B, dev, reduce)
+        cuda_build.launch_hist(
+            "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev,
+            recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
+            tile_leaf.data_ptr(), n_tiles, n_used.data_ptr(),
+            acc.data_ptr(), F, B, int(itemsize), shift.data_ptr(),
+            out_ptr(out), P)
+        return out if out is not None else finish(acc, shift, reduce)
 
 
 def unpack_rows(rec: torch.Tensor, num_features: int, itemsize: int):

@@ -133,24 +133,25 @@ def build_hist_nat(nat_tiles: torch.Tensor, g: torch.Tensor,
     P, B, F = int(num_cols), int(total_bins), int(num_features)
     _check(nat_tiles, g, h, sel, P, B, F)
     hist.check_shift(shift, nat_tiles.device)
-    if nat_tiles.device.type == "cpu":
-        return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F,
-                                    reduce)
-    dev = nat_tiles.device
-    N = g.shape[0]
-    n_pad = nat_tiles.shape[1]
-    g = g.to(torch.float32).contiguous()
-    h = h.to(torch.float32).contiguous()
-    sel = sel.to(torch.int32).contiguous()
-    acc = torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev)
-    out = (None if reduce is not None else
-           torch.empty((P, 3, F, B), dtype=torch.float32, device=dev))
-    cuda_build.launch_hist(
-        "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev,
-        nat_tiles.data_ptr(), nat_tiles.element_size(), n_pad, g.data_ptr(),
-        h.data_ptr(), sel.data_ptr(), N, acc.data_ptr(), F, B, P,
-        shift.data_ptr(), hist.out_ptr(out))
-    return out if out is not None else hist.finish(acc, shift, reduce)
+    with cuda_build.boundary("hist_nat", nat_tiles, g, h, sel):
+        if nat_tiles.device.type == "cpu":
+            return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B,
+                                        F, reduce)
+        dev = nat_tiles.device
+        N = g.shape[0]
+        n_pad = nat_tiles.shape[1]
+        g = g.to(torch.float32).contiguous()
+        h = h.to(torch.float32).contiguous()
+        sel = sel.to(torch.int32).contiguous()
+        acc = torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev)
+        out = (None if reduce is not None else
+               torch.empty((P, 3, F, B), dtype=torch.float32, device=dev))
+        cuda_build.launch_hist(
+            "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev,
+            nat_tiles.data_ptr(), nat_tiles.element_size(), n_pad,
+            g.data_ptr(), h.data_ptr(), sel.data_ptr(), N, acc.data_ptr(),
+            F, B, P, shift.data_ptr(), hist.out_ptr(out))
+        return out if out is not None else hist.finish(acc, shift, reduce)
 
 
 def build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B, F, reduce=None):

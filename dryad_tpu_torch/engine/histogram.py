@@ -99,7 +99,7 @@ def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     ``layout`` may pass the natural-order layout records of exactly these
     rows (``leafperm.make_layout_records(Xb, g, h, valid=mask)``, padded
     with zero rows); ``records`` the tree's record table
-    (``tile_plan.make_records(Xb, g, h)``).  A caller that already holds
+    (``hist.make_records(Xb, g, h)``).  A caller that already holds
     either does not build it twice; with neither, the record table is
     built here.  ``reduce``: the cross-rank hook (module doc).
     ``a1_rows``: arm A1 in chunks of this many rows instead of K1."""
@@ -122,7 +122,7 @@ def build_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         return hist.hist_tiles(layout, src, torch.zeros_like(src), 1,
                                total_bins, F, isz, shift, reduce=reduce)[0]
     if records is None:
-        records = tile_plan.make_records(Xb, g, h)
+        records = hist.make_records(Xb, g, h)
     rows = torch.arange(N, dtype=torch.int64, device=dev)
     buf = torch.nn.functional.pad(torch.where(mask, rows, N),
                                   (0, n_tiles * T - N), value=N)
@@ -154,7 +154,7 @@ def build_hist_segmented(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if N == 0:
         return empty_pass(P, F, total_bins, shift, reduce)
     if records is None:
-        records = tile_plan.make_records(Xb, g, h)
+        records = hist.make_records(Xb, g, h)
     if sel_counts is not None and N <= (1 << 24) - 1 and P <= 254:
         buf, tile_leaf, _ = tile_plan.tile_plan_aligned(
             sel, sel_counts, N, P, rows_bound=rows_bound)

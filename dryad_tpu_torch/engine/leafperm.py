@@ -221,29 +221,30 @@ def permute_records(rec: torch.Tensor, pos: torch.Tensor, dstl: torch.Tensor,
     n_out_tiles = int(n_out_tiles)
     _check_perm(rec, pos, dstl, dstr, n_out_tiles)
     T = TILE_ROWS
-    # memory-safety clamp, as the reference: a violated bound misplaces
-    # rows deterministically inside the buffer, never past it
-    cap = (n_out_tiles - 1) * T
-    dstl = torch.clamp(dstl, max=cap)
-    dstr = torch.clamp(dstr, max=cap)
-    if rec.device.type == "cpu":
-        return permute_records_plain(rec, pos, dstl, dstr, n_out_tiles)
-    if rec.device.type != "cuda":
-        raise ValueError(f"unsupported device {rec.device}")
-    if not rec.is_contiguous():
-        raise ValueError("rec must be contiguous")
-    pos = pos.to(torch.int32).contiguous()
-    dstl = dstl.to(torch.int32).contiguous()
-    dstr = dstr.to(torch.int32).contiguous()
-    out = torch.zeros((n_out_tiles * T, REC_WB), dtype=torch.uint8,
-                      device=rec.device)
-    fn = cuda_build.lib("perm").dryad_permute_records
-    stream = torch.cuda.current_stream(rec.device).cuda_stream
-    cuda_build.counts["perm"] += 1
-    cuda_build.check(fn(rec.data_ptr(), pos.data_ptr(), dstl.data_ptr(),
-                        dstr.data_ptr(), out.data_ptr(), rec.shape[0] // T,
-                        cap, stream), "perm kernel")
-    return out
+    with cuda_build.boundary("permute_records", rec, pos, dstl, dstr):
+        # memory-safety clamp, as the reference: a violated bound
+        # misplaces rows deterministically inside the buffer, never past it
+        cap = (n_out_tiles - 1) * T
+        dstl = torch.clamp(dstl, max=cap)
+        dstr = torch.clamp(dstr, max=cap)
+        if rec.device.type == "cpu":
+            return permute_records_plain(rec, pos, dstl, dstr, n_out_tiles)
+        if rec.device.type != "cuda":
+            raise ValueError(f"unsupported device {rec.device}")
+        if not rec.is_contiguous():
+            raise ValueError("rec must be contiguous")
+        pos = pos.to(torch.int32).contiguous()
+        dstl = dstl.to(torch.int32).contiguous()
+        dstr = dstr.to(torch.int32).contiguous()
+        out = torch.zeros((n_out_tiles * T, REC_WB), dtype=torch.uint8,
+                          device=rec.device)
+        fn = cuda_build.lib("perm").dryad_permute_records
+        stream = torch.cuda.current_stream(rec.device).cuda_stream
+        cuda_build.counts["perm"] += 1
+        cuda_build.check(fn(rec.data_ptr(), pos.data_ptr(), dstl.data_ptr(),
+                            dstr.data_ptr(), out.data_ptr(),
+                            rec.shape[0] // T, cap, stream), "perm kernel")
+        return out
 
 
 def permute_records_plain(rec, pos, dstl, dstr, n_out_tiles):

@@ -67,7 +67,8 @@ import torch
 
 from dryad_tpu_torch.config import MAX_FAST_DEPTH
 from dryad_tpu_torch.engine import distributed as _dist
-from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
+from dryad_tpu_torch.engine import hist as _hist
+from dryad_tpu_torch.engine import hist_nat, leafperm
 from dryad_tpu_torch.engine.grower import (
     _monotone_array,
     child_bounds,
@@ -210,7 +211,7 @@ def grow_tree_leafwise_batched(params, total_bins: int, Xb: torch.Tensor,
     else:
         records = None
         if a1 is None:
-            records = tile_plan.make_records(Xb, g, h)
+            records = _hist.make_records(Xb, g, h)
         nat_tiles = hist_nat.natural_tiles(Xb) if plan.nat_live else None
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
                            reduce=red_root, a1_rows=a1)

@@ -58,7 +58,7 @@ import torch
 
 from dryad_tpu_torch.engine import distributed as _dist
 from dryad_tpu_torch.engine import hist as _hist
-from dryad_tpu_torch.engine import hist_nat, leafperm, tile_plan
+from dryad_tpu_torch.engine import hist_nat, leafperm
 from dryad_tpu_torch.engine.grower import (
     _monotone_array,
     child_bounds,
@@ -250,7 +250,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         # arm A1 reads the bins as they are
         records = None
         if a1 is None:
-            records = tile_plan.make_records(Xb, g, h)
+            records = _hist.make_records(Xb, g, h)
         nat_tiles = hist_nat.natural_tiles(Xb) if plan.nat_live else None
         hist0 = build_hist(Xb, g, h, bag_mask, B, shift, records=records,
                            reduce=red_root, a1_rows=a1)
@@ -320,6 +320,7 @@ def grow_tree_levelwise(params, total_bins: int, Xb: torch.Tensor,
         P = P_narrow if d < d_switch else P_full
         at_level = (slot_depth == d) & (slot_gain > NEG_INF) & (slot_node >= 0)
         # gain-descending, stable: the lowest slot id wins ties
+        # dryadlint: disable=wired-grower-sort -- (L,)-slot gain ranking, L <= 512; not a row sort (rows never sort on the wired path)
         order = torch.argsort(
             torch.where(at_level, -slot_gain, float("inf")), stable=True)
         sj = order[:P]

@@ -1,9 +1,10 @@
-"""Sorted tile plans and the per-tree record table of the legacy plan arm.
+"""Sorted tile plans of the legacy plan arm.
 
 The counterpart of the host half of ``dryad_tpu/engine/pallas_hist.py``
-(``tile_plan``, ``tile_plan_aligned``, ``make_records``), in plain torch
-ops.  The reference's ``hist_from_plan`` is K1's row mode,
-``hist.hist_rows``, and its ``build_hist_segmented_pallas`` is
+(``tile_plan``, ``tile_plan_aligned``), in plain torch ops; the per-tree
+record table, ``make_records``, sits beside K1's wrapper in ``hist`` and
+is re-exported here.  The reference's ``hist_from_plan`` is K1's row
+mode, ``hist.hist_rows``, and its ``build_hist_segmented_pallas`` is
 ``histogram.build_hist_segmented``.
 
 A plan buckets rows by leaf slot into fixed 512-row tiles: ``buf`` holds
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from dryad_tpu_torch.engine import hist
-from dryad_tpu_torch.engine.leafperm import bin_itemsize
+from dryad_tpu_torch.engine.hist import make_records  # noqa: F401
 
 TILE_ROWS = hist.TILE_ROWS
 # tile_plan_aligned's packed key: slot in the bits from 24, row below
@@ -126,21 +127,3 @@ def tile_plan_aligned(sel: torch.Tensor, counts: torch.Tensor, N: int,
         torch.arange(n_tiles, dtype=i64, device=dev), right=True)
     tile_leaf = torch.clamp(tile_leaf, max=P - 1)
     return buf, tile_leaf, _tile_first(tile_leaf)
-
-
-def make_records(Xb: torch.Tensor, g: torch.Tensor,
-                 h: torch.Tensor) -> torch.Tensor:
-    """Per-tree (N, 2 + ceil(F*itemsize/4)) int32 record table
-    [g, h, bin words]: the bits of g and h, then the bins' little-endian
-    bytes (u16 bins as 2-byte units), padded to whole words.  g/h do not
-    change within a tree, so every level reads rows from this one table."""
-    N, F = Xb.shape
-    isz = bin_itemsize(Xb)
-    W = hist.record_words(F, isz)
-    xb = Xb if isz == 1 else Xb.to(torch.int16)
-    rec = torch.zeros((N, W), dtype=torch.int32, device=Xb.device)
-    rec[:, 0] = g.to(torch.float32).view(torch.int32)
-    rec[:, 1] = h.to(torch.float32).view(torch.int32)
-    rec.view(torch.uint8)[:, 8:8 + F * isz] = (
-        xb.contiguous().view(torch.uint8).view(N, F * isz))
-    return rec

@@ -612,8 +612,7 @@ class FleetSupervisor:
                             raise TimeoutError(
                                 f"drain timed out with {slot.inflight} "
                                 "in flight")
-                        # the swap mutex has a sole acquirer: the drain wait
-                        # under it IS the zero-drop design
+                        # dryadlint: disable=no-blocking-under-lock -- the swap mutex has a sole acquirer; the drain wait under it IS the zero-drop design
                         time.sleep(0.002)
                     version = slot.proc.load_model(
                         path, name=name, activate=activate,

@@ -22,6 +22,8 @@ _GAUGE_HELP = "1 while the named degradation is active"
 class HealthState:
     """A named set of active degradation reasons, mirrored to a gauge."""
 
+    GUARDED_BY = {"_reasons": "_lock"}
+
     def __init__(self, registry: Optional[Registry] = None):
         self._lock = threading.Lock()
         self._reasons: dict[str, str] = {}   # reason -> detail

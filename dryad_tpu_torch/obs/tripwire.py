@@ -32,6 +32,9 @@ def health_reason(program: str) -> str:
 
 
 class RecompileTripwire:
+    GUARDED_BY = {"_keys": "_lock", "_armed": "_lock",
+                  "_listeners": "_lock"}
+
     def __init__(self, registry: Optional[Registry] = None,
                  health: Optional[HealthState] = None):
         self._registry = registry

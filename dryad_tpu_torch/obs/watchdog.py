@@ -171,6 +171,7 @@ class FetchWatchdog:
     def _ensure_thread(self) -> None:
         # double-checked fast path: the per-begin() liveness probe; the
         # locked re-check below is the authoritative spawn decision
+        # dryadlint: disable=guarded-by -- benign double-checked read (see above)
         if self._thread is None or not self._thread.is_alive():
             with self._lock:
                 if self._thread is None or not self._thread.is_alive():

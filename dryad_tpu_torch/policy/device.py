@@ -23,7 +23,7 @@ def current_device_kind() -> Optional[str]:
     global _cached
     if _cached is _UNRESOLVED:
         try:
-            import torch
+            import torch  # dryadlint: disable=policy-torch-free -- the ONE sanctioned lazy device probe; resolution paths pass device_kind explicitly or accept the None->defaults fallback
 
             _cached = (torch.cuda.get_device_name(0)
                        if torch.cuda.is_available() else None)

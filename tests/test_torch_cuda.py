@@ -42,7 +42,9 @@ bitwise numpy's with a 7-class GOSS run on the card growing the CPU's
 trees (integer arrays equal, values within 1e-4); a supervised run with
 three injected faults bitwise the straight card run (trees, evals,
 predict); the ``retrain --device cuda`` worker's appended trees bitwise an
-in-process card append.
+in-process card append; the op census of the wired arm on the card: its
+kernel events, row-scale sorts and collectives equal to the CPU goldens,
+and its host syncs equal to the card golden.
 """
 
 import numpy as np
@@ -1229,3 +1231,15 @@ def test_retrain_worker_on_card_equals_in_process_append(cuda_device,
     for k, v in want.tree_arrays().items():
         np.testing.assert_array_equal(got.tree_arrays()[k], v, err_msg=k)
     np.testing.assert_array_equal(got.init_score, want.init_score)
+
+
+@pytest.mark.cuda
+def test_wired_census_on_card_equals_cpu_goldens(cuda_device):
+    from dryad_tpu_torch.analysis import census as ce
+
+    rep = ce.run_census(arm_names=["levelwise_wired"], device="cuda")
+    arm = rep.arms[0]
+    assert arm.ok, arm.failures
+    assert arm.census.kernels == {"hist_tiles": 7, "permute_records": 6}
+    assert arm.census.row_sorts == 0 and not arm.census.collectives
+    assert arm.census.syncs is not None

@@ -120,13 +120,15 @@ def test_legacy_root_reads_the_record_table(monkeypatch):
     """The legacy arm builds one record table per tree and its root pass
     reads it (K1 row mode), whatever the record width."""
     seen = []
-    real = tile_plan.make_records
+    from dryad_tpu_torch.engine import hist
+
+    real = hist.make_records
 
     def spy(*a, **k):
         seen.append(a[0].shape)
         return real(*a, **k)
 
-    monkeypatch.setattr(tile_plan, "make_records", spy)
+    monkeypatch.setattr(hist, "make_records", spy)
     N, F, B = 1500, 200, 16
     Xb, g, h = _tree_inputs(5, N, F, B)
     p = TParams(growth="depthwise", max_depth=3, num_leaves=8, max_bins=B)
@@ -158,7 +160,7 @@ def test_bins_past_the_kernel_cap_raise(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a K1 pass past the bins cap")
 
-    monkeypatch.setattr(tile_plan, "make_records", refuse)
+    monkeypatch.setattr(hist, "make_records", refuse)
     monkeypatch.setattr(hist, "hist_rows", refuse)
     tree = tlw.grow_tree_levelwise(
         p, B, Xb, g, h, torch.ones(N, dtype=torch.bool),
