@@ -12,7 +12,9 @@ Phases (any failed check exits non-zero):
    ``dryad_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel, and the
    native host layer's ``g++`` beside them); count
    the atomic instructions in each built library (``cuobjdump -sass``):
-   no shared-memory compare-and-swap in the histogram kernels;
+   no shared-memory compare-and-swap in the histogram kernels, and each
+   holds its asynchronous copies (TMA and cp.async in K1, bulk copies in
+   K3);
 2. Higgs-shaped data, ``rows`` training rows + 1M held-out rows, from the
    seed, sketched and binned by the native host layer (28 native
    sketches, one native binning); one capture tree of the wired path
@@ -562,11 +564,19 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# the asynchronous copies each histogram library must hold: K1's layout
+# mode stages with TMA (UTMALDG) and its row mode with cp.async (LDGSTS),
+# K3 with bulk copies (UBLKCP)
+ASYNC_COPIES = {"hist": ("UTMALDG", "LDGSTS"), "hist_nat": ("UBLKCP",)}
+
+
 def sass_atomics() -> dict:
     """The atomic instructions in each built library (``cuobjdump -sass``),
-    by opcode.  Fails if a histogram library holds a shared-memory
-    compare-and-swap (``ATOMS.CAS*``, the loop a 64-bit shared add
-    compiles to): its adds must be native 32-bit ``ATOMS.ADD``."""
+    by opcode, and its asynchronous copies (``ASYNC_COPIES``).  Fails if a
+    histogram library holds a shared-memory compare-and-swap (``ATOMS.CAS*``,
+    the loop a 64-bit shared add compiles to: its adds must be native 32-bit
+    ``ATOMS.ADD``), or lacks one of its asynchronous copies (the kernels
+    stage rows with them)."""
     import collections
     import re
     import shutil
@@ -582,15 +592,20 @@ def sass_atomics() -> dict:
         sass = subprocess.run([tool, "-sass", cuda_build.lib_path(name)],
                               capture_output=True, text=True,
                               check=True).stdout
-        ops = collections.Counter(
-            re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)",
-                       sass))
+        ops = collections.Counter(re.findall(
+            r"\b((?:ATOMS|ATOMG|ATOM|RED|UTMALDG|LDGSTS|UBLKCP)"
+            r"(?:\.[A-Z0-9_]+)*)", sass))
         out[name] = dict(ops)
         if name in ("hist", "hist_nat"):
-            check(sum(ops.values()) > 0, f"{name}: no atomics in its SASS")
+            check(any(op.startswith("ATOM") for op in ops),
+                  f"{name}: no atomics in its SASS")
             cas = [op for op in ops if op.startswith("ATOMS.CAS")]
             check(not cas, f"{name}: shared-memory compare-and-swap in its "
                   f"SASS ({cas}): a 64-bit shared add crept back in")
+            for copy in ASYNC_COPIES[name]:
+                check(any(op.startswith(copy) for op in ops),
+                      f"{name}: no {copy} in its SASS: the kernel no longer "
+                      "stages with its asynchronous copies")
     return out
 
 

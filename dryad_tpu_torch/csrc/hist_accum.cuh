@@ -1,5 +1,5 @@
 // The order-free histogram arithmetic shared by K1 (hist.cu, both modes) and
-// K3 (hist_nat.cu).
+// K3 (hist_nat.cu), and the asynchronous copies both stage rows with.
 //
 // Fixed point.  The grower picks one power-of-two shift per tree for g and
 // one for h (engine/hist.py::fixed_point_shift): s = 62 - k - e for
@@ -23,19 +23,34 @@
 //
 // A block keeps its private cells in shared memory, 20 B each: int64 g and
 // int64 h (two's complement), each as a low and a high 32-bit word, and an
-// int32 count, in five separate word planes (Cells), so a warp's adds
-// spread over all 32 banks.  A (row, feature) pair costs three 32-bit
+// int32 count, side by side (Cells: five words a cell, an odd stride, so
+// a warp's adds to consecutive cells spread over all 32 banks; 1-2% faster
+// than five separate planes of words, tools/hist_split.py).  A (row,
+// feature) pair costs three 32-bit
 // shared atomics (the low words of g and h, the count) and one more for
-// each of g and h whose high word changes.  What bounds the kernels is
-// these atomics and the latency of staging rows (hist.cu, hist_nat.cu).
+// each of g and h whose high word changes.  The H100 runs one
+// conflict-free warp-wide 32-bit shared add a clock (tools/hist_split.py's
+// probe), returned value used or not; what keeps the kernels below that
+// rate is each warp's chain of loads and adds, so a lane issues the low
+// adds of several pairs before any of their high adds (add_pairs).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define STAGE_ROWS 512
 #define HIST_THREADS 1024
+#define FULL_MASK 0xffffffffu
+
+// A measurement switch (tools/hist_split.py), 0 in every build the port
+// runs: 1 compiles every add out (staging only), 2 stages a block's first
+// stage only and adds it again in place of each later one (adds only).
+#ifndef HIST_SPLIT
+#define HIST_SPLIT 0
+#endif
 
 typedef unsigned long long u64;
 
@@ -49,15 +64,20 @@ __device__ __forceinline__ long long quantize(float x, float scale) {
   return __float2ll_rn(x * scale);
 }
 
-// A block's cells: five planes of n words each.
+// A block's n cells: word k of cell i (G_LO, G_HI, H_LO, H_HI, CNT), a
+// cell's five words side by side (word 5 i + k: 5 is odd, so lanes adding
+// to 32 consecutive cells meet in 32 banks).
+enum { G_LO, G_HI, H_LO, H_HI, CNT };
 struct Cells {
-  unsigned *g_lo, *g_hi, *h_lo, *h_hi;
-  int* c;
+  unsigned* w;
+  int n;
+  __device__ __forceinline__ unsigned* at(int i, int k) const {
+    return w + 5 * i + k;
+  }
 };
 
 __device__ __forceinline__ Cells carve_cells(void* smem, int n) {
-  unsigned* w = static_cast<unsigned*>(smem);
-  return {w, w + n, w + 2 * n, w + 3 * n, reinterpret_cast<int*>(w + 4 * n)};
+  return {static_cast<unsigned*>(smem), n};
 }
 
 // The high-word add of one order-free add of a 64-bit value v to the cell
@@ -77,20 +97,36 @@ __device__ __forceinline__ void add_hi(unsigned* hi_w, long long v,
   if (hi) atomicAdd(hi_w, hi);
 }
 
-// One row's weights into cell `i`: the two low-word adds and the count go
-// out back to back, then the high words.
-__device__ __forceinline__ void add_row(const Cells& s, int i, long long qg,
-                                        long long qh) {
-  const unsigned og = atomicAdd(s.g_lo + i, (unsigned)qg);
-  const unsigned oh = atomicAdd(s.h_lo + i, (unsigned)qh);
-  atomicAdd(s.c + i, 1);
-  add_hi(s.g_hi + i, qg, og);
-  add_hi(s.h_hi + i, qh, oh);
+// N pairs' weights into cells idx[j] (where on[j]): every low-word add and
+// count goes out before the first high word, so a lane has 3N adds in
+// flight and waits on one round trip for all N.
+template <int N>
+__device__ __forceinline__ void add_pairs(const Cells& s, const int* idx,
+                                          const long long* qg,
+                                          const long long* qh,
+                                          const bool* on) {
+  if (HIST_SPLIT == 1) return;
+  unsigned og[N], oh[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (on[j]) {
+      og[j] = atomicAdd(s.at(idx[j], G_LO), (unsigned)qg[j]);
+      oh[j] = atomicAdd(s.at(idx[j], H_LO), (unsigned)qh[j]);
+      atomicAdd(s.at(idx[j], CNT), 1u);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (on[j]) {
+      add_hi(s.at(idx[j], G_HI), qg[j], og[j]);
+      add_hi(s.at(idx[j], H_HI), qh[j], oh[j]);
+    }
+  }
 }
 
 // Zero a block's n cells.
 __device__ __forceinline__ void zero_cells(const Cells& s, int n) {
-  for (int i = threadIdx.x; i < 5 * n; i += blockDim.x) s.g_lo[i] = 0u;
+  for (int i = threadIdx.x; i < 5 * n; i += blockDim.x) s.w[i] = 0u;
 }
 
 // Add a block's nonzero cells to the global (P, 3, F, B) int64 accumulator
@@ -100,16 +136,15 @@ template <class Dst>
 __device__ __forceinline__ void flush_cells(const Cells& s, int n,
                                             size_t plane, Dst dst) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = s.c[i];
+    const unsigned c = *s.at(i, CNT);
     if (c == 0) continue;  // a cell no row reached is all zero (padding too)
     u64* d = dst(i);
-    const u64 g = ((u64)s.g_hi[i] << 32) | s.g_lo[i];
-    const u64 h = ((u64)s.h_hi[i] << 32) | s.h_lo[i];
+    const u64 g = ((u64)*s.at(i, G_HI) << 32) | *s.at(i, G_LO);
+    const u64 h = ((u64)*s.at(i, H_HI) << 32) | *s.at(i, H_LO);
     if (g) atomicAdd(d, g);
     if (h) atomicAdd(d + plane, h);
     atomicAdd(d + 2 * plane, (u64)c);
-    s.g_lo[i] = s.g_hi[i] = s.h_lo[i] = s.h_hi[i] = 0u;
-    s.c[i] = 0;
+    for (int k = G_LO; k <= CNT; ++k) *s.at(i, k) = 0u;
   }
 }
 
@@ -134,19 +169,118 @@ static inline int launch_out(const void* acc, const void* shift, void* out,
   return (int)cudaGetLastError();
 }
 
-// The largest dynamic shared memory one block may take, and the SM count.
-static inline cudaError_t device_limits(int* smem_optin, int* n_sm) {
-  int dev = 0;
+// Set a kernel's dynamic shared memory to the plan's and check that one
+// block of `threads` fits on an SM: the plan (engine/hist.py,
+// engine/hist_nat.py) was made for this card's limits.  Both are asked once
+// per kernel, card and larger size: the attribute is a ceiling, so a
+// smaller launch needs nothing new.
+#define HIST_MAX_DEVICES 64
+template <class K>
+static inline int prepare_launch(K kernel, size_t smem, int threads) {
+  static std::atomic<int> ready[HIST_MAX_DEVICES];
+  int dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < HIST_MAX_DEVICES &&
+      (size_t)ready[dev].load(std::memory_order_relaxed) >= smem)
+    return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (dev < HIST_MAX_DEVICES) {
+    int seen = ready[dev].load(std::memory_order_relaxed);
+    while (seen < (int)smem &&
+           !ready[dev].compare_exchange_weak(seen, (int)smem))
+      ;
+  }
+  return 0;
 }
 
-// n split into balanced chunks of at most cap: the chunk size.
-static inline int balanced(int n, int cap) {
-  const int k = (n + cap - 1) / cap;
-  return (n + k - 1) / k;
+// ---- asynchronous copies (sm_90) -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the asynchronous proxy.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// Arrive, and expect `bytes` more of asynchronous copies this phase.
+__device__ __forceinline__ void mbar_expect_tx(u64* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, u64* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A cp.async copy of BYTES (4, 8 or 16; both addresses aligned to it).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` (0-2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;" ::: "memory");
 }

@@ -14,7 +14,8 @@ this machine may have no ``nvcc``.
 ``counts`` holds one launch counter per kernel wrapper: ``hist`` (K1,
 layout mode), ``hist_rows`` (K1, row mode), ``perm`` (K2) and ``nat`` (K3).
 A wrapper adds one where it launches its kernel and nowhere else.
-``launch_info`` keeps the shape of each histogram kernel's last launch.
+``launch_info`` keeps the shape and launch plan of each histogram kernel's
+last launch; ``device_limits`` gives a card's inputs to those plans.
 
 ``boundary(name, *inputs)`` brackets each kernel wrapper's work, the
 launch on the card and the plain version on the CPU alike, for the op
@@ -138,20 +139,28 @@ def _build() -> dict[str, ctypes.CDLL]:
 
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = libs["hist"].dryad_device_limits
+    fn.argtypes = [p, p]                # smem opt-in, SM count
+    fn.restype = i
     fn = libs["hist"].dryad_hist_tiles
-    # rec, src, tile_leaf, n_sel, n_used, acc, F, B, itemsize, shift, out,
-    # P, info, stream
-    fn.argtypes = [p, p, p, i, p, p, i, i, i, p, p, i, p, p]
+    # rec, n_rec_rows, src, tile_leaf, n_sel, n_used, acc, F, B, itemsize,
+    # shift, out, P, then the plan: f_chunk, fp, stages, pitch, q, grid,
+    # smem; info, stream
+    fn.argtypes = [p, ll, p, p, i, p, p, i, i, i, p, p, i,
+                   i, i, i, i, i, i, i, p, p]
     fn.restype = i
     fn = libs["hist"].dryad_hist_rows
     # recs, rec_words, n_rows, buf, src, tile_leaf, n_sel, n_used, acc,
-    # F, B, itemsize, shift, out, P, info, stream
-    fn.argtypes = [p, i, i, p, p, p, i, p, p, i, i, i, p, p, i, p, p]
+    # F, B, itemsize, shift, out, P, then the plan: f_chunk, fp, stages,
+    # pitch, q, grid, smem; info, stream
+    fn.argtypes = [p, i, i, p, p, p, i, p, p, i, i, i, p, p, i,
+                   i, i, i, i, i, i, i, p, p]
     fn.restype = i
     fn = libs["hist_nat"].dryad_hist_nat
-    # xt, itemsize, n_pad, g, h, sel, n_rows, acc, F, B, P, shift, out,
-    # info, stream
-    fn.argtypes = [p, i, ll, p, p, p, i, p, i, i, i, p, p, p, p]
+    # xt, itemsize, n_pad, g, h, sel, n_rows, acc, F, B, P, then the plan:
+    # f_chunk, s_chunk, stage_rows, grid, smem; shift, out, info, stream
+    fn.argtypes = [p, i, ll, p, p, p, i, p, i, i, i,
+                   i, i, i, i, i, p, p, p, p]
     fn.restype = i
     fn = libs["perm"].dryad_permute_records
     # rec, pos, dstl, dstr, out, n_tiles, cap_rows, stream
@@ -163,17 +172,40 @@ def lib(name: str) -> ctypes.CDLL:
     return build_all()[name]
 
 
-def launch_hist(key: str, fn, dev, *args) -> None:
+_limits: dict[int, tuple[int, int]] = {}
+
+
+def device_limits(dev) -> tuple[int, int]:
+    """(the largest dynamic shared memory a block may take, the SM count)
+    of a card, the inputs of the histogram kernels' launch plans; asked
+    once per card."""
+    index = torch.device(dev).index
+    if index in _limits:
+        return _limits[index]
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _limits:
+        optin, n_sm = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            check(lib("hist").dryad_device_limits(ctypes.byref(optin),
+                                                  ctypes.byref(n_sm)),
+                  "device limits")
+        _limits[index] = (optin.value, n_sm.value)
+    return _limits[index]
+
+
+def launch_hist(key: str, fn, dev, plan: dict, *args) -> None:
     """Launch a histogram kernel through its C entry
     ``fn(*args, info, stream)``: count the launch under ``key``, raise on a
     CUDA error, and keep the launch's shape in ``launch_info[key]``
-    (shared-memory bytes per block, blocks, features per block)."""
+    (shared-memory bytes per block, blocks, features per block) with its
+    ``plan`` (the planner's memoised dict: read it, do not change it)."""
     info = (ctypes.c_int * 3)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     counts[key] += 1
     check(fn(*args, ctypes.addressof(info), stream), f"{key} kernel")
     launch_info[key] = {"smem_bytes": info[0], "blocks": info[1],
-                        "features_per_block": info[2]}
+                        "features_per_block": info[2], "plan": plan}
 
 
 def check(status: int, what: str) -> None:

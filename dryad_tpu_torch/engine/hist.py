@@ -36,14 +36,21 @@ card, RuntimeError on the CPU): an integer cell has no NaN.
 
 What bounds the kernels on the H100 is the shared-memory atomic updates,
 at least three per live (row, feature) pair (g, h and the count) plus a
-high-word add for each of g and h that reaches past 32 bits, and the
-latency of staging rows, not the bytes (``csrc/hist.cu``).
+high-word add for each of g and h that reaches past 32 bits, not the bytes
+(``csrc/hist.cu``).  Each launch follows a plan made here from the shapes
+and the card's limits (``tiles_plan``, ``rows_plan``): features a block
+and their pitch, the ring's stages and a staged row's bytes, blocks and
+shared memory; ``k1_spans`` lists the work items each block takes.  The
+kernels stage rows with asynchronous copies, so every base address they
+copy from is 16-byte aligned; a wrapper raises on an input that is not.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain version.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -61,6 +68,148 @@ SHIFT_MAX = 126
 # (row, feature) cells per index_add_ in the plain versions: bounds their
 # scratch (an Epsilon-wide pass would otherwise expand to tens of GB)
 _PLAIN_CELLS = 1 << 25
+# the launch plans: a cell's shared-memory bytes (int64 g and h as two
+# words each, an int32 count); the bytes of K1's fixed part (the ring's
+# mbarriers, its stages' live flags, a tile's quantised g and h); its
+# ring's stages
+CELL_BYTES = 20
+K1_STAGES = (2, 3, 4)
+# a pass of at most K1_PACK_ITEMS work items a block whose whole warps
+# would pad at least K1_PACK_PAD features packs them (_k1_plan)
+K1_PACK_ITEMS = 2
+K1_PACK_PAD = 8
+K1_FIXED = 32 + max(K1_STAGES) * TILE_ROWS + TILE_ROWS * 16
+
+
+def align16(n: int) -> int:
+    return -(-int(n) // 16) * 16
+
+
+def balanced(n: int, cap: int) -> int:
+    """n split into balanced chunks of at most cap: the chunk size."""
+    k = -(-n // cap)
+    return -(-n // k)
+
+
+def k1_smem(fp: int, B: int, stages: int, stage_bytes: int,
+            q: int = 1) -> int:
+    """A K1 block's shared memory: the ring, its fixed part (with a tile's
+    quantised g and h when ``q``) and the cells of ``fp`` features."""
+    return (stages * stage_bytes + K1_FIXED - (1 - q) * TILE_ROWS * 16
+            + CELL_BYTES * fp * B)
+
+
+def _pick_chunk(F: int, fits, whole: bool = True):
+    """(features a block, their pitch): whole warps of 32 features (a pitch
+    that is a multiple of 32, so a row's adds never meet in a bank) when 32
+    fit and ``whole``, else as many as fit; then balanced over F.
+    ``fits(f_chunk, fp)`` says whether a block fits with two stages.  None
+    when not one does."""
+    g = 0
+    while whole and g < -(-F // 32) and fits(32 * (g + 1), 32 * (g + 1)):
+        g += 1
+    if g:
+        f_chunk = balanced(F, 32 * g)
+        return f_chunk, -(-f_chunk // 32) * 32
+    cap = 0
+    while cap < F and fits(cap + 1, cap + 1):
+        cap += 1
+    if cap == 0:
+        return None
+    f_chunk = balanced(F, cap)
+    return f_chunk, f_chunk
+
+
+def _k1_plan(F, B, n_sel, optin, n_sm, staged) -> dict:
+    """The plan with whole warps of features where they fit, first with a
+    tile's quantised g and h in shared memory (q), then quantising at the
+    pair; else as many features as fit, with q.  A pass of at most
+    ``K1_PACK_ITEMS`` work items a block packs its features where whole
+    warps would pad ``K1_PACK_PAD`` or more: each block zeroes and flushes
+    its cells for those few tiles, and a padded row takes more warp steps
+    of adds; a smaller padding costs less than the packed layout's bank
+    conflicts.  ``staged(f_chunk)`` is a staged row's bytes and a stage's
+    for chunks of f_chunk features."""
+    def pick(q, whole=True):
+        return _pick_chunk(F, lambda fc, fp: k1_smem(
+            fp, B, 2, staged(min(fc, F))[1], q) <= optin, whole)
+
+    for q in (1, 0):
+        chunk = pick(q)
+        if chunk is not None and chunk[1] % 32 == 0:
+            break
+    else:
+        q = 1
+        chunk = pick(q)
+    if (chunk is not None and chunk[1] - chunk[0] >= K1_PACK_PAD
+            and n_sel * -(-F // chunk[0]) <= K1_PACK_ITEMS * n_sm):
+        q = 1
+        chunk = pick(q, whole=False)
+    if chunk is None:
+        raise ValueError(f"K1: not one feature's {B} bins fit {optin} bytes "
+                         "of shared memory")
+    f_chunk, fp = chunk
+    pitch, stage_bytes = staged(f_chunk)
+    stages = max(s for s in K1_STAGES
+                 if k1_smem(fp, B, s, stage_bytes, q) <= optin)
+    n_chunks = -(-F // f_chunk)
+    # one wave; a multiple of the chunks where that idles few SMs, so no
+    # block's span of the items straddles two chunks (k1_spans)
+    grid = max(1, min(n_sm, n_sel * n_chunks))
+    if 1 < n_chunks <= grid and 50 * (grid % n_chunks) <= grid:
+        grid -= grid % n_chunks  # at most 2% of the SMs left idle
+    return {"f_chunk": f_chunk, "fp": fp, "stages": stages, "pitch": pitch,
+            "stage_bytes": stage_bytes, "q": q, "n_chunks": n_chunks,
+            "grid": grid, "smem": k1_smem(fp, B, stages, stage_bytes, q)}
+
+
+def k1_spans(plan: dict, n_used: int) -> list:
+    """Per block of a K1 ``plan``: its work items as (chunk, first tile,
+    end tile) runs, for ``n_used`` plan tiles in use, as ``block_span`` in
+    ``csrc/hist.cu`` derives them from the block's index."""
+    G, C = plan["grid"], plan["n_chunks"]
+    out = []
+    for b in range(G):
+        u0, u1 = n_used * C * b // G, n_used * C * (b + 1) // G
+        runs = []
+        while u0 < u1:
+            c, t = divmod(u0, n_used)
+            end = min(u1, (c + 1) * n_used)
+            runs.append((c, t, t + end - u0))
+            u0 = end
+        out.append(runs)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def tiles_plan(F: int, B: int, itemsize: int, n_sel: int, optin: int,
+               n_sm: int) -> dict:
+    """K1 layout mode's launch plan: a stage is a tile's used bytes, 512
+    rows of ``9 + F * itemsize`` rounded to 16 (two 256-row TMA boxes);
+    one block per SM, at most one per work item (plan tile x chunk).
+    Memoised (the search is Python, once per shape): read the plan, do
+    not change it."""
+    pitch = align16(9 + F * itemsize)
+    return _k1_plan(F, B, n_sel, optin, n_sm,
+                    lambda fc: (pitch, TILE_ROWS * pitch))
+
+
+@functools.lru_cache(maxsize=1024)
+def rows_plan(F: int, B: int, itemsize: int, rec_words: int, n_sel: int,
+              optin: int, n_sm: int) -> dict:
+    """K1 row mode's launch plan.  A staged row is the 16-byte aligned span
+    around the bytes the block needs: the whole record (``rec_words``
+    words, at any 4-byte alignment) where one chunk holds every feature,
+    else the chunk's bins, with the row's g and h (8 bytes) beside the
+    rows.  Memoised, as ``tiles_plan``."""
+    def staged(fc):
+        if fc >= F:
+            pitch = align16(4 * rec_words + 12)
+            return pitch, TILE_ROWS * pitch
+        pitch = align16(15 + fc * itemsize)
+        return pitch, TILE_ROWS * (pitch + 8)
+
+    return _k1_plan(F, B, n_sel, optin, n_sm, staged)
 
 
 def fixed_point_shift(g: torch.Tensor, h: torch.Tensor,
@@ -224,6 +373,17 @@ def out_ptr(out) -> int | None:
     return None if out is None else out.data_ptr()
 
 
+def check_aligned(what: str, *tensors) -> None:
+    """The kernels copy with asynchronous bulk or cp.async copies, which
+    need 16-byte aligned addresses: raise on an input that is not (a view
+    that starts inside its storage)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: an input is not 16-byte aligned "
+                             "(the kernel's copies need it); pass a fresh "
+                             "or .clone()d tensor")
+
+
 def hist_tiles(rec: torch.Tensor, src: torch.Tensor, tile_leaf: torch.Tensor,
                num_cols: int, total_bins: int, num_features: int,
                itemsize: int, shift: torch.Tensor, *,
@@ -241,15 +401,20 @@ def hist_tiles(rec: torch.Tensor, src: torch.Tensor, tile_leaf: torch.Tensor,
                                     shift, reduce)
         if not rec.is_contiguous():
             raise ValueError("rec must be contiguous")
+        check_aligned("hist_tiles", rec)
         dev = rec.device
         src = src.to(torch.int32).contiguous()
         tile_leaf = tile_leaf.to(torch.int32).contiguous()
         acc, out, n_used = _outputs(P, F, B, dev, reduce)
+        plan = tiles_plan(F, B, int(itemsize), src.numel(),
+                          *cuda_build.device_limits(dev))
         cuda_build.launch_hist(
-            "hist", cuda_build.lib("hist").dryad_hist_tiles, dev,
-            rec.data_ptr(), src.data_ptr(), tile_leaf.data_ptr(),
-            src.numel(), n_used.data_ptr(), acc.data_ptr(), F, B,
-            int(itemsize), shift.data_ptr(), out_ptr(out), P)
+            "hist", cuda_build.lib("hist").dryad_hist_tiles, dev, plan,
+            rec.data_ptr(), rec.shape[0], src.data_ptr(),
+            tile_leaf.data_ptr(), src.numel(), n_used.data_ptr(),
+            acc.data_ptr(), F, B, int(itemsize), shift.data_ptr(),
+            out_ptr(out), P, plan["f_chunk"], plan["fp"], plan["stages"],
+            plan["pitch"], plan["q"], plan["grid"], plan["smem"])
         return out if out is not None else finish(acc, shift, reduce)
 
 
@@ -269,6 +434,7 @@ def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
                                    shift, reduce)
         if not recs.is_contiguous():
             raise ValueError("recs must be contiguous")
+        check_aligned("hist_rows", recs)
         dev = recs.device
         N, W = recs.shape
         n_tiles = tile_leaf.numel()
@@ -277,12 +443,15 @@ def hist_rows(recs: torch.Tensor, buf: torch.Tensor,
         # the kernel marks the plan tiles with a live row here
         src = torch.empty(n_tiles, dtype=torch.int32, device=dev)
         acc, out, n_used = _outputs(P, F, B, dev, reduce)
+        plan = rows_plan(F, B, int(itemsize), W, n_tiles,
+                         *cuda_build.device_limits(dev))
         cuda_build.launch_hist(
-            "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev,
+            "hist_rows", cuda_build.lib("hist").dryad_hist_rows, dev, plan,
             recs.data_ptr(), W, N, buf.data_ptr(), src.data_ptr(),
             tile_leaf.data_ptr(), n_tiles, n_used.data_ptr(),
             acc.data_ptr(), F, B, int(itemsize), shift.data_ptr(),
-            out_ptr(out), P)
+            out_ptr(out), P, plan["f_chunk"], plan["fp"], plan["stages"],
+            plan["pitch"], plan["q"], plan["grid"], plan["smem"])
         return out if out is not None else finish(acc, shift, reduce)
 
 

@@ -17,8 +17,13 @@ The sums are the fixed-point integer sums of ``hist`` with the tree's
 ``shift`` (``hist.fixed_point_shift``), so K3 equals K1 bit for bit on the
 same rows and slots whatever the order of the adds, and is within
 count * 2^-(s+1) of the exact sum per cell.  What bounds the kernel on the
-H100 is its shared-memory atomic updates, three per kept (row, feature)
-pair (``csrc/hist_nat.cu``).
+H100 is its shared-memory atomic updates, three to five per kept (row,
+feature) pair (``csrc/hist_nat.cu``).  Each launch follows ``nat_plan``,
+made here from the shapes and the card's limits: features and slots a
+block, stage rows, the ring's depth and the grid; ``nat_blocks`` lists
+the (features, slots, rows) each block takes.  The kernel stages with
+bulk copies, so ``nat_tiles``, g, h and sel must each start 16-byte
+aligned; the wrapper raises on one that does not.
 
 On a CUDA tensor ``build_hist_nat`` launches ``csrc/hist_nat.cu``; on a CPU
 tensor it runs ``build_hist_nat_plain``.  There is no fallback from one to
@@ -26,6 +31,8 @@ the other.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as nnf
@@ -38,6 +45,87 @@ NAT_DROP = 31          # sel sentinel (any value >= NAT_SLOTS drops the row)
 # the gate on the whole bin matrix, MB: the reference's default
 # (pallas_hist._NAT_GATE_MB), a constant of the port
 NAT_GATE_MB = 512
+
+
+# the launch plan: consumer warps (warp 0 is the producer), the ring's
+# stages, the bounds of a stage's rows (a multiple of 32: whole groups of
+# a warp; at most 4096: a map entry holds the row in 12 bits)
+NAT_CONSUMERS = 31
+NAT_STAGES = 3
+NAT_MIN_STAGE_ROWS = 512
+NAT_MAX_STAGE_ROWS = 4096
+# the ring's mbarriers and the consumer warps' maps (32 u16 each)
+NAT_FIXED = 16 * NAT_STAGES + NAT_CONSUMERS * 32 * 2
+
+
+def cell_stride(B: int) -> int:
+    """Words of a feature's (or slot's) cells: B made odd (hist_nat.cu)."""
+    return B | 1
+
+
+def nat_smem(f_chunk: int, s_chunk: int, B: int, stage_rows: int,
+             itemsize: int) -> int:
+    """A K3 block's shared memory: the ring (per stage sel, g, h and each
+    feature's bins 32 bytes apart), its barriers and maps, the cells."""
+    stage = 12 * stage_rows + f_chunk * (stage_rows * itemsize + 32)
+    return (NAT_STAGES * stage + NAT_FIXED
+            + hist.CELL_BYTES * f_chunk * s_chunk * cell_stride(B))
+
+
+@functools.lru_cache(maxsize=1024)
+def nat_plan(num_rows: int, F: int, B: int, P: int, itemsize: int,
+             optin: int, n_sm: int) -> dict:
+    """K3's launch plan: every slot of as many features as fit beside a
+    ring of 512-row stages, else one feature and slot groups; the stage
+    then grows into what is left (up to 4096 rows); one block per SM over
+    (feature chunk x slot group) x row ranges, at least one block a group.
+    Raises when not one slot of one feature fits.  Memoised (the search
+    is Python, once per shape): read the plan, do not change it."""
+    def fits(fc, sc, R=NAT_MIN_STAGE_ROWS):
+        return nat_smem(fc, sc, B, R, itemsize) <= optin
+
+    if fits(1, P):
+        cap = 1
+        while cap < F and fits(cap + 1, P):
+            cap += 1
+        f_chunk, s_chunk = hist.balanced(F, cap), P
+    else:
+        cap = 0
+        while cap < P and fits(1, cap + 1):
+            cap += 1
+        if cap == 0:
+            raise ValueError(f"K3: not one slot of {B} bins fits {optin} "
+                             "bytes of shared memory")
+        f_chunk, s_chunk = 1, hist.balanced(P, cap)
+    R = NAT_MAX_STAGE_ROWS
+    while R > NAT_MIN_STAGE_ROWS and not fits(f_chunk, s_chunk, R):
+        R -= 32
+    n_fchunks = -(-F // f_chunk)
+    n_groups = n_fchunks * -(-P // s_chunk)
+    n_stages = max(1, -(-int(num_rows) // R))
+    return {"f_chunk": f_chunk, "s_chunk": s_chunk, "stage_rows": R,
+            "stages": NAT_STAGES, "n_fchunks": n_fchunks,
+            "n_groups": n_groups,
+            "grid": max(n_groups, min(n_sm, n_groups * n_stages)),
+            "smem": nat_smem(f_chunk, s_chunk, B, R, itemsize)}
+
+
+def nat_blocks(plan: dict, num_rows: int, F: int, P: int) -> list:
+    """Per block of ``plan``: (first feature, features, first slot, slots,
+    first row, end row), as ``nat_kernel`` derives them from its index."""
+    R, G = plan["stage_rows"], plan["n_groups"]
+    n_stages = -(-int(num_rows) // R)
+    out = []
+    for b in range(plan["grid"]):
+        gi, rk = b % G, b // G
+        nr = (plan["grid"] - gi + G - 1) // G
+        st0, st1 = rk * n_stages // nr, (rk + 1) * n_stages // nr
+        f0 = gi % plan["n_fchunks"] * plan["f_chunk"]
+        s0 = gi // plan["n_fchunks"] * plan["s_chunk"]
+        out.append((f0, min(plan["f_chunk"], F - f0), s0,
+                    min(plan["s_chunk"], P - s0), st0 * R,
+                    min(int(num_rows), st1 * R)))
+    return out
 
 
 def nat_gate_admits(num_rows: int, num_features: int, itemsize: int) -> bool:
@@ -137,20 +225,30 @@ def build_hist_nat(nat_tiles: torch.Tensor, g: torch.Tensor,
         if nat_tiles.device.type == "cpu":
             return build_hist_nat_plain(nat_tiles, g, h, sel, shift, P, B,
                                         F, reduce)
+        if not nat_tiles.is_contiguous():
+            raise ValueError("nat_tiles must be contiguous")
         dev = nat_tiles.device
         N = g.shape[0]
         n_pad = nat_tiles.shape[1]
         g = g.to(torch.float32).contiguous()
         h = h.to(torch.float32).contiguous()
         sel = sel.to(torch.int32).contiguous()
+        hist.check_aligned("build_hist_nat", nat_tiles, g, h, sel)
+        isz = nat_tiles.element_size()
+        if n_pad * isz % 16 or n_pad < N:
+            raise ValueError("build_hist_nat: each feature's row of "
+                             "nat_tiles must hold every row in whole 16 "
+                             "bytes (natural_tiles pads to 512-row tiles)")
         acc = torch.zeros((P, 3, F, B), dtype=torch.int64, device=dev)
         out = (None if reduce is not None else
                torch.empty((P, 3, F, B), dtype=torch.float32, device=dev))
+        plan = nat_plan(N, F, B, P, isz, *cuda_build.device_limits(dev))
         cuda_build.launch_hist(
-            "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev,
-            nat_tiles.data_ptr(), nat_tiles.element_size(), n_pad,
-            g.data_ptr(), h.data_ptr(), sel.data_ptr(), N, acc.data_ptr(),
-            F, B, P, shift.data_ptr(), hist.out_ptr(out))
+            "nat", cuda_build.lib("hist_nat").dryad_hist_nat, dev, plan,
+            nat_tiles.data_ptr(), isz, n_pad, g.data_ptr(), h.data_ptr(),
+            sel.data_ptr(), N, acc.data_ptr(), F, B, P, plan["f_chunk"],
+            plan["s_chunk"], plan["stage_rows"], plan["grid"], plan["smem"],
+            shift.data_ptr(), hist.out_ptr(out))
         return out if out is not None else hist.finish(acc, shift, reduce)
 
 

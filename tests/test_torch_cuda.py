@@ -1243,3 +1243,179 @@ def test_wired_census_on_card_equals_cpu_goldens(cuda_device):
     assert arm.census.kernels == {"hist_tiles": 7, "permute_records": 6}
     assert arm.census.row_sorts == 0 and not arm.census.collectives
     assert arm.census.syncs is not None
+
+
+# Edge shapes of K1 (both modes) and K3 as redesigned around asynchronous
+# copies: every row in one bin (a feature's adds all on one cell), row
+# counts that fill no whole stage and no whole 16 bytes of g, every row
+# dropped or dead, one and sixteen slots at 1024 bins (slot groups), u16
+# bins, row mode's whole records and chunk spans at each alignment, and the
+# K1 plan that quantises at the pair; each launch twice and bitwise its
+# plain version.
+
+def _edge_bins(rng, N, F, B, isz, case):
+    Xb = (np.full((N, F), B - 1) if case == "one_bin"
+          else rng.integers(0, B, (N, F)))
+    return torch.from_numpy(Xb.astype(np.int32 if isz == 2 else np.uint8))
+
+
+def _edge_weights(rng, N):
+    return (torch.from_numpy(rng.normal(size=N).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0.1, 1, N).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,B,P,isz,case", [
+    (40_077, 28, 256, 8, 1, "one_bin"),
+    (3, 28, 256, 8, 1, "random"),          # under 16 bytes of g
+    (5_003, 28, 256, 8, 1, "dropped"),     # every row dropped
+    (20_011, 6, 1024, 1, 2, "random"),     # u16, one slot
+    (20_011, 6, 1024, 16, 2, "random"),    # u16, slot groups
+    (70_001, 3, 256, 16, 2, "one_bin"),
+])
+def test_nat_kernel_edge_shapes(cuda_device, N, F, B, P, isz, case):
+    rng = np.random.default_rng(N + P)
+    nat = hist_nat.natural_tiles(_edge_bins(rng, N, F, B, isz, case))
+    g, h = _edge_weights(rng, N)
+    sel = rng.integers(0, P, N).astype(np.int32)
+    sel[::5] = hist_nat.NAT_DROP
+    if case == "dropped":
+        sel[:] = hist_nat.NAT_DROP
+    sel = torch.from_numpy(sel)
+    shift = hist.fixed_point_shift(g, h)
+
+    def run(nt, gg, hh, ss, sh):
+        return hist_nat.build_hist_nat(nt, gg, hh, ss, sh, total_bins=B,
+                                       num_features=F, num_cols=P)
+
+    got = _twice_and_plain(
+        run, [t.to(cuda_device) for t in (nat, g, h, sel, shift)],
+        (nat, g, h, sel, shift))
+    assert bool(got.any()) == (case != "dropped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,B,isz,P,case", [
+    (30_011, 28, 256, 1, 5, "one_bin"),
+    (30_011, 28, 256, 1, 1, "random"),     # the root
+    (20_011, 28, 1024, 2, 4, "random"),    # u16: 6 features a block
+    (20_011, 54, 256, 1, 3, "random"),     # g and h quantised at the pair
+    (20_011, 28, 256, 1, 3, "dead"),       # every row's valid flag 0
+])
+def test_hist_tiles_edge_shapes(cuda_device, N, F, B, isz, P, case):
+    rng = np.random.default_rng(N + F)
+    g, h = _edge_weights(rng, N)
+    valid = torch.zeros(N, dtype=torch.bool) if case == "dead" else None
+    rec_nat = leafperm.make_layout_records(
+        _edge_bins(rng, N, F, B, isz, case), g, h, valid).numpy()
+    rec, lt, _ = grouped_layout(rec_nat, rng.integers(0, P, N), P)
+    rec = torch.from_numpy(rec)
+    src = torch.arange(rec.shape[0] // T, dtype=torch.int32)
+    tl = torch.from_numpy(np.repeat(np.arange(P), lt).astype(np.int32))
+    shift = hist.fixed_point_shift(g, h)
+
+    def run(r, s, t, sh):
+        return hist.hist_tiles(r, s, t, P, B, F, isz, sh)
+
+    got = _twice_and_plain(
+        run, [t.to(cuda_device) for t in (rec, src, tl, shift)],
+        (rec, src, tl, shift))
+    assert bool(got.any()) == (case != "dead")
+
+
+@pytest.mark.cuda
+def test_hist_tiles_map_follows_buffer_and_width(cuda_device):
+    """K1's layout mode encodes a buffer's tensor map once and reuses it
+    while the buffer, its rows and the staged width stay: calls that
+    alternate two buffers of one shape, then read fewer features of the
+    first, each equal their plain version."""
+    rng = np.random.default_rng(7)
+    N, F, B, P = 20_011, 28, 256, 3
+    g, h = _edge_weights(rng, N)
+    shift = hist.fixed_point_shift(g, h)
+    leaf = rng.integers(0, P, N)
+    recs = []
+    for _ in range(2):
+        rec_nat = leafperm.make_layout_records(
+            _edge_bins(rng, N, F, B, 1, "random"), g, h, None).numpy()
+        rec, lt, _ = grouped_layout(rec_nat, leaf, P)
+        recs.append(torch.from_numpy(rec))
+    src = torch.arange(recs[0].shape[0] // T, dtype=torch.int32)
+    tl = torch.from_numpy(np.repeat(np.arange(P), lt).astype(np.int32))
+    on_card = [r.to(cuda_device) for r in recs]
+    args = [t.to(cuda_device) for t in (src, tl, shift)]
+    for i, f in ((0, F), (1, F), (0, F), (0, 8), (1, 8)):
+        got = hist.hist_tiles(on_card[i], *args[:2], P, B, f, 1, args[2])
+        plain = hist.hist_tiles(recs[i], src, tl, P, B, f, 1, shift)
+        assert torch.equal(got.cpu(), plain), (i, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,B,isz,P,case", [
+    (20_011, 28, 256, 1, 5, "one_bin"),    # 36-byte rows, 4-byte aligned
+    (20_011, 8, 256, 1, 3, "random"),      # 16-byte rows, aligned
+    (20_011, 136, 256, 1, 3, "random"),    # 5 chunks: spans, g and h apart
+    (9_001, 6, 1024, 2, 16, "random"),     # u16 at 1024 bins
+    (20_011, 28, 256, 1, 4, "empty"),      # every plan slot empty
+])
+def test_hist_rows_edge_shapes(cuda_device, N, F, B, isz, P, case):
+    rng = np.random.default_rng(N + F + P)
+    Xb = _edge_bins(rng, N, F, B, isz, case)
+    g, h = _edge_weights(rng, N)
+    sel = torch.from_numpy(rng.integers(0, P + 1, N))
+    if case == "empty":
+        sel[:] = P
+    buf, tl, _ = tile_plan.tile_plan(sel, N, P)
+    rec = tile_plan.make_records(Xb, g, h)
+    shift = hist.fixed_point_shift(g, h)
+
+    def run(r, b, t, s):
+        return hist.hist_rows(r, b, t, P, B, F, isz, s)
+
+    got = _twice_and_plain(
+        run, [t.to(cuda_device) for t in (rec, buf, tl, shift)],
+        (rec, buf, tl, shift))
+    assert bool(got.any()) == (case != "empty")
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` on the card starting 4 bytes into its
+    storage: not 16-byte aligned."""
+    flat = torch.empty(t.numel() * t.element_size() + 4, dtype=torch.uint8,
+                       device=t.device)
+    out = flat[4:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layout", "rows", "nat"])
+def test_kernels_refuse_unaligned_inputs(cuda_device, kind):
+    """The kernels' asynchronous copies need 16-byte aligned inputs: a view
+    that is not aligned raises, and nothing is copied to make it so."""
+    from dryad_tpu_torch.engine import cuda_build
+
+    rng = np.random.default_rng(3)
+    N, F, B, P = 5000, 28, 256, 3
+    Xb = _edge_bins(rng, N, F, B, 1, "random")
+    g, h = (t.to(cuda_device) for t in _edge_weights(rng, N))
+    shift = hist.fixed_point_shift(g, h)
+    sel = torch.from_numpy(rng.integers(0, P, N)).to(cuda_device)
+    before = dict(cuda_build.counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kind == "layout":
+            rec = leafperm.make_layout_records(Xb.to(cuda_device), g, h)
+            rec = torch.cat([rec, rec.new_zeros(((-N) % T, 128))])
+            src = torch.arange(rec.shape[0] // T, device=cuda_device)
+            hist.hist_tiles(_unaligned(rec), src, torch.zeros_like(src), 1,
+                            B, F, 1, shift)
+        elif kind == "rows":
+            rec = tile_plan.make_records(Xb.to(cuda_device), g, h)
+            buf, tl, _ = tile_plan.tile_plan(sel, N, P)
+            hist.hist_rows(_unaligned(rec), buf, tl, P, B, F, 1, shift)
+        else:
+            xt = hist_nat.natural_tiles(Xb.to(cuda_device))
+            hist_nat.build_hist_nat(xt, _unaligned(g), h, sel.to(torch.int32),
+                                    shift, total_bins=B, num_features=F,
+                                    num_cols=P)
+    assert cuda_build.counts == before
